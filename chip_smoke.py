@@ -8,22 +8,31 @@ printing the ok line):
 
 1. the card: name and power limit (nvidia-smi), torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN so fp32 references stay fp32;
-2. the build: every kernel of the serving path is compiled from
-   ``src/repro_torch/kernels/csrc/`` into ``build/kernels/`` (one nvcc per
-   source, all at once);
-3. kernels against their plain PyTorch versions on the card, at the three
-   full-width head layouts of the deployment (16/16, 16/2, 48/8; hd 128)
-   in bf16 and fp32, plus the decode kernel's bitwise batch-invariance
-   check; then each kernel is timed with CUDA events beside its plain
-   version and one PyTorch library call for the same function;
+2. the build: every kernel of the port (flash_attention, decode_attention,
+   topk_cosine) is compiled from ``src/repro_torch/kernels/csrc/`` into
+   ``build/kernels/`` (one nvcc per source, all at once);
+3. kernels against their plain PyTorch versions on the card: the attention
+   kernels at the three full-width head layouts of the deployment
+   (16/16, 16/2, 48/8; hd 128) in bf16 and fp32, plus the decode kernel's
+   bitwise batch-invariance check; the top-k kernel at Q in {1, 8, 64,
+   130}, N in {1, 3, 64, 20,000, 1,000,000}, k in {1, 4, 32} with planted
+   exact ties and zero rows, plus its bitwise invariance to the batch and
+   to the split count, and once through ``ops.batch_topk`` with a host
+   bank (the ``pallas`` index backend, which uploads the bank every call);
+   then each kernel is timed with CUDA events beside its plain version and
+   one PyTorch library call for the same function;
 4. the model on the card against the model on the CPU: each arch at full
    width, depth cut to 2 layers, fp32, same weights;
 5. serving: ``build_engines(DEFAULT, full=True)`` — nemotron-4-15b,
    olmo-1b and qwen2.5-3b at full published width in bf16, random weights
-   from a fixed seed — then the ``apc`` agent on 16 FinanceBench tasks
-   (seed 0). The kernels' launch counters are set to 0 just before and
-   read just after; both must have risen, and the run must see at least
-   one plan-cache hit and one miss.
+   from a fixed seed — then three runs of 16 FinanceBench tasks (seed 0)
+   on those engines, each with a fresh agent: ``apc`` with exact matching;
+   ``apc`` with fuzzy matching at 0.6 on the ``device`` index (a bank on
+   the card searched by the top-k kernel); and the ``semantic`` baseline on
+   the ``device`` index. Before each run the kernels' launch counters are
+   set to 0, and they are read just after: every kernel of the run's path
+   must have risen. Each run's hits, accuracy and cost must equal the
+   reference's on the CPU (tests/test_torch_agent.py).
 
 Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -45,11 +54,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 LAYOUTS = {"olmo-1b": (16, 16, 128), "qwen2.5-3b": (16, 2, 128),
            "nemotron-4-15b": (48, 8, 128)}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain: sums in another order
 N_TASKS = 16
+TOPK_TOL = 1e-5  # kernel (fp32 FMA chain) vs plain (float64 sum rounded to fp32)
+# (name, AgentConfig fields, the reference's (hits, accuracy, cost) on the
+# same 16 tasks, and the kernels the run's path must launch)
+SERVE_RUNS = (
+    ("exact", {"method": "apc"}, (2, 0.875, 0.2987),
+     ("flash_attention", "decode_attention")),
+    ("fuzzy", {"method": "apc", "fuzzy": True, "fuzzy_threshold": 0.6,
+               "index_backend": "device"}, (3, 0.8125, 0.2804),
+     ("flash_attention", "decode_attention", "topk_cosine")),
+    ("semantic", {"method": "semantic", "index_backend": "device"}, (2, 0.8125, 0.2953),
+     ("flash_attention", "decode_attention", "topk_cosine")),
+)
 
 
 def log(*a):
@@ -107,15 +129,15 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def check_kernels(torch):
-    """Phase 3: every kernel against its plain version. Returns the max
-    abs error per kernel."""
+    """Phase 3: the attention kernels against their plain versions. Returns
+    the max abs error and the number of checks per kernel."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(0)
     err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    n = 0
+    n = {"flash_attention": 0, "decode_attention": 0}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
         tol = TOL[dname]
@@ -139,7 +161,7 @@ def check_kernels(torch):
                                 f"flash_attention {dname} {arch} S={S} B={B} "
                                 f"causal={causal}: max abs err {e} > {tol}")
                         err["flash_attention"] = max(err["flash_attention"], e)
-                        n += 1
+                        n["flash_attention"] += 1
             M = 192
             for lens in ((1, 100, 192), (192,), (37,)):
                 B = len(lens)
@@ -154,7 +176,7 @@ def check_kernels(torch):
                     raise AssertionError(f"decode_attention {dname} {arch} lengths="
                                          f"{lens}: max abs err {e} > {tol}")
                 err["decode_attention"] = max(err["decode_attention"], e)
-                n += 1
+                n["decode_attention"] += 1
                 for b in range(B):  # batch invariance: bitwise
                     ob = decode_attention(q[b:b + 1], ck[b:b + 1], cv[b:b + 1], L[b:b + 1])
                     if not torch.equal(ob, o[b:b + 1]):
@@ -163,7 +185,186 @@ def check_kernels(torch):
                             "of the batch differs from the row decoded alone")
     log(f"[kernels] {n} checks passed; max abs err {err} "
         f"(tolerance bf16 {TOL['bfloat16']}, fp32 {TOL['float32']})")
+    return err, n
+
+
+def _topk_bank(torch, n, g):
+    """(n, 384) unit rows on the card with planted exact ties and zero rows
+    (the positions that fall inside n): row 1 and rows 19,999 and 999,999
+    repeat row 0; rows 40 and 63 repeat row 5; rows 2, 50-53 and
+    10,000-10,003 are zero."""
+    b = torch.randn(n, 384, generator=g, device="cuda")
+    b /= b.norm(dim=1, keepdim=True)
+    for dup, src in ((1, 0), (19_999, 0), (999_999, 0), (40, 5), (63, 5)):
+        if dup < n:
+            b[dup] = b[src]
+    for z in (2, 50, 51, 52, 53, 10_000, 10_001, 10_002, 10_003):
+        if z < n:
+            b[z] = 0.0
+    return b
+
+
+def _check_topk_result(s, i, rs, ri, k, label):
+    """Kernel (s, i) (Q, k) against the plain version's top-K (K >= k) on
+    the same inputs, on the host: scores within TOPK_TOL, padding where the
+    plain version pads, indices equal except inside runs of near-ties
+    (adjacent plain scores within TOPK_TOL), where the kernel's rows must
+    be the run's rows (a subset of them where the run crosses position k),
+    and bitwise-equal kernel scores in ascending row order. Returns the max
+    abs score error."""
+    import numpy as np
+
+    if not (np.all((i >= 0) == (ri[:, :k] >= 0))):
+        raise AssertionError(f"topk_cosine {label}: padding differs from the plain version")
+    valid = ri[:, :k] >= 0
+    err = float(np.abs(s - rs[:, :k])[valid].max()) if valid.any() else 0.0
+    if not err <= TOPK_TOL:
+        raise AssertionError(f"topk_cosine {label}: max abs score err {err} > {TOPK_TOL}")
+    for qi in range(s.shape[0]):
+        j = 0
+        while j < k and ri[qi, j] >= 0:
+            e = j + 1
+            while (e < ri.shape[1] and ri[qi, e] >= 0
+                   and rs[qi, e - 1] - rs[qi, e] <= TOPK_TOL):
+                e += 1
+            got, want = set(i[qi, j:min(e, k)].tolist()), set(ri[qi, j:e].tolist())
+            if not (got == want if e <= k else got <= want):
+                raise AssertionError(
+                    f"topk_cosine {label} query {qi}: rows {sorted(got)} at positions "
+                    f"{j}..{min(e, k) - 1}, plain version {sorted(want)}")
+            j = e
+        for j in range(k - 1):
+            if i[qi, j + 1] >= 0 and s[qi, j] == s[qi, j + 1] and not i[qi, j] < i[qi, j + 1]:
+                raise AssertionError(f"topk_cosine {label} query {qi}: exact tie not "
+                                     f"lowest row first: {i[qi, j]}, {i[qi, j + 1]}")
     return err
+
+
+def check_topk(torch):
+    """Phase 3 (top-k): the cosine top-k kernel against its plain version
+    at Q in {1, 8, 64, 130}, N in {1, 3, 64, 20,000, 1,000,000}, k in
+    {1, 4, 32}; the planted ties come out lowest row first; a query's
+    result is bitwise equal alone, inside a batch of 64, and at two other
+    split counts; one call through ``ops.batch_topk`` with a host bank.
+    Returns (max abs score error, checks)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.similarity import topk_cosine
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst, n_checks = 0.0, 0
+    for N in (1, 3, 64, 20_000, 1_000_000):
+        bank = _topk_bank(torch, N, g)
+        queries = torch.randn(130, 384, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        queries[0] = bank[0]
+        queries[1] = bank[min(5, N - 1)]
+        # the plain version's top-K of all 130 queries; top-k of the first
+        # Q queries is its prefix (the order is total)
+        K = min(N, 48)
+        rs, ri = (x.cpu().numpy() for x in ref.topk_cosine_ref(queries, bank, K))
+        for Q in (1, 8, 64, 130):
+            for k in (1, 4, 32):
+                s, i = topk_cosine(queries[:Q], bank, k)
+                torch.cuda.synchronize()
+                s, i = s.cpu().numpy(), i.cpu().numpy()
+                pad_s, pad_i = rs[:Q], ri[:Q]
+                if K < k:  # N < k: the plain version pads past N
+                    pad_s = np.pad(pad_s, ((0, 0), (0, k - K)), constant_values=-1e30)
+                    pad_i = np.pad(pad_i, ((0, 0), (0, k - K)), constant_values=-1)
+                label = f"Q={Q} N={N} k={k}"
+                worst = max(worst, _check_topk_result(s, i, pad_s, pad_i, k, label))
+                expect = [r for r in (0, 1, 19_999, 999_999) if r < N][:k]
+                if list(i[0, :len(expect)]) != expect:
+                    raise AssertionError(f"topk_cosine {label}: planted ties of query 0 "
+                                         f"came out {list(i[0, :len(expect)])}, want {expect}")
+                n_checks += 1
+        if N >= 20_000:  # batch and split invariance, bitwise
+            for k in (4, 32):
+                s64, i64 = topk_cosine(queries[:64], bank, k)
+                variants = [topk_cosine(queries[:64], bank, k, n_split=ns) for ns in (7, 1000)]
+                alone = [topk_cosine(queries[j:j + 1], bank, k) for j in range(64)]
+                variants.append((torch.cat([a for a, _ in alone]),
+                                 torch.cat([b for _, b in alone])))
+                for vs, vi in variants:
+                    if not (torch.equal(vs, s64) and torch.equal(vi, i64)):
+                        raise AssertionError(f"topk_cosine N={N} k={k}: result depends on "
+                                             "the batch or the split count")
+                n_checks += 1
+        del bank
+    # the `pallas` index backend at the agent's shape: 8 padded queries
+    # against the 64-row host arena, uploaded by ops.batch_topk every call
+    bank = _topk_bank(torch, 64, g)
+    q = torch.randn(8, 384, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    q[0] = bank[0]
+    before = topk_cosine.launches
+    s, i = ops.batch_topk(q, bank.cpu().numpy(), k=1)
+    if topk_cosine.launches != before + 1:
+        raise AssertionError("topk_cosine: ops.batch_topk on a host bank did not launch")
+    rs, ri = (x.cpu().numpy() for x in ref.topk_cosine_ref(q, bank, 8))
+    worst = max(worst, _check_topk_result(s.cpu().numpy(), i.cpu().numpy(), rs, ri, 1,
+                                          "ops.batch_topk host bank Q=8 N=64 k=1"))
+    if int(i[0, 0]) != 0:
+        raise AssertionError(f"topk_cosine ops.batch_topk: query 0 came out {int(i[0, 0])}")
+    n_checks += 1
+    q = torch.zeros(0, 384, device="cuda")
+    before = topk_cosine.launches
+    s, i = topk_cosine(q, torch.zeros(5, 384, device="cuda"), 4)
+    if topk_cosine.launches != before or s.shape != (0, 4):
+        raise AssertionError("topk_cosine: Q = 0 must return without a launch")
+    try:
+        topk_cosine(torch.zeros(1, 384, device="cuda"), torch.zeros(5, 384, device="cuda"), 33)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("topk_cosine: k = 33 must raise")
+    log(f"[kernels] topk_cosine: {n_checks} checks passed; max abs score err {worst:.3e} "
+        f"(tolerance {TOPK_TOL})")
+    return worst, n_checks
+
+
+def time_topk(torch):
+    """Phase 3b (top-k): kernel, plain version and library call
+    (``torch.topk(q @ bank.T, k)``) at the agent path's shape (Q = 8 padded,
+    the 64-row arena, k = 1) and at the index's scale shapes; then the
+    ``pallas`` backend's call at the agent's shape, ``ops.batch_topk`` with
+    the bank on the host, whose upload the three versions all pay (the
+    bound counts the card's memory only)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.similarity import topk_cosine
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for Q, N, k in ((8, 64, 1), (8, 20_000, 1), (64, 20_000, 4), (8, 1_000_000, 1),
+                    (64, 1_000_000, 4)):
+        bank = _topk_bank(torch, N, g)
+        q = torch.randn(Q, 384, generator=g, device="cuda")
+        q /= q.norm(dim=1, keepdim=True)
+        nbytes = 4 * (Q * 384 + N * 384) + 8 * Q * k
+        bms, by = bound(nbytes, 2 * Q * N * 384, PEAK_FP32_FLOPS)
+        rows.append(_timed(
+            torch, "topk_cosine", "index", f"Q={Q} N={N} k={k} D=384 fp32",
+            lambda: topk_cosine(q, bank, k),
+            lambda: ref.topk_cosine_ref(q, bank, k),
+            lambda: torch.topk(q @ bank.T, k, dim=1),
+            bms, by))
+        del bank
+    Q, N, k = 8, 64, 1
+    host = _topk_bank(torch, N, g).cpu().numpy()
+    q = torch.randn(Q, 384, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    bms, by = bound(4 * (Q * 384 + N * 384) + 8 * Q * k, 2 * Q * N * 384, PEAK_FP32_FLOPS)
+    rows.append(_timed(
+        torch, "topk_cosine", "index, host bank", f"Q={Q} N={N} k={k} D=384 fp32",
+        lambda: ops.batch_topk(q, host, k=k),
+        lambda: ref.topk_cosine_ref(q, torch.from_numpy(host).to("cuda"), k),
+        lambda: torch.topk(q @ torch.from_numpy(host).to("cuda").T, k, dim=1),
+        bms, by))
+    for r in rows:
+        log("[timing] " + json.dumps(r))
+    return rows
 
 
 def _timed(torch, kernel, arch, shape, fn, plain, library, bound_ms, bound_by):
@@ -263,18 +464,10 @@ def check_model(torch):
         torch.cuda.empty_cache()
 
 
-def serve(torch):
-    """Phase 5: the paper's deployment served on the card."""
-    import numpy as np
-
+def build_deployment(torch):
+    """Phase 5a: the paper's deployment on the card, at full width."""
     from repro_torch.configs.apc_minion import DEFAULT
-    from repro_torch.core.agent_loop import AgentConfig, PlanActAgent
-    from repro_torch.core.cost_model import CostLedger
-    from repro_torch.envs.finance import get_env
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import build_engines
-    from repro_torch.serving.torch_backend import TorchBackend
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -287,50 +480,97 @@ def serve(torch):
     }
     log(f"[serve] engines built in {init_s:.1f}s; params {n_params}; "
         f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return engines, init_s
+
+
+def serve(torch, engines, name, agent_cfg, expect, path_kernels):
+    """Phase 5b: 16 FinanceBench tasks through a fresh agent on the shared
+    engines. The kernels' launch counters are set to 0 just before the run
+    and read just after; hits, accuracy and cost must equal the
+    reference's (``expect``)."""
+    from repro_torch.configs.apc_minion import DEFAULT
+    from repro_torch.core.agent_loop import AgentConfig, PlanActAgent
+    from repro_torch.core.cost_model import CostLedger
+    from repro_torch.envs.finance import get_env
+    from repro_torch.serving.torch_backend import TorchBackend
+
+    kernels = _kernel_launchers()
     backend = TorchBackend(engines, seed=0)
     ledger = CostLedger(pricing_map=dict(DEFAULT.pricing))
-    agent = PlanActAgent(backend, ledger, AgentConfig(method="apc", cache_capacity=100))
+    agent = PlanActAgent(backend, ledger, AgentConfig(cache_capacity=100, **agent_cfg))
     tasks = get_env("financebench").generate(N_TASKS, seed=0)
+    uniq = {id(e): e for e in engines.values()}.values()
+    before = {id(e): dataclasses.replace(e.stats) for e in uniq}
 
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     recs = [agent.run_task(t) for t in tasks]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = {n: fn.launches for n, fn in kernels.items()}
 
     hits = sum(r.hit for r in recs)
-    if not (1 <= hits < len(recs)):
-        raise AssertionError(f"serve: {hits} hits of {len(recs)}; need a hit and a miss")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"serve: kernel {name} was not launched")
-    engine_s = sum(e.stats.prefill_s + e.stats.decode_s
-                   for e in {id(e): e for e in engines.values()}.values())
+    accuracy = sum(r.correct for r in recs) / len(recs)
+    got = (hits, accuracy, round(ledger.total_cost(), 4))
+    if got != tuple(expect):
+        raise AssertionError(f"serve {name}: (hits, accuracy, cost) {got}, "
+                             f"reference {tuple(expect)}")
+    for n in path_kernels:
+        if launches[n] <= 0:
+            raise AssertionError(f"serve {name}: kernel {n} was not launched")
+    store = getattr(agent._method, "store", agent.cache)
+    lookups = store.stats.hits + store.stats.misses
+    deltas = {}
+    for role, e in engines.items():
+        b = before[id(e)]
+        d = {f: getattr(e.stats, f) - getattr(b, f)
+             for f in ("prefill_tokens", "decode_tokens", "prefill_s", "decode_s")}
+        deltas[role] = {"arch": e.cfg.name, **d,
+                        "prefill_tok_s": d["prefill_tokens"] / d["prefill_s"] if d["prefill_s"] else 0.0,
+                        "decode_tok_s": d["decode_tokens"] / d["decode_s"] if d["decode_s"] else 0.0}
+    engine_s = sum(e.stats.prefill_s + e.stats.decode_s - before[id(e)].prefill_s
+                   - before[id(e)].decode_s for e in uniq)
     out = {
-        "tasks": len(recs), "hits": hits, "hit_rate": hits / len(recs),
-        "accuracy": sum(r.correct for r in recs) / len(recs),
-        "cost_usd": ledger.total_cost(), "wall_s": wall, "engine_s": engine_s,
-        "init_s": init_s, "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "run": name, "agent": agent_cfg, "tasks": len(recs), "hits": hits,
+        "hit_rate": hits / len(recs), "accuracy": accuracy, "cost_usd": ledger.total_cost(),
+        "wall_s": wall, "wall_per_task_s": wall / len(recs), "engine_s": engine_s,
         "launches": launches,
+        "launches_per_task": {n: v / len(recs) for n, v in launches.items()},
+        "lookups": lookups, "lookup_s_per_lookup": store.stats.lookup_time_s / max(1, lookups),
         "calls": {role: u.calls for role, u in sorted(ledger.usage.items())},
-        "engines": {
-            role: {"arch": e.cfg.name, "prefill_tokens": e.stats.prefill_tokens,
-                   "decode_tokens": e.stats.decode_tokens,
-                   "prefill_s": e.stats.prefill_s, "decode_s": e.stats.decode_s,
-                   **{f"{k}_tok_s": v for k, v in e.measured_rates().items() if k != "rtt"}}
-            for role, e in engines.items()
-        },
+        "engines": deltas,
     }
-    # what comes out is right: finite logits of the expected shape on every engine
-    tok = np.asarray([backend.tok.encode(tasks[0].query)], np.int32)
+    log(f"[serve] {name}: {len(recs)} tasks, accuracy {accuracy:.4f}, hits {hits}, cost "
+        f"${ledger.total_cost():.4f}, wall {wall:.1f}s ({wall / len(recs):.2f}s a task), "
+        f"launches {launches}, lookup {out['lookup_s_per_lookup'] * 1e3:.3f} ms each "
+        f"over {lookups} lookups")
+    return out
+
+
+def check_outputs(torch, engines):
+    """What comes out is right: finite logits of the expected shape on
+    every engine."""
+    import numpy as np
+
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.envs.finance import get_env
+
+    task = get_env("financebench").generate(1, seed=0)[0]
+    tok = np.asarray([HashTokenizer().encode(task.query)], np.int32)
     for e in {id(e): e for e in engines.values()}.values():
         logits, _ = e.prefill(tok)
         if tuple(logits.shape) != (1, e.cfg.vocab_size) or not torch.isfinite(logits).all():
             raise AssertionError(f"serve: {e.cfg.name} logits {tuple(logits.shape)} not finite")
-    return out
+
+
+def _kernel_launchers():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.similarity import topk_cosine
+
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "topk_cosine": topk_cosine}
 
 
 def _leaves(tree):
@@ -371,33 +611,47 @@ def main() -> int:
         log(f"[build] {n}: {regs[:2]}")
 
     # phase 3: kernels against their plain versions, then timings
-    err = check_kernels(torch)
-    timing = time_kernels(torch)
+    err, checks = check_kernels(torch)
+    err["topk_cosine"], checks["topk_cosine"] = check_topk(torch)
+    timing = time_kernels(torch) + time_topk(torch)
 
     # phase 4: the model on the card against the CPU
     check_model(torch)
 
-    # phase 5: serving
-    srv = serve(torch)
+    # phase 5: serving, one run per path on the same engines
+    engines, init_s = build_deployment(torch)
+    runs = {name: serve(torch, engines, name, cfg, expect, path)
+            for name, cfg, expect, path in SERVE_RUNS}
+    check_outputs(torch, engines)
+    srv = {"init_s": init_s,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "runs": runs}
 
-    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:102"),
-               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:95")}
+    # per kernel: the representative shape of its path (the attention
+    # kernels: nemotron's layout; top-k: the agent's 8 padded queries against
+    # the 64-row arena, k = 1), and its launches in its path's run
+    sources = {
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:102", "nemotron-4-15b", "exact"),
+        "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:95", "nemotron-4-15b",
+                             "exact"),
+        "topk_cosine": ("src/repro_torch/kernels/csrc/topk_cosine.cu",
+                        "src/repro/kernels/similarity.py:101", "index", "fuzzy"),
+    }
     kernels = []
-    for name, (src, replaces) in sources.items():
-        # the representative shape: the largest attention of the path (nemotron)
-        row = next(r for r in timing if r["kernel"] == name and r["arch"] == "nemotron-4-15b")
+    for name, (src, replaces, arch, run) in sources.items():
+        row = next(r for r in timing if r["kernel"] == name and r["arch"] == arch)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": srv["launches"][name], "max_abs_err": err[name],
+            "launches": runs[run]["launches"][name], "max_abs_err": err[name],
+            "checks": checks[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"],
+            "shape": row["shape"], "path_run": run,
         })
-    log(f"[serve] {srv['tasks']} tasks: accuracy {srv['accuracy']:.3f}, hit rate "
-        f"{srv['hit_rate']:.3f}, cost ${srv['cost_usd']:.4f}, wall {srv['wall_s']:.1f}s, "
-        f"peak memory {srv['max_memory_allocated_gib']:.2f} GiB, launches {srv['launches']}")
+    log(f"[serve] engines {init_s:.1f}s, peak memory "
+        f"{srv['max_memory_allocated_gib']:.2f} GiB")
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))

@@ -48,6 +48,11 @@ class AgentConfig:
     method: str = "apc"
     max_iterations: int = 10
     cache_capacity: int = 100
+    fuzzy: bool = False
+    fuzzy_threshold: float = 0.8
+    semantic_threshold: float = 0.85
+    index_backend: str = "auto"  # repro_torch.index backend for fuzzy/semantic search
+    index_device: Optional[str] = None  # where that index searches; None = CUDA
     async_cachegen: bool = False  # beyond-paper: don't block on cache writes
 
 
@@ -67,8 +72,16 @@ class PlanActAgent:
         self.ledger = ledger
         self.cfg = config
         # NB: `cache is not None` — an empty PlanCache is falsy
-        self.cache = cache if cache is not None else PlanCache(config.cache_capacity)
+        self.cache: Optional[PlanCache] = cache
         self._method = make_method(config.method, self)
+        if self.cache is None:
+            self.cache = PlanCache(
+                capacity=config.cache_capacity,
+                fuzzy=config.fuzzy,
+                fuzzy_threshold=config.fuzzy_threshold,
+                index_backend=config.index_backend,
+                device=config.index_device,
+            )
 
     # ==================================================================
     # Algorithm 1: end-to-end (registry dispatch, no method branching)

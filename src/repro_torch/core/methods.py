@@ -1,12 +1,13 @@
 """Agent run-strategies (trimmed copy of ``repro.core.methods``): the
-registered ``apc`` method and the one ``record`` accounting path.
+registered methods and the one ``record`` accounting path.
 
-  apc   Alg.1: keyword -> cache -> Alg.2 (hit, small planner adapts the
-        template) / Alg.3 (miss, large planner plans from scratch; the
-        successful log is distilled into the cache)
+  apc       Alg.1: keyword -> cache -> Alg.2 (hit, small planner adapts the
+            template) / Alg.3 (miss, large planner plans from scratch; the
+            successful log is distilled into the cache)
+  semantic  GPTCache-style query-similarity cache of final responses
 
-The reference's baselines (semantic, full_history, cascade, speculative)
-are not on the serving path and are not copied.
+The reference's other methods (accuracy_optimal, cost_optimal,
+full_history, cascade, speculative) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional, Type
 
+from repro_torch.core.cache import PlanCache
 from repro_torch.core.template import PlanTemplate, make_template
 from repro_torch.envs.base import Task, judge
 
@@ -25,6 +27,11 @@ class AgentMethod:
 
     def __init__(self, agent: Any):
         self.agent = agent
+        self.setup()
+
+    def setup(self) -> None:
+        """Runs once at agent construction (before the agent's own cache
+        is built)."""
 
     def run(self, task: Task):
         raise NotImplementedError
@@ -75,6 +82,47 @@ def record(
         task.id, method, correct, hit, keyword, iterations, answer,
         agent.ledger.total_cost(), latency_s, lookup_s, gen_s,
     )
+
+
+@register_method("semantic")
+class SemanticMethod(AgentMethod):
+    """GPTCache semantics: cache final responses keyed by the query, served
+    on query-text similarity, through a PlanCache with an
+    ``exact -> semantic`` match pipeline."""
+
+    def setup(self) -> None:
+        cfg = self.agent.cfg
+        self.store: PlanCache = PlanCache(
+            capacity=1_000_000,  # the baseline never evicts
+            pipeline=("exact", "semantic"),
+            semantic_threshold=cfg.semantic_threshold,
+            index_backend=cfg.index_backend,
+            device=cfg.index_device,
+        )
+
+    def run(self, task: Task):
+        agent = self.agent
+        t0 = time.perf_counter()
+        hit_val = self.store.lookup(task.query)
+        lookup_s = time.perf_counter() - t0
+        if hit_val is not None:
+            # cached final response returned verbatim (GPTCache semantics):
+            # correct only if the numeric answer transfers to THIS task
+            answer = hit_val[1]
+            return record(
+                agent, task, self.name,
+                correct=judge(answer, task.gt_answer), hit=True, keyword="",
+                iterations=0, answer=answer, latency_s=lookup_s,
+                lookup_s=lookup_s,
+            )
+        answer, iters, _, lat = agent._loop_scratch(task, large=True)
+        self.store.insert(task.query, (task.query, answer))
+        return record(
+            agent, task, self.name,
+            correct=judge(answer, task.gt_answer), hit=False, keyword="",
+            iterations=iters, answer=answer, latency_s=lat + lookup_s,
+            lookup_s=lookup_s,
+        )
 
 
 @register_method("apc")

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.similarity import topk_cosine
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0.0):
@@ -41,3 +42,33 @@ def decode_attention_op(q, cache_k, cache_v, lengths, *, logit_softcap: float = 
     if logit_softcap:
         raise ValueError("decode_attention kernel: attn_logit_softcap is not supported")
     return decode_attention(q, cache_k, cache_v, torch.as_tensor(lengths, device=q.device))
+
+
+def batch_topk(queries: torch.Tensor, bank, *, k: int = 1):
+    """Batched fuzzy lookup: queries (Q, D) against bank (N, D), rows
+    L2-normalized -> (scores (Q, k) float32, rows (Q, k) int32), one call
+    for the whole request batch; (-1e30, -1) where fewer than k rows exist.
+
+    A numpy bank is copied to the queries' device on every call (the
+    ``pallas`` index backend's per-call upload); ``resident_topk`` is the
+    variant for a bank that already lives there (``DeviceBank``)."""
+    if not isinstance(bank, torch.Tensor):
+        bank = torch.as_tensor(bank, dtype=torch.float32, device=queries.device)
+    return resident_topk(queries, bank, k=k)
+
+
+def resident_topk(queries: torch.Tensor, bank: torch.Tensor, *, k: int = 1):
+    """Top-k against a bank tensor on the queries' device: the plain
+    version for CPU tensors, the CUDA kernel for any other (it launches or
+    raises; k > 32 raises)."""
+    if queries.shape[0] == 0 or bank.shape[0] == 0:
+        return (
+            torch.full((queries.shape[0], k), ref.NEG_INF, dtype=torch.float32,
+                       device=queries.device),
+            torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=queries.device),
+        )
+    if queries.device.type == "cpu":
+        if bank.device.type != "cpu":
+            raise ValueError(f"resident_topk: queries on the CPU, bank on {bank.device}")
+        return ref.topk_cosine_ref(queries, bank, k)
+    return topk_cosine(queries, bank, k)

@@ -52,3 +52,31 @@ def decode_attention_ref(q, k, v, length, *, logit_softcap: float = 0.0):
     s = s.masked_fill(mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", p, vr).to(q.dtype)
+
+
+def topk_cosine_ref(queries: torch.Tensor, bank: torch.Tensor, k: int):
+    """queries (Q, D), bank (N, D), rows L2-normalized -> (scores (Q, k) f32,
+    indices (Q, k) int32): the k best ``q . bank[row]`` per query, in the
+    order score descending, then row ascending. ``torch.topk`` documents no
+    order among ties, so this sorts stably on the negated scores: among
+    equal scores the lowest row comes first. Past N (N < k) the result is
+    padded with (-1e30, -1); a score at or below -1e30 / 2 maps to row -1,
+    as in the TPU kernel.
+
+    Scores are the float64 dot products rounded to float32. A float32
+    matmul may sum two identical rows in different orders depending on
+    where they sit in the bank (the CPU's does), which breaks exact ties;
+    the rounded float64 sum depends on the (query, row) values alone."""
+    Q, N = queries.shape[0], bank.shape[0]
+    dev = queries.device
+    out_s = torch.full((Q, k), NEG_INF, dtype=torch.float32, device=dev)
+    out_i = torch.full((Q, k), -1, dtype=torch.int32, device=dev)
+    if Q == 0 or N == 0:
+        return out_s, out_i
+    scores = (queries.double() @ bank.double().T).float()  # (Q, N)
+    kk = min(k, N)
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :kk]
+    top = torch.gather(scores, 1, order)
+    out_s[:, :kk] = top
+    out_i[:, :kk] = torch.where(top <= NEG_INF / 2, -1, order).to(torch.int32)
+    return out_s, out_i

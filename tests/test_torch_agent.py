@@ -30,23 +30,16 @@ N_TASKS = 16
 WALL_CLOCK = ("latency_s", "cache_lookup_s")  # timed with perf_counter
 
 
-def _run(agent_cls, cfg_cls, ledger_cls, backend, pricing, tasks):
+def _run(agent_cls, cfg_cls, ledger_cls, backend, pricing, tasks, **cfg):
     ledger = ledger_cls(pricing_map=dict(pricing))
-    agent = agent_cls(backend, ledger, cfg_cls(method="apc", cache_capacity=100))
+    agent = agent_cls(backend, ledger, cfg_cls(cache_capacity=100, **{"method": "apc", **cfg}))
     return [agent.run_task(t) for t in tasks], ledger, agent
 
 
-def test_agent_run_records_match_reference():
+def _assert_same_records(recs_t, recs_j):
     """Every RunRecord field is identical except the wall-clock lookup time
-    and the latency share that includes it; the ledgers agree exactly."""
-    recs_j, led_j, ag_j = _run(JAgent, JAgentConfig, JLedger, JSim(seed=0),
-                               JDEFAULT.pricing, jget_env("financebench").generate(N_TASKS, seed=0))
-    recs_t, led_t, ag_t = _run(PlanActAgent, AgentConfig, CostLedger, SimulatedBackend(seed=0),
-                               DEFAULT.pricing, get_env("financebench").generate(N_TASKS, seed=0))
-    assert len(recs_t) == N_TASKS
-    hits = [i for i, r in enumerate(recs_t) if r.hit]
-    assert hits and len(hits) < N_TASKS  # both the hit and the miss path ran
-    for rj, rt in zip(recs_j, recs_t):
+    and the latency share that includes it."""
+    for rj, rt in zip(recs_j, recs_t, strict=True):
         dj, dt = dataclasses.asdict(rj), dataclasses.asdict(rt)
         assert set(dj) == set(dt)
         for k in dj:
@@ -54,6 +47,41 @@ def test_agent_run_records_match_reference():
                 assert dt[k] == dj[k], (rt.task_id, k)
         assert (rt.latency_s - rt.cache_lookup_s) == pytest.approx(
             rj.latency_s - rj.cache_lookup_s, rel=1e-9, abs=1e-6)
+
+
+# (tasks, the method's config, the reference's index backend, its hits,
+# accuracy and cost on FinanceBench seed 0); the port's index is always
+# `device` on the CPU
+AGENT_CASES = {
+    "exact": (16, {}, None, 2, 0.875, 0.2987),
+    "fuzzy-0.6": (16, {"fuzzy": True, "fuzzy_threshold": 0.6}, "pallas", 3, 0.8125, 0.2804),
+    "fuzzy-0.8": (64, {"fuzzy": True, "fuzzy_threshold": 0.8}, "device", 16, 0.859375, 1.0001),
+    "semantic": (16, {"method": "semantic"}, "device", 2, 0.8125, 0.2953),
+}
+
+
+@pytest.mark.parametrize("case", list(AGENT_CASES))
+def test_agent_run_records_match_reference(case):
+    """The port's agent against repro's on the same tasks: identical
+    RunRecords and ledgers, and the reference's hits, accuracy and cost.
+    The reference's fuzzy/semantic index runs its Pallas kernel in
+    interpret mode (`pallas`) or its dense device path (`device`)."""
+    n, cfg, jbackend, n_hits, acc, cost = AGENT_CASES[case]
+    jcfg, tcfg = dict(cfg), dict(cfg)
+    if jbackend is not None:
+        jcfg["index_backend"] = jbackend
+        tcfg.update(index_backend="device", index_device="cpu")
+    recs_j, led_j, ag_j = _run(JAgent, JAgentConfig, JLedger, JSim(seed=0), JDEFAULT.pricing,
+                               jget_env("financebench").generate(n, seed=0), **jcfg)
+    recs_t, led_t, ag_t = _run(PlanActAgent, AgentConfig, CostLedger, SimulatedBackend(seed=0),
+                               DEFAULT.pricing, get_env("financebench").generate(n, seed=0),
+                               **tcfg)
+    assert len(recs_t) == n
+    hits = [i for i, r in enumerate(recs_t) if r.hit]
+    assert len(hits) == n_hits and n_hits < n  # both the hit and the miss path ran
+    assert sum(r.correct for r in recs_t) / n == acc
+    assert round(led_t.total_cost(), 4) == cost
+    _assert_same_records(recs_t, recs_j)
     assert led_t.breakdown() == led_j.breakdown()
     assert len(ag_t.cache) == len(ag_j.cache)
     assert (ag_t.cache.stats.hits, ag_t.cache.stats.misses) == (
@@ -110,3 +138,25 @@ def test_torch_backend_issues_the_reference_calls():
     assert calls_t == calls_j
     assert max(len(ids[0]) for _, ids, _ in calls_t) <= 192 - 32 - 8
     assert be_t.measured_rates() == be_j.measured_rates()
+
+
+def test_torch_backend_fuzzy_run_on_smoke_engines():
+    """The fuzzy path end to end on the CPU: TorchBackend driving the three
+    DEFAULT archs' smoke engines, `apc` with fuzzy matching at 0.6 on the
+    `device` index (on the CPU), gives the reference's records."""
+    from repro_torch.launch.serve import build_engines
+
+    engines = build_engines(DEFAULT, full=False, max_len=192, device="cpu")
+    cfg = {"fuzzy": True, "fuzzy_threshold": 0.6}
+    recs_j, led_j, _ = _run(JAgent, JAgentConfig, JLedger, JSim(seed=0), JDEFAULT.pricing,
+                            jget_env("financebench").generate(N_TASKS, seed=0),
+                            index_backend="pallas", **cfg)
+    recs_t, led_t, ag_t = _run(PlanActAgent, AgentConfig, CostLedger,
+                               TorchBackend(engines, seed=0), DEFAULT.pricing,
+                               get_env("financebench").generate(N_TASKS, seed=0),
+                               index_backend="device", index_device="cpu", **cfg)
+    assert sum(r.hit for r in recs_t) == 3
+    _assert_same_records(recs_t, recs_j)
+    assert led_t.breakdown() == led_j.breakdown()
+    assert ag_t.cache.pipeline.stage("fuzzy").index.device.type == "cpu"
+    assert sum(e.stats.decode_tokens for e in {id(e): e for e in engines.values()}.values()) > 0
