@@ -9,18 +9,23 @@ printing the ok line):
 1. the card: name and power limit (nvidia-smi), torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN so fp32 references stay fp32;
 2. the build: every kernel of the port (flash_attention, decode_attention,
-   topk_cosine) is compiled from ``src/repro_torch/kernels/csrc/`` into
-   ``build/kernels/`` (one nvcc per source, all at once);
+   paged_decode_attention, topk_cosine) is compiled from
+   ``src/repro_torch/kernels/csrc/`` into ``build/kernels/`` (one nvcc per
+   source, all at once);
 3. kernels against their plain PyTorch versions on the card: the attention
    kernels at the three full-width head layouts of the deployment
    (16/16, 16/2, 48/8; hd 128) in bf16 and fp32, plus the decode kernel's
-   bitwise batch-invariance check; the top-k kernel at Q in {1, 8, 64,
-   130}, N in {1, 3, 64, 20,000, 1,000,000}, k in {1, 4, 32} with planted
-   exact ties and zero rows, plus its bitwise invariance to the batch and
-   to the split count, and once through ``ops.batch_topk`` with a host
-   bank (the ``pallas`` index backend, which uploads the bank every call);
-   then each kernel is timed with CUDA events beside its plain version and
-   one PyTorch library call for the same function;
+   bitwise batch-invariance check; the paged decode kernel at those layouts
+   and the hd 64 / hd 32 shapes of tests/test_kernels.py, page sizes 8 to
+   64, permuted pool rows, each result also bitwise equal to the dense
+   decode kernel on the gathered pages and batch-invariant; the top-k
+   kernel at Q in {1, 8, 64, 130}, N in {1, 3, 64, 20,000, 1,000,000}, k in
+   {1, 4, 32} with planted exact ties and zero rows, plus its bitwise
+   invariance to the batch and to the split count, and once through
+   ``ops.batch_topk`` with a host bank (the ``pallas`` index backend, which
+   uploads the bank every call); then each kernel is timed with CUDA events
+   beside its plain version and a PyTorch library yardstick for the same
+   function;
 4. the model on the card against the model on the CPU: each arch at full
    width, depth cut to 2 layers, fp32, same weights;
 5. serving: ``build_engines(DEFAULT, full=True)`` — nemotron-4-15b,
@@ -29,10 +34,14 @@ printing the ok line):
    on those engines, each with a fresh agent: ``apc`` with exact matching;
    ``apc`` with fuzzy matching at 0.6 on the ``device`` index (a bank on
    the card searched by the top-k kernel); and the ``semantic`` baseline on
-   the ``device`` index. Before each run the kernels' launch counters are
-   set to 0, and they are read just after: every kernel of the run's path
-   must have risen. Each run's hits, accuracy and cost must equal the
-   reference's on the CPU (tests/test_torch_agent.py).
+   the ``device`` index. Each run's hits, accuracy and cost must equal the
+   reference's on the CPU (tests/test_torch_agent.py). Then the ``prefix``
+   run on the same engines (``serve_prefix``): the paged KV prefix path of
+   a second olmo-1b engine held to a full prefill, the two-tier router
+   wired to its page pool (hits and misses pinned to the reference
+   router's), and the paged decode kernel over the pool's live pages.
+   Before each run the kernels' launch counters are set to 0, and they are
+   read just after: every kernel of the run's path must have risen.
 
 Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -72,6 +81,26 @@ SERVE_RUNS = (
     ("semantic", {"method": "semantic", "index_backend": "device"}, (2, 0.8125, 0.2953),
      ("flash_attention", "decode_attention", "topk_cosine")),
 )
+
+# the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
+# a 4-entry plan cache; each wave arrives three times in a row (the first
+# misses, the second hits and registers each template's prefix on a pool
+# miss, the third hits and reuses it); the reference router's (hits, misses)
+# on that keyword stream (tests/test_torch_router.py)
+ROUTER_CAPACITY = 4
+ROUTER_WAVE = 4
+ROUTER_REPEATS = 3
+ROUTER_EXPECT = (32, 16)
+ROUTER_NEW = 8  # tokens each planner call generates in the router run
+
+
+def router_waves(tasks):
+    """The router run's arrival waves: ``tasks`` in waves of ROUTER_WAVE,
+    each sent ROUTER_REPEATS times in a row."""
+    waves = []
+    for i in range(0, len(tasks), ROUTER_WAVE):
+        waves += [tasks[i:i + ROUTER_WAVE]] * ROUTER_REPEATS
+    return waves
 
 
 def log(*a):
@@ -432,6 +461,143 @@ def time_kernels(torch):
     return rows
 
 
+def _page_table(torch, B, P, npages, ps, lengths, seed):
+    """(B, P) int32 on the card: each sequence's pages at distinct, permuted
+    pool rows, -1 past its last page."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    table = np.full((B, P), -1, np.int32)
+    for b, ln in enumerate(lengths):
+        n = -(-ln // ps)
+        table[b, :n] = rng.choice(npages, size=n, replace=False)
+    return torch.from_numpy(table).to("cuda")
+
+
+def _gather_pages(torch, pages, table):
+    """The (B, P * ps, Hkv, hd) dense cache of the pages in table order,
+    entries below 0 clamped to row 0 (as the kernel clamps them)."""
+    B, P = table.shape
+    rows = table.clamp(min=0).long().reshape(-1)
+    return pages.index_select(0, rows).reshape(B, P * pages.shape[1], *pages.shape[2:])
+
+
+def check_paged(torch):
+    """Phase 3 (paged): the paged decode kernel against its plain version
+    at the three head layouts (hd 128; B = 4; ps in {8, 16, 32, 64}; lengths
+    1, a partial page, two full pages and the full table) and at the
+    hd 64 / hd 32 shapes of tests/test_kernels.py, in bf16 and fp32, on
+    permuted pool rows with -1 past the end. Each result is also bitwise
+    equal to the dense decode kernel on the pages gathered in table order,
+    and each row bitwise equal to that row decoded alone. Returns (max abs
+    error, checks)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+
+    cases = []  # (label, B, Hq, Hkv, hd, ps, npages, P, lengths)
+    for arch, (hq, hkv, hd) in LAYOUTS.items():
+        for ps in (8, 16, 32, 64):
+            P = -(-192 // ps)
+            cases.append((arch, 4, hq, hkv, hd, ps, 4 * P + 3, P, (1, ps + 3, 2 * ps, P * ps)))
+    cases += [("hd64", 3, 8, 2, 64, 64, 16, 4, (200, 100, 256)),
+              ("hd32", 2, 4, 4, 32, 16, 32, 8, (128, 7)),
+              ("hd64 mqa", 1, 4, 1, 64, 32, 8, 2, (33,))]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst, n = 0.0, 0
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for i, (label, B, hq, hkv, hd, ps, npages, P, lens) in enumerate(cases):
+            q = torch.randn(B, 1, hq, hd, generator=g, device="cuda").to(dt)
+            kp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+            vp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+            table = _page_table(torch, B, P, npages, ps, lens, seed=i)
+            L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            tag = f"paged_decode_attention {dname} {label} ps={ps} lengths={lens}"
+            o = paged_decode_attention(q, kp, vp, table, L)
+            r = ref.paged_attention_ref(q[:, 0], kp, vp, table, L)[:, None]
+            torch.cuda.synchronize()
+            e = (o.float() - r.float()).abs().max().item()
+            if not e <= TOL[dname]:
+                raise AssertionError(f"{tag}: max abs err {e} > {TOL[dname]}")
+            worst = max(worst, e)
+            od = decode_attention(q, _gather_pages(torch, kp, table),
+                                  _gather_pages(torch, vp, table), L)
+            if not torch.equal(o, od):
+                raise AssertionError(f"{tag}: not bitwise equal to decode_attention on "
+                                     "the cache gathered in table order")
+            for b in range(B):
+                ob = paged_decode_attention(q[b:b + 1], kp, vp, table[b:b + 1], L[b:b + 1])
+                if not torch.equal(ob, o[b:b + 1]):
+                    raise AssertionError(f"{tag}: row {b} of the batch differs from "
+                                         "the row decoded alone")
+            n += 1
+    pb = torch.zeros(2, 8, 1, 48, device="cuda")
+    t1 = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    l1 = torch.ones(1, dtype=torch.int32, device="cuda")
+    for call in (lambda: paged_decode_attention(torch.zeros(1, 1, 4, 48, device="cuda"),
+                                                pb, pb, t1, l1),
+                 lambda: ops.paged_decode_attention_op(q, kp, vp, table, L, logit_softcap=5.0)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("paged_decode_attention: head_dim 48 and a nonzero softcap "
+                             "must raise")
+    log(f"[kernels] paged_decode_attention: {n} checks passed (each also bitwise equal "
+        f"to decode_attention and batch-invariant); max abs err {worst:.3e} "
+        f"(tolerance bf16 {TOL['bfloat16']}, fp32 {TOL['float32']})")
+    return worst, n
+
+
+def time_paged(torch):
+    """Phase 3b (paged): kernel, plain version and a library yardstick at
+    the prefix path's shape with nemotron's layout: B = 4, length 168,
+    page size 32, bf16, a 64-page pool. No single PyTorch call computes
+    paged attention; the yardstick is two calls, an ``index_select`` gather
+    of the pages and ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+
+    hq, hkv, hd = LAYOUTS["nemotron-4-15b"]
+    B, ln, ps, npages = 4, 168, 32, 64
+    P = -(-ln // ps)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt, esz = torch.bfloat16, 2
+    q = torch.randn(B, 1, hq, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+    vp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+    table = _page_table(torch, B, P, npages, ps, (ln,) * B, seed=99)
+    L = torch.full((B,), ln, dtype=torch.int32, device="cuda")
+    rows = table.clamp(min=0).long().reshape(-1)
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(P * ps, device="cuda")[None, :] < L[:, None])[:, None, None, :]
+
+    def library():
+        k = kp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
+        v = vp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True)
+
+    nbytes = esz * B * hd * (2 * hq + 2 * hkv * ln) + 4 * B * (P + 1)
+    bms, by = bound(nbytes, 4 * B * hq * hd * ln, PEAK_BF16_FLOPS)
+    row = _timed(
+        torch, "paged_decode_attention", "nemotron-4-15b",
+        f"B={B} len={ln} ps={ps} P={P} pool={npages} Hq={hq} Hkv={hkv} hd={hd} bf16",
+        lambda: paged_decode_attention(q, kp, vp, table, L),
+        lambda: ref.paged_attention_ref(q[:, 0], kp, vp, table, L),
+        library, bms, by)
+    row["library"] = "index_select gather + F.scaled_dot_product_attention (two calls)"
+    # the dense decode kernel on the same pages gathered, at the same B
+    kd, vd = _gather_pages(torch, kp, table), _gather_pages(torch, vp, table)
+    row["dense_kernel_ms"], row["dense_kernel_call_ms"] = time_ms(
+        torch, lambda: decode_attention(q, kd, vd, L))
+    log("[timing] " + json.dumps(row))
+    return [row]
+
+
 def check_model(torch):
     """Phase 4: the model on the card (kernels) against the same model on
     the CPU (plain versions): full width, 2 layers, fp32, prefill of 37
@@ -548,6 +714,249 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
     return out
 
 
+def template_ids(tok, task):
+    """The token ids of a task's plan template, as the router's cache
+    generation distills it: the canonical plan of the task's intent (its
+    retrieval rounds and final computation), rendered and tokenized."""
+    it = task.intent
+    rounds = " ; ".join(f"round {n + 1}: retrieve " + ", ".join(r)
+                        for n, r in enumerate(it.rounds))
+    text = f"plan template for {it.keyword}: {rounds} ; then compute {it.expr}"
+    return tok.encode(text)
+
+
+def _prefix_parity(torch, eng, cfg_name, B, Sp, Ss, max_new, seed):
+    """One miss (full prefill + registration) and one hit (suffix-only
+    prefill) of ``generate(cache_point=)`` on a prefix engine, plus the
+    prefill logits and cache of the prefix path against a full prefill of
+    the same prompt. Returns the numbers; raises if a counter is off."""
+    import numpy as np
+
+    from repro_torch.serving.kv_cache import plan_cache_point
+
+    rs = np.random.RandomState(seed)
+    vocab = eng.cfg.vocab_size
+    tpl = rs.randint(16, vocab, (Sp,)).astype(np.int32)
+    suffix = rs.randint(16, vocab, (B, Ss)).astype(np.int32)
+    toks = np.concatenate([np.broadcast_to(tpl, (B, Sp)), suffix], axis=1)
+    tid = f"parity-{cfg_name}"
+    cp = plan_cache_point(tid, tpl, toks)
+    plain = eng.generate(toks, max_new=max_new)
+    s0 = dataclasses.replace(eng.stats)
+    t0 = time.perf_counter()
+    miss = eng.generate(toks, max_new=max_new, cache_point=cp)
+    s1 = dataclasses.replace(eng.stats)
+    hit = eng.generate(toks, max_new=max_new, cache_point=cp)
+    s2 = dataclasses.replace(eng.stats)
+    torch.cuda.synchronize()
+    if eng.kv_prefix.length_of(tid) != Sp:
+        raise AssertionError(f"prefix {cfg_name}: the miss did not register {Sp} tokens")
+    got = (s1.prefix_tokens_reused - s0.prefix_tokens_reused,
+           s1.prefill_tokens - s0.prefill_tokens,
+           s2.prefix_tokens_reused - s1.prefix_tokens_reused,
+           s2.prefill_tokens - s1.prefill_tokens)
+    if got != (0, B * (Sp + Ss), B * Sp, B * Ss):
+        raise AssertionError(f"prefix {cfg_name}: (reused, prefilled) miss/hit {got}, want "
+                             f"{(0, B * (Sp + Ss), B * Sp, B * Ss)}")
+    # warm: both paths have run once above
+    lf, cf = eng.prefill(toks)
+    s3 = dataclasses.replace(eng.stats)
+    lp, cpx = eng.prefill_with_prefix(tid, suffix, expected_len=Sp)
+    s4 = dataclasses.replace(eng.stats)
+    torch.cuda.synchronize()
+    n = Sp + Ss
+    k_full, k_pfx = cf["kv_k"][:, :, :n].float(), cpx["kv_k"][:, :, :n].float()
+    return {
+        "B": B, "Sp": Sp, "Ss": Ss,
+        "miss_prefill_s": s1.prefill_s - s0.prefill_s,
+        "hit_prefill_s": s2.prefill_s - s1.prefill_s,
+        "full_prefill_s_warm": s3.prefill_s - s2.prefill_s,
+        "suffix_prefill_s_warm": s4.prefill_s - s3.prefill_s,
+        "prefill_tokens_miss": got[1], "prefill_tokens_hit": got[3],
+        "prefix_tokens_reused_hit": got[2],
+        "generate_s": time.perf_counter() - t0,
+        "tokens_equal_plain_miss_hit": [bool((plain == miss).all()), bool((plain == hit).all())],
+        "logits_max_abs": float(lf.float().abs().max()),
+        "logits_max_abs_diff": float((lf.float() - lp.float()).abs().max()),
+        "argmax_equal": bool((lf.argmax(-1) == lp.argmax(-1)).all()),
+        "prefix_kv_bitwise": bool(torch.equal(cf["kv_k"][:, :, :Sp], cpx["kv_k"][:, :, :Sp])
+                                  and torch.equal(cf["kv_v"][:, :, :Sp], cpx["kv_v"][:, :, :Sp])),
+        "kv_max_abs": float(k_full.abs().max()),
+        "kv_max_abs_diff": float(max((k_full - k_pfx).abs().max(),
+                                     (cf["kv_v"][:, :, :n].float()
+                                      - cpx["kv_v"][:, :, :n].float()).abs().max())),
+    }
+
+
+def serve_prefix(torch, engines):
+    """Phase 5c, the paged KV prefix path: (1) prefix parity of a second
+    olmo-1b engine (the small planner, on the same parameter tensors) with a
+    64-page pool of 32-token pages, at full width in bf16, and greedy token
+    identity on a 2-layer full-width fp32 olmo-1b; (2) the port's
+    TwoTierRouter over a 4-entry plan cache, wired to that pool, routing
+    the 16 tasks in waves (``router_waves``): misses run nemotron, hits run
+    the prefix engine with the template's cache point, and after every wave
+    the pool holds only plan-cache keys and no page is lost; (3) the paged
+    decode kernel over the live pool, t8-style: for each template left, 4
+    leases, a page table, and every layer's slabs, bitwise against the
+    dense decode kernel on the pages gathered in table order. The kernels'
+    counters are set to 0 before and read after."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.envs.finance import get_env
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import KVPrefixCache, plan_cache_point, pool_for_config
+    from repro_torch.serving.router import TwoTierRouter
+
+    kernels = _kernel_launchers()
+    for fn in kernels.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    olmo, nemo = engines["small_planner"], engines["large_planner"]
+    kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"))
+    peng = Engine(olmo.cfg, olmo.params, max_len=olmo.max_len, device="cuda", kv_prefix=kv)
+    if any(a is not b for a, b in zip(_leaves(peng.params), _leaves(olmo.params))):
+        raise AssertionError("prefix: the prefix engine must share olmo's parameter tensors")
+
+    # (1) parity at full width, bf16: logits within 2^-5 of the largest
+    # logit (8 bf16 ulps there; the two prefills round the bf16 residual
+    # stream differently in all 16 layers), the cached prefix K/V bitwise
+    # (it is copied, not recomputed), the suffix K/V within 2^-5 of the
+    # largest |K/V|
+    par = _prefix_parity(torch, peng, "olmo-1b", B=4, Sp=96, Ss=32, max_new=16, seed=11)
+    for what in ("logits", "kv"):
+        lim = 2 ** -5 * par[f"{what}_max_abs"]
+        if not par[f"{what}_max_abs_diff"] <= lim:
+            raise AssertionError(f"prefix olmo-1b bf16: {what} max abs diff "
+                                 f"{par[what + '_max_abs_diff']} > {lim}")
+    if not par["prefix_kv_bitwise"]:
+        raise AssertionError("prefix olmo-1b bf16: the cached prefix K/V is not the full "
+                             "prefill's")
+    # greedy identity in fp32 at full width, depth 2: logits within 2e-3
+    # (the bound of the model check, card against CPU)
+    cfg32 = dataclasses.replace(registry.get("olmo-1b"), num_layers=2, vocab_size=50_304,
+                                dtype="float32", param_dtype="float32")
+    p32 = lm.init_params(cfg32, torch.Generator(device="cuda").manual_seed(7), "cuda")
+    kv32 = KVPrefixCache(pool_for_config(cfg32, num_pages=16, page_size=32, device="cuda"))
+    e32 = Engine(cfg32, p32, max_len=olmo.max_len, device="cuda", kv_prefix=kv32)
+    par32 = _prefix_parity(torch, e32, "olmo-1b-2l-fp32", B=4, Sp=96, Ss=32, max_new=16,
+                           seed=12)
+    if not all(par32["tokens_equal_plain_miss_hit"]):
+        raise AssertionError("prefix olmo-1b fp32: greedy tokens with the cache point differ "
+                             "from those without it")
+    if not (par32["logits_max_abs_diff"] <= 2e-3 and par32["prefix_kv_bitwise"]):
+        raise AssertionError(f"prefix olmo-1b fp32: logits differ by "
+                             f"{par32['logits_max_abs_diff']}, or the prefix K/V is not "
+                             "the full prefill's")
+    del e32, p32, kv32
+    log(f"[prefix] parity: bf16 {par}; fp32 2 layers {par32}")
+    kv.clear()  # the parity template is no plan-cache key
+
+    # (2) the router waves
+    tok = HashTokenizer()
+    tasks = get_env("financebench").generate(N_TASKS, seed=0)
+    cache = PlanCache(capacity=ROUTER_CAPACITY)
+
+    def plan_large(task):
+        nemo.generate(np.asarray([tok.encode(task.query)], np.int32), max_new=ROUTER_NEW)
+        return {"plan": "fresh"}
+
+    def make_template(task, result):
+        return {"id": task.intent.keyword,
+                "tokens": np.asarray(template_ids(tok, task), np.int32)}
+
+    def plan_small(task, tpl):
+        prompt = np.concatenate([tpl["tokens"], tok.encode(task.query, add_bos=False)])[None]
+        point = plan_cache_point(tpl["id"], tpl["tokens"], prompt)
+        if point is None:
+            raise AssertionError(f"prefix: no cache point for {tpl['id']!r}")
+        peng.generate(prompt.astype(np.int32), max_new=ROUTER_NEW, cache_point=point)
+        return {"plan": "adapted"}
+
+    router = TwoTierRouter(cache, extract_keyword=lambda t: t.intent.keyword,
+                           plan_large=plan_large, plan_small_with_template=plan_small,
+                           make_template=make_template, async_cachegen=False, kv_prefix=kv)
+    s0 = dataclasses.replace(peng.stats)
+    c0 = (kv.pages_built, kv.pages_hit, kv.prefix_evictions, kv.tokens_prefetched)
+    ps, N = kv.pool.page_size, kv.pool.num_pages
+    t0 = time.perf_counter()
+    for w, wave in enumerate(router_waves(tasks)):
+        router.route_batch(wave)
+        stale = set(kv.keys()) - set(cache.keys())
+        if stale:
+            raise AssertionError(f"prefix wave {w}: the pool holds {sorted(stale)}, which "
+                                 "the plan cache evicted")
+        held = kv.keys()
+        in_use = int((kv.pool.refcount > 0).sum())
+        pages = sum(-(-kv.length_of(t) // ps) for t in held)
+        if not (in_use == pages and in_use + kv.pool.free_pages == N):
+            raise AssertionError(f"prefix wave {w}: {in_use} pages in use, {pages} held by "
+                                 f"{len(held)} prefixes, {kv.pool.free_pages} free of {N}")
+    router.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = router.metrics
+    if (m.hits, m.misses) != ROUTER_EXPECT:
+        raise AssertionError(f"prefix router: (hits, misses) {(m.hits, m.misses)}, "
+                             f"reference {ROUTER_EXPECT}")
+    reused = peng.stats.prefix_tokens_reused - s0.prefix_tokens_reused
+    if not reused > 0:
+        raise AssertionError("prefix router: no prefix token was reused")
+    held = kv.keys()
+    router_out = {
+        "waves": len(router_waves(tasks)), "requests": m.requests, "hits": m.hits,
+        "misses": m.misses, "prefix_tokens_reused": reused,
+        "prefill_tokens": peng.stats.prefill_tokens - s0.prefill_tokens,
+        "pages_built": kv.pages_built - c0[0], "pages_hit": kv.pages_hit - c0[1],
+        "prefix_evictions": kv.prefix_evictions - c0[2],
+        "tokens_prefetched": kv.tokens_prefetched - c0[3],
+        "templates_left": len(held), "wall_s": wall,
+        "lookup_s": m.lookup_s, "lookup_s_per_wave": m.lookup_s / len(router_waves(tasks)),
+        "small_prefill_s": peng.stats.prefill_s - s0.prefill_s,
+        "small_decode_s": peng.stats.decode_s - s0.decode_s,
+    }
+    log(f"[prefix] router: {router_out}")
+
+    # (3) the paged decode kernel over the live pool, t8-style
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cfg = olmo.cfg
+    n_paged = 0
+    for tid in held:
+        leases = [kv.acquire(tid) for _ in range(4)]
+        table, lengths = kv.page_table(leases)
+        q = torch.randn(4, 1, cfg.num_heads, cfg.head_dim, generator=g,
+                        device="cuda").to(kv.pool.kernel_view(0)[0].dtype)
+        for layer in range(cfg.num_layers):
+            kp, vp = kv.pool.kernel_view(layer)
+            o = ops.paged_decode_attention_op(q, kp, vp, table, lengths)
+            od = ops.decode_attention_op(q, _gather_pages(torch, kp, table),
+                                         _gather_pages(torch, vp, table), lengths)
+            if not torch.equal(o, od):
+                raise AssertionError(f"prefix paged decode {tid!r} layer {layer}: not bitwise "
+                                     "equal to decode_attention on the gathered cache")
+            n_paged += 1
+        for lease in leases:
+            kv.release_lease(lease)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    for n in ("flash_attention", "decode_attention", "paged_decode_attention"):
+        if launches[n] <= 0:
+            raise AssertionError(f"prefix: kernel {n} was not launched")
+    if kv.pool.free_pages + sum(-(-kv.length_of(t) // ps) for t in held) != N:
+        raise AssertionError("prefix: the leases leaked pages")
+    out = {"run": "prefix", "parity_bf16": par, "parity_fp32_2_layers": par32,
+           "router": router_out, "paged_checks": n_paged, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"[prefix] paged decode over the live pool: {n_paged} layer checks bitwise equal; "
+        f"launches {launches}; phase {out['wall_s']:.1f}s")
+    return out
+
+
 def check_outputs(torch, engines):
     """What comes out is right: finite logits of the expected shape on
     every engine."""
@@ -567,10 +976,11 @@ def check_outputs(torch, engines):
 def _kernel_launchers():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.similarity import topk_cosine
 
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "topk_cosine": topk_cosine}
+            "paged_decode_attention": paged_decode_attention, "topk_cosine": topk_cosine}
 
 
 def _leaves(tree):
@@ -613,7 +1023,8 @@ def main() -> int:
     # phase 3: kernels against their plain versions, then timings
     err, checks = check_kernels(torch)
     err["topk_cosine"], checks["topk_cosine"] = check_topk(torch)
-    timing = time_kernels(torch) + time_topk(torch)
+    err["paged_decode_attention"], checks["paged_decode_attention"] = check_paged(torch)
+    timing = time_kernels(torch) + time_topk(torch) + time_paged(torch)
 
     # phase 4: the model on the card against the CPU
     check_model(torch)
@@ -622,6 +1033,7 @@ def main() -> int:
     engines, init_s = build_deployment(torch)
     runs = {name: serve(torch, engines, name, cfg, expect, path)
             for name, cfg, expect, path in SERVE_RUNS}
+    runs["prefix"] = serve_prefix(torch, engines)
     check_outputs(torch, engines)
     srv = {"init_s": init_s,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -636,6 +1048,9 @@ def main() -> int:
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:95", "nemotron-4-15b",
                              "exact"),
+        "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:123",
+                                   "nemotron-4-15b", "prefix"),
         "topk_cosine": ("src/repro_torch/kernels/csrc/topk_cosine.cu",
                         "src/repro/kernels/similarity.py:101", "index", "fuzzy"),
     }
@@ -649,6 +1064,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "path_run": run,
+            **({"library": row["library"]} if "library" in row else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB")

@@ -39,6 +39,10 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
         "decode_attention_fwd",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 10 + [_P],
     ),
+    "paged_decode_attention": (
+        "paged_decode_attention_fwd",
+        [_P] * 6 + [_I] * 8 + [_L] * 10 + [_P],
+    ),
     "topk_cosine": (
         "topk_cosine_fwd",
         [_P] * 6 + [_I] * 5 + [_P],

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.similarity import topk_cosine
 
 
@@ -42,6 +43,23 @@ def decode_attention_op(q, cache_k, cache_v, lengths, *, logit_softcap: float = 
     if logit_softcap:
         raise ValueError("decode_attention kernel: attn_logit_softcap is not supported")
     return decode_attention(q, cache_k, cache_v, torch.as_tensor(lengths, device=q.device))
+
+
+def paged_decode_attention_op(q, k_pages, v_pages, page_table, lengths, *,
+                              logit_softcap: float = 0.0):
+    """Decode attention through a page table (the ``serving/kv_cache.py``
+    pool). q (B,1,Hq,hd) model layout; k_pages/v_pages (N, page_size, Hkv,
+    hd) pool slabs; page_table (B, P) int32 pool rows (-1 past the end);
+    lengths (B,) valid tokens -> (B,1,Hq,hd)."""
+    if q.device.type == "cpu":
+        o = ref.paged_attention_ref(q[:, 0], k_pages, v_pages, page_table, lengths,
+                                    logit_softcap=logit_softcap)
+        return o[:, None]
+    if logit_softcap:
+        raise ValueError("paged_decode_attention kernel: attn_logit_softcap is not supported")
+    return paged_decode_attention(q, k_pages, v_pages,
+                                  torch.as_tensor(page_table, device=q.device),
+                                  torch.as_tensor(lengths, device=q.device))
 
 
 def batch_topk(queries: torch.Tensor, bank, *, k: int = 1):

@@ -54,6 +54,25 @@ def decode_attention_ref(q, k, v, length, *, logit_softcap: float = 0.0):
     return torch.einsum("bhk,bhkd->bhd", p, vr).to(q.dtype)
 
 
+def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
+                        logit_softcap: float = 0.0):
+    """q: (B, Hq, hd); k_pages, v_pages: (N, page_size, Hkv, hd) pool slabs;
+    page_table: (B, P) pool rows (-1 past a sequence's last page); lengths:
+    () or (B,) valid counts -> (B, Hq, hd). Gathers each sequence's pages in
+    table order (entries below 0 clamped to row 0, as the kernel clamps them)
+    into a dense cache, then runs ``decode_attention_ref``."""
+    B, P = page_table.shape
+    _, ps, Hkv, hd = k_pages.shape
+    rows = page_table.to(device=k_pages.device, dtype=torch.long).clamp(min=0).reshape(-1)
+
+    def dense(pages):  # -> (B, Hkv, P * ps, hd)
+        g = pages.index_select(0, rows).reshape(B, P * ps, Hkv, hd)
+        return g.transpose(1, 2)
+
+    return decode_attention_ref(q, dense(k_pages), dense(v_pages), lengths,
+                                logit_softcap=logit_softcap)
+
+
 def topk_cosine_ref(queries: torch.Tensor, bank: torch.Tensor, k: int):
     """queries (Q, D), bank (N, D), rows L2-normalized -> (scores (Q, k) f32,
     indices (Q, k) int32): the k best ``q . bank[row]`` per query, in the

@@ -1,17 +1,22 @@
-"""Attention: GQA projections (+QKV bias), causal prefill attention and
-single-token decode attention (the dense parts of ``repro.models.attention``).
+"""Attention: GQA projections (+QKV bias), causal prefill attention,
+single-token decode attention and the chunked-prefill continuation over a
+stored prefix (the dense parts of ``repro.models.attention``).
 
 Every causal prefill goes through ``kernels.ops.flash_attention_op`` and
 every decode step through ``kernels.ops.decode_attention_op``: on a CUDA
 tensor they launch the hand-written kernels, on a CPU tensor they run the
-plain versions.
+plain versions. ``attention_extend`` is plain PyTorch on both, as the
+reference computes it outside any kernel.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import Params, dense_init, dtype_of
 from repro_torch.models.rope import apply_rope
 
@@ -85,3 +90,42 @@ def attention_decode(
     o = kops.decode_attention_op(q, cache_k, cache_v, lengths,
                                  logit_softcap=cfg.attn_logit_softcap)
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+def attention_extend(cfg, p: Params, x: torch.Tensor, cos, sin,
+                     prefix_k: torch.Tensor, prefix_v: torch.Tensor, prefix_len: int):
+    """Chunked-prefill continuation: the suffix attends over a prefilled
+    prefix plus itself causally.
+
+    x: (B, S, D) suffix activations; prefix_k/v: (B, Sp, Hkv, hd) cached
+    post-RoPE prefix K/V (Sp >= prefix_len; positions past ``prefix_len``
+    are page padding and are masked out). cos/sin are taken at positions
+    offset by ``prefix_len``. Scores and softmax in fp32.
+    Returns (out (B, S, D), (k_suf, v_suf)).
+    """
+    B, S, _ = x.shape
+    Sp = prefix_k.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    keys = torch.cat([prefix_k.to(q.dtype), k], dim=1)
+    vals = torch.cat([prefix_v.to(q.dtype), v], dim=1)
+    M = Sp + S
+    Hkv = keys.shape[2]
+    hd = cfg.head_dim
+    G = cfg.num_heads // Hkv
+    # per-query mask: prefix keys below prefix_len are always visible;
+    # suffix keys are causal relative to the suffix row
+    row = torch.arange(S, device=x.device)[:, None]
+    col = torch.arange(M, device=x.device)[None, :]
+    visible = torch.where(col < Sp, col < prefix_len, (col - Sp) <= row)
+    qg = q.reshape(B, S, Hkv, G, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, keys.float()) / math.sqrt(hd)
+    cap = cfg.attn_logit_softcap
+    if cap > 0.0:
+        s = cap * torch.tanh(s / cap)
+    s = s.masked_fill(~visible, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, vals.float())
+    out = o.reshape(B, S, cfg.q_dim).to(q.dtype) @ p["wo"]
+    return out, (k, v)

@@ -182,6 +182,51 @@ def prefill(cfg, params: Params, tokens: torch.Tensor,
     return forward(cfg, params, tokens, want_cache=True, cache_len=cache_len)
 
 
+def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Tensor,
+                   prefix_v: torch.Tensor, prefix_len: int,
+                   cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """Prefill ONLY a suffix against an already-built prefix KV.
+
+    The suffix tokens (B, S) run at positions ``[prefix_len, prefix_len +
+    S)``, attending over the prefix K/V plus themselves causally; the
+    returned cache is the dense cache a full ``prefill`` of prefix + suffix
+    builds (prefix K/V copied into place, ``cache_len`` positions, default
+    prefix_len + S), so ``decode_step`` continues from it.
+
+    prefix_k/v: (L, B, Sp, Hkv, hd) post-RoPE (Sp >= prefix_len; the
+    overhang is page padding). Families that carry recurrent state can't
+    re-enter a stored prefix mid-stream: dense only here (the reference
+    also takes moe and vlm, which the port does not have yet).
+    """
+    if cfg.family in ("audio", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"prefix extension requires a pure-KV cache; family "
+            f"{cfg.family!r} carries recurrent state"
+        )
+    _check_dense(cfg)
+    _check_ids(cfg, tokens)
+    x = _embed(cfg, params, tokens)
+    B, S, _ = x.shape
+    total = prefix_len + S
+    M = cache_len or total
+    if M < total:
+        raise ValueError(f"cache_len {M} < prefix_len + suffix {total}")
+    pos = prefix_len + torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    cache = init_cache(cfg, B, M, x.device)
+    cache["kv_k"][:, :, :prefix_len] = prefix_k[:, :, :prefix_len]
+    cache["kv_v"][:, :, :prefix_len] = prefix_v[:, :, :prefix_len]
+    for i, p in enumerate(params["blocks"]):
+        h, (k, v) = attn.attention_extend(cfg, p["attn"], apply_norm(cfg, p, "ln1", x),
+                                          cos, sin, prefix_k[i], prefix_v[i], prefix_len)
+        x = x + h
+        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+        cache["kv_k"][i, :, prefix_len:total] = k
+        cache["kv_v"][i, :, prefix_len:total] = v
+    cache["length"] = total
+    return _logits(cfg, params, x), cache
+
+
 def decode_step(cfg, params: Params, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step. tokens: (B, 1) int. Every row decodes at the one

@@ -1,11 +1,19 @@
 """Serving engine: prefill + decode for one model deployment (the port of
-``repro.serving.engine``, without the paged KV prefix path).
+``repro.serving.engine``).
 
 One Engine instance = one model (a planner tier or the actor). It exposes
 
   * ``generate(tokens, max_new)`` — batched greedy/temperature generation
+  * ``prefill_with_prefix(template_id, suffix)`` — suffix-only prefill
+    against a template prefix held in the paged KV pool
+    (``serving/kv_cache.py``): a plan-cache hit re-serves a known prefix,
+    so only the adaptation prompt pays prefill compute
   * ``measured_rates()`` — tokens/s observed on the device, fed to the APC
     cost model so control-plane latency comes from the data plane.
+
+The prefix path gathers the pooled pages into a dense cache and decodes
+with the dense decode kernel, as the reference does; the paged decode
+kernel reads the same pool through a page table beside it.
 
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
@@ -24,13 +32,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
+from repro_torch.serving.kv_cache import CachePoint, KVPrefixCache, PagePoolExhausted
 from repro_torch.serving.sampler import sample_token
+
+# families whose cache is pure KV (no recurrent state): the only ones a
+# stored prefix can be re-entered into mid-stream
+_PREFIX_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclass
 class EngineStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
+    prefix_tokens_reused: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
 
@@ -43,12 +57,13 @@ class EngineStats:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int = 512,
-                 device=None):
+                 device=None, kv_prefix: Optional[KVPrefixCache] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = lm.params_to(params, self.device)
         self.max_len = max_len
         self.stats = EngineStats()
+        self.kv_prefix = kv_prefix if cfg.family in _PREFIX_FAMILIES else None
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -82,6 +97,61 @@ class Engine:
         self.stats.decode_tokens += int(tokens.shape[0] if active is None else active)
         return logits, cache
 
+    # -- paged KV prefix path ------------------------------------------
+
+    def register_prefix(self, template_id: str, cache: Any, prefix_len: int) -> bool:
+        """Copy the first ``prefix_len`` cached positions of batch row 0 (the
+        template prefix is identical across rows by construction) into the
+        page pool under ``template_id``. Call right after the full prefill
+        that built ``cache``, before decode writes into it."""
+        if self.kv_prefix is None:
+            return False
+        try:
+            self.kv_prefix.put(template_id, cache["kv_k"][:, 0], cache["kv_v"][:, 0],
+                               length=prefix_len)
+        except PagePoolExhausted:
+            # registration is best-effort: the full prefill already served
+            # this request; a pool too small (or a still-leased stale
+            # entry) just means the next hit pays prefill again
+            return False
+        return True
+
+    def prefill_with_prefix(
+        self, template_id: str, suffix_tokens: np.ndarray, *,
+        n_valid: Optional[int] = None, expected_len: Optional[int] = None,
+    ) -> Optional[Tuple[torch.Tensor, Any]]:
+        """Prefill only the adaptation suffix; the template prefix K/V is
+        gathered from the page pool. Returns None when the prefix isn't
+        cached (the caller falls back to a full prefill + register_prefix).
+
+        ``expected_len`` is the prefix length the caller split the prompt at
+        (the cache point). A pooled prefix of another length (a stale
+        registration, a re-tokenized template) would shift every suffix
+        position and the attention mask, so it is treated as a miss."""
+        if self.kv_prefix is None:
+            return None
+        lease = self.kv_prefix.acquire(template_id)
+        if lease is None:
+            return None
+        if expected_len is not None and lease.length != expected_len:
+            self.kv_prefix.release_lease(lease)
+            return None
+        try:
+            B = suffix_tokens.shape[0]
+            t0 = self._clock()  # the page gather is device work of this prefill
+            pk, pv, plen = self.kv_prefix.gather(lease, batch=B)
+            toks = torch.as_tensor(np.asarray(suffix_tokens), device=self.device)
+            logits, cache = lm.prefill_extend(self.cfg, self.params, toks, pk, pv, plen,
+                                              cache_len=self.max_len)
+            logits = logits[:, -1]
+            self.stats.prefill_s += self._clock() - t0
+            self.stats.prefill_tokens += int(
+                suffix_tokens.size if n_valid is None else n_valid)
+            self.stats.prefix_tokens_reused += B * plen
+            return logits, cache
+        finally:
+            self.kv_prefix.release_lease(lease)
+
     def generate(
         self,
         tokens: np.ndarray,
@@ -92,13 +162,16 @@ class Engine:
         eos_id: Optional[int] = None,
         pad_id: int = 0,
         prompt_lengths: Optional[np.ndarray] = None,
+        cache_point: Optional[CachePoint] = None,
     ) -> np.ndarray:
         """Batched generation. Returns (B, <=max_new) generated ids.
 
         Rows that hit ``eos_id`` emit ``pad_id`` from the next step on and
         stop counting toward decode throughput. ``prompt_lengths`` ((B,)
         valid prompt token counts) keeps right-padding out of the prefill
-        rate."""
+        rate. ``cache_point`` routes the prefill through the paged KV prefix
+        cache: suffix-only prefill on a pool hit, full prefill + prefix
+        registration on a pool miss."""
         B, S = tokens.shape
         if S + max_new > self.max_len:
             raise ValueError(
@@ -107,7 +180,18 @@ class Engine:
                 f"past the cache"
             )
         n_valid = None if prompt_lengths is None else int(np.sum(prompt_lengths))
-        logits, cache = self.prefill(tokens, n_valid=n_valid)
+        res = None
+        use_prefix = cache_point is not None and self.kv_prefix is not None
+        if use_prefix:
+            n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
+            res = self.prefill_with_prefix(
+                cache_point.template_id, tokens[:, cache_point.prefix_len:],
+                n_valid=n_suf, expected_len=cache_point.prefix_len)
+        if res is None:
+            res = self.prefill(tokens, n_valid=n_valid)
+            if use_prefix:
+                self.register_prefix(cache_point.template_id, res[1], cache_point.prefix_len)
+        logits, cache = res
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)

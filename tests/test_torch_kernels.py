@@ -142,6 +142,91 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     k = torch.randn(1, 5, 2, 32)
     assert ops.flash_attention_op(q, k, k).shape == (1, 5, 4, 32)
     assert ops.decode_attention_op(q[:, :1], k, k, torch.tensor(5)).shape == (1, 1, 4, 32)
+    pages = torch.randn(2, 5, 2, 32)
+    table = torch.tensor([[1, 0]], dtype=torch.int32)
+    out = ops.paged_decode_attention_op(q[:, :1], pages, pages, table, torch.tensor([7]))
+    assert out.shape == (1, 1, 4, 32)
     meta = torch.empty(1, 5, 4, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_op(meta, meta[:, :, :2], meta[:, :, :2])
+
+
+def _page_table(B, P, npages, ps, lengths, seed=0):
+    """Permuted pool rows per sequence, -1 past its last page (the table of
+    tests/test_kernels.py::test_paged_attention_vs_ref)."""
+    rng = np.random.RandomState(seed)
+    table = np.full((B, P), -1, np.int32)
+    for b, ln in enumerate(lengths):
+        n = -(-ln // ps)
+        table[b, :n] = rng.choice(npages, size=n, replace=False)
+    return table
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,hd,ps,npages,P,lengths",
+    [
+        (3, 8, 2, 64, 64, 16, 4, (200, 100, 256)),
+        (2, 4, 4, 32, 16, 32, 8, (128, 7)),
+        (1, 4, 1, 64, 32, 8, 2, (33,)),
+    ],
+)
+def test_paged_decode_attention_op_matches_pallas(B, Hq, Hkv, hd, ps, npages, P, lengths,
+                                                  dtype):
+    """The plain paged version against the reference's Pallas kernel in
+    interpret mode, on permuted page tables with -1 past the end
+    (tolerances of tests/test_kernels.py: 2e-5 f32, 3e-2 bf16)."""
+    from repro.kernels.paged_attention import paged_decode_attention as jpaged
+
+    (qj, kj, vj), (qt, kt, vt) = _inputs(
+        5, [(B, 1, Hq, hd), (npages, ps, Hkv, hd), (npages, ps, Hkv, hd)], dtype)
+    table = _page_table(B, P, npages, ps, lengths)
+    lens = np.asarray(lengths, np.int32)
+    oj = jpaged(qj[:, 0], kj, vj, jnp.asarray(table), jnp.asarray(lens), interpret=True)
+    ot = ops.paged_decode_attention_op(qt, kt, vt, torch.from_numpy(table),
+                                       torch.from_numpy(lens))
+    assert ot.shape == (B, 1, Hq, hd) and ot.dtype == qt.dtype
+    _close(ot[:, 0], oj, DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+def test_paged_plain_equals_dense_plain_on_gathered_cache(ps):
+    """The plain paged version is the plain decode version on the pages
+    gathered in table order (entries below 0 clamped to row 0): equal, and
+    equal to the reference's numpy-gather oracle within fp32 rounding."""
+    from repro.kernels import ref as jref
+
+    B, Hq, Hkv, hd, npages = 3, 8, 2, 64, 40
+    lengths = (1, ps + 3, 4 * ps)  # one token, a partial page, the full table
+    P = 4
+    (qj, kj, vj), (qt, kt, vt) = _inputs(
+        6, [(B, 1, Hq, hd), (npages, ps, Hkv, hd), (npages, ps, Hkv, hd)], "float32")
+    table = _page_table(B, P, npages, ps, lengths, seed=ps)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    ot = ops.paged_decode_attention_op(qt, kt, vt, torch.from_numpy(table), lens)
+    rows = torch.from_numpy(np.maximum(table, 0).astype(np.int64))
+    kd = kt[rows].reshape(B, P * ps, Hkv, hd)
+    vd = vt[rows].reshape(B, P * ps, Hkv, hd)
+    od = ops.decode_attention_op(qt, kd, vd, lens)
+    assert torch.equal(ot, od)
+    oj = jref.paged_attention_ref(qj[:, 0], kj, vj, jnp.asarray(table), jnp.asarray(lengths))
+    _close(ot[:, 0], oj, 2e-6)
+
+
+def test_paged_op_softcap_on_cpu_and_refusals():
+    """A nonzero softcap is applied by the plain paged path as by the plain
+    decode path; a non-CPU tensor goes to the launcher, which refuses a
+    device it cannot launch on."""
+    q = torch.randn(2, 1, 4, 32)
+    pages = torch.randn(6, 8, 2, 32)
+    table = torch.tensor([[3, 1, -1], [0, 5, 2]], dtype=torch.int32)
+    lens = torch.tensor([13, 24], dtype=torch.int32)
+    o = ops.paged_decode_attention_op(q * 8, pages, pages, table, lens, logit_softcap=5.0)
+    rows = table.clamp(min=0).long()
+    dense = pages[rows].reshape(2, 24, 2, 32)
+    od = ops.decode_attention_op(q * 8, dense, dense, lens, logit_softcap=5.0)
+    assert torch.equal(o, od)
+    meta = torch.empty(2, 1, 4, 32, device="meta")
+    mpages = torch.empty(6, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention_op(meta, mpages, mpages, table, lens)
