@@ -9,14 +9,18 @@ printing the ok line):
 1. the card: name and power limit (nvidia-smi), torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN so fp32 references stay fp32;
 2. the build: every kernel of the port (flash_attention, decode_attention,
-   paged_decode_attention, topk_cosine) is compiled from
+   paged_decode_attention, topk_cosine, wkv6, ssd) is compiled from
    ``src/repro_torch/kernels/csrc/`` into ``build/kernels/`` (one nvcc per
    source, all at once);
 3. kernels against their plain PyTorch versions on the card: the attention
    kernels at the three full-width head layouts of the deployment
-   (16/16, 16/2, 48/8; hd 128) in bf16 and fp32, plus the decode kernel's
-   bitwise batch-invariance check; the paged decode kernel at those layouts
-   and the hd 64 / hd 32 shapes of tests/test_kernels.py, page sizes 8 to
+   (16/16, 16/2, 48/8; hd 128) and zamba2's shared block (32/32, hd 80) in
+   bf16 and fp32, plus the decode kernel's bitwise batch-invariance check;
+   the wkv6 and SSD scan kernels at rwkv6-3b's (H 40, N 64) and zamba2's
+   (H 80, P 64, Ns 64) layouts and the shapes of tests/test_kernels.py's
+   sweeps, y and final state, bf16 and fp32 inputs, decays drawn as the
+   model draws them and as the sweeps do; the paged decode kernel at the
+   deployment's layouts and the hd 64 / hd 32 shapes of tests/test_kernels.py, page sizes 8 to
    64, permuted pool rows, each result also bitwise equal to the dense
    decode kernel on the gathered pages and batch-invariant; the top-k
    kernel at Q in {1, 8, 64, 130}, N in {1, 3, 64, 20,000, 1,000,000}, k in
@@ -27,7 +31,8 @@ printing the ok line):
    beside its plain version and a PyTorch library yardstick for the same
    function;
 4. the model on the card against the model on the CPU: each arch at full
-   width, depth cut to 2 layers, fp32, same weights;
+   width, depth cut to 2 layers (zamba2: one group of 6), fp32, same
+   weights;
 5. serving: ``build_engines(DEFAULT, full=True)`` — nemotron-4-15b,
    olmo-1b and qwen2.5-3b at full published width in bf16, random weights
    from a fixed seed — then three runs of 16 FinanceBench tasks (seed 0)
@@ -40,8 +45,17 @@ printing the ok line):
    a second olmo-1b engine held to a full prefill, the two-tier router
    wired to its page pool (hits and misses pinned to the reference
    router's), and the paged decode kernel over the pool's live pages.
-   Before each run the kernels' launch counters are set to 0, and they are
-   read just after: every kernel of the run's path must have risen.
+   Last the ``recurrent`` run: the 16 tasks with exact ``apc`` on a
+   deployment whose small planner and keyword extractor are rwkv6-3b and
+   whose actor is zamba2-2.7b (full width, bf16, weights from their arch
+   seeds; zamba2's published 32,000-entry vocabulary widened to the
+   tokenizer's 50,304, as ``engine_config`` does), the large planner still
+   the nemotron-4-15b engine built above; every prefill scan runs on the
+   wkv6 or SSD kernel, zamba2's shared block on the attention kernels at
+   hd 80. Before each run the kernels' launch counters are set to 0, and
+   they are read just after: every kernel of the run's path must have
+   risen, and in the recurrent run the attention kernels' hd-80 counts
+   must be positive multiples of the shared block's 9 applications.
 
 Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -67,7 +81,21 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 LAYOUTS = {"olmo-1b": (16, 16, 128), "qwen2.5-3b": (16, 2, 128),
            "nemotron-4-15b": (48, 8, 128)}
+# zamba2-2.7b's shared attention block: the attention kernels' hd-80 case
+ATTN_LAYOUTS = {**LAYOUTS, "zamba2-2.7b": (32, 32, 80)}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain: sums in another order
+# the scan kernels at full width: rwkv6-3b (H, N) and zamba2-2.7b (H, P, Ns)
+WKV6_LAYOUT = (40, 64)
+SSD_LAYOUT = (80, 64, 64)
+SCAN_SEQS = (1, 37, 128, 152, 300)
+MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
+# scan kernel vs plain: |err| <= atol * max(1, max|plain|) + rtol * |plain|,
+# elementwise, with tests/test_kernels.py's atol and rtol (wkv6 2e-4 / 1e-3,
+# ssd 5e-4 / 1e-3). atol scales with the largest value: the recurrence and
+# the chunked form round sums of that size in other orders. The inputs are
+# read in bf16 or fp32 and both sides compute in fp32, so one tolerance
+# serves both types.
+SCAN_TOL = {"wkv6": (2e-4, 1e-3), "ssd": (5e-4, 1e-3)}
 N_TASKS = 16
 TOPK_TOL = 1e-5  # kernel (fp32 FMA chain) vs plain (float64 sum rounded to fp32)
 # (name, AgentConfig fields, the reference's (hits, accuracy, cost) on the
@@ -81,6 +109,14 @@ SERVE_RUNS = (
     ("semantic", {"method": "semantic", "index_backend": "device"}, (2, 0.8125, 0.2953),
      ("flash_attention", "decode_attention", "topk_cosine")),
 )
+# the recurrent run: these roles on the ssm and hybrid archs (the large
+# planner stays the deployment's nemotron-4-15b engine), exact `apc`; the
+# reference's (hits, accuracy, cost) on that deployment
+# (tests/test_torch_agent.py), and the kernels its path must launch
+RECURRENT_ROLES = {"small_planner": "rwkv6-3b", "keyword_extractor": "rwkv6-3b",
+                   "actor": "zamba2-2.7b"}
+RECURRENT_EXPECT = (2, 0.875, 0.2987)
+RECURRENT_KERNELS = ("wkv6", "ssd", "flash_attention", "decode_attention")
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
 # a 4-entry plan cache; each wave arrives three times in a row (the first
@@ -121,7 +157,10 @@ def time_ms(torch, fn, repeats: int = 5, calls: int = 20):
     * ``device``: the median over ``repeats`` runs of ``calls`` back-to-back
       calls, each run timed with CUDA events and divided by ``calls``. A
       sleep kernel first holds the stream while the host queues the run, so
-      the events bracket device work only, not the host's launch gaps;
+      the events bracket device work only, not the host's launch gaps. If
+      the device reached the first event before the host had queued the
+      whole run (a plain version of many small ops), the run is discarded
+      and the sleep doubled, up to ~1.6 s;
     * ``call``: the median over ``repeats * calls`` single calls bracketed
       by events with no sleep ahead — what a caller on the host waits for,
       launch overhead included.
@@ -130,15 +169,20 @@ def time_ms(torch, fn, repeats: int = 5, calls: int = 20):
         fn()
     torch.cuda.synchronize()
     device = []
-    for _ in range(repeats):
+    cycles = 50_000_000  # ~25 ms of device time at 1.98 GHz
+    while len(device) < repeats:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # ~25 ms of device time at 1.98 GHz
+        torch.cuda._sleep(cycles)
         a.record()
         for _ in range(calls):
             fn()
+        host_late = a.query()  # the sleep ran out while the host queued
         b.record()
         b.synchronize()
+        if host_late and cycles < 3_200_000_000:
+            cycles *= 2
+            continue
         device.append(a.elapsed_time(b) / calls)
     call = []
     for _ in range(repeats * calls):
@@ -174,7 +218,7 @@ def check_kernels(torch):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dt)
 
-        for arch, (hq, hkv, hd) in LAYOUTS.items():
+        for arch, (hq, hkv, hd) in ATTN_LAYOUTS.items():
             for S in (1, 37, 128, 152):
                 for B in (1, 3):
                     for causal in ((True, False) if S == 37 else (True,)):
@@ -397,9 +441,11 @@ def time_topk(torch):
 
 
 def _timed(torch, kernel, arch, shape, fn, plain, library, bound_ms, bound_by):
+    """Times of the kernel, its plain version and (where one PyTorch call
+    computes the same function; else ``library`` is None) the library."""
     ms, call_ms = time_ms(torch, fn)
     plain_ms, plain_call_ms = time_ms(torch, plain)
-    library_ms, library_call_ms = time_ms(torch, library)
+    library_ms, library_call_ms = time_ms(torch, library) if library else (None, None)
     return {"kernel": kernel, "arch": arch, "shape": shape, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -409,7 +455,8 @@ def _timed(torch, kernel, arch, shape, fn, plain, library, bound_ms, bound_by):
 def time_kernels(torch):
     """Phase 3b: kernel, plain version and library call at the serving
     path's shapes (B=1, bf16; prefill S=152 — the longest prompt the
-    backend sends — and decode M=192 at length 168)."""
+    backend sends — and decode M=192 at length 168), at the deployment's
+    head layouts and zamba2's hd 80."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -419,7 +466,7 @@ def time_kernels(torch):
     g = torch.Generator(device="cuda").manual_seed(1)
     dt, esz = torch.bfloat16, 2
     rows = []
-    for arch, (hq, hkv, hd) in LAYOUTS.items():
+    for arch, (hq, hkv, hd) in ATTN_LAYOUTS.items():
         B, S = 1, 152
         q = torch.randn(B, S, hq, hd, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dt)
@@ -598,15 +645,178 @@ def time_paged(torch):
     return [row]
 
 
+def _scan_close(name, got, want, label):
+    """Kernel output against the plain version's, at SCAN_TOL; returns the
+    max abs error."""
+    atol, rtol = SCAN_TOL[name]
+    err = (got - want).abs()
+    lim = atol * max(1.0, want.abs().max().item()) + rtol * want.abs()
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"{name} {label}: max abs err {err.max().item()} over the "
+                             f"tolerance (atol {atol} x max(1, max|plain|) + rtol {rtol} "
+                             "x |plain|)")
+    return err.max().item()
+
+
+def _wkv6_inputs(torch, g, B, S, H, N, draw):
+    """r, k, v, w_log, u on the card in float32. ``model``: as rwkv6-3b
+    draws them at full width (r, k, v ~ N(0, 1): 0.02-scale weights on
+    layer-normed inputs of width 2,560; log decay -exp(-4.6 + lora) with
+    lora ~ 0.037 N(0, 1), clipped to [-8, -1e-5]; bonus 0.1 N(0, 1)).
+    ``sweep``: as tests/test_kernels.py::test_wkv6_sweep, with r, k, v
+    transposed views of (B, H, S, N) tensors, so strides are exercised."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    if draw == "model":
+        r, k, v = rnd(B, S, H, N), rnd(B, S, H, N), rnd(B, S, H, N)
+        w = (-torch.exp(-4.6 + 0.037 * rnd(B, S, H, N))).clamp(-8.0, -1e-5)
+        return r, k, v, w, 0.1 * rnd(H, N)
+    r, k, v = (0.5 * rnd(B, H, S, N).transpose(1, 2) for _ in range(3))
+    return r, k, v, -torch.exp(0.5 * rnd(B, S, H, N) - 2.0), 0.3 * rnd(H, N)
+
+
+def _ssd_inputs(torch, g, B, S, H, P, Ns, draw):
+    """x, dt, A_log, B_, C_, D on the card in float32. ``model``: as
+    zamba2-2.7b draws them at full width (x, B_, C_ = silu(0.2 N(0, 1)),
+    the conv's output; dt = softplus(N(0, 1) - 2); A_log 0, D 1), with x,
+    B_ and C_ strided views of one (B, S, H P + 2 Ns) tensor, as the model
+    slices its conv output. ``sweep``: as tests/test_kernels.py::
+    test_ssd_sweep (x, B_, C_ 0.5 N(0, 1), dt = softplus(N(0, 1)))."""
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    A_log = torch.zeros(H, device="cuda")
+    D = torch.ones(H, device="cuda")
+    if draw == "model":
+        conv = F.silu(0.2 * rnd(B, S, H * P + 2 * Ns))
+        x = conv[..., :H * P].reshape(B, S, H, P)
+        return (x, F.softplus(rnd(B, S, H) - 2.0), A_log, conv[..., H * P:H * P + Ns],
+                conv[..., H * P + Ns:], D)
+    return (0.5 * rnd(B, S, H, P), F.softplus(rnd(B, S, H)), A_log, 0.5 * rnd(B, S, Ns),
+            0.5 * rnd(B, S, Ns), D)
+
+
+def check_scans(torch):
+    """Phase 3 (scans): the wkv6 and SSD kernels against their plain
+    (chunked) versions and the sequential oracles, y and final state:
+    at rwkv6-3b's (H 40, N 64) and zamba2's (H 80, P 64, Ns 64) layouts,
+    S in SCAN_SEQS, B in {1, 4}, decays drawn as the model draws them
+    (chunk 128, the model's) and as the JAX sweeps do (wkv6 chunk 128;
+    ssd chunk 64: at 128 the sweep's decays overflow the chunked form,
+    see ROADMAP section 3); plus the sweeps' own shapes and chunks; bf16
+    and fp32 inputs. Returns ({name: max abs error}, {name: checks})."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import wkv6
+    from repro_torch.kernels.ssd import ssd
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    H, N = WKV6_LAYOUT
+    wk_cases = [(B, S, H, N, draw, MODEL_CHUNK) for draw in ("model", "sweep")
+                for S in SCAN_SEQS for B in (1, 4)]
+    wk_cases += [(2, S, 3, n, "sweep", c) for S, c in ((64, 16), (128, 32), (96, 32))
+                 for n in (16, 64)]
+    H, P, Ns = SSD_LAYOUT
+    sd_cases = [(B, S, H, P, Ns, draw, MODEL_CHUNK if draw == "model" else 64)
+                for draw in ("model", "sweep") for S in SCAN_SEQS for B in (1, 4)]
+    sd_cases += [(2, 64, 3, 32, 16, "sweep", 16), (2, 128, 3, 64, 64, "sweep", 64)]
+    err = {"wkv6": 0.0, "ssd": 0.0}
+    n = {"wkv6": 0, "ssd": 0}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for B, S, H, N, draw, chunk in wk_cases:
+            r, k, v, w, u = _wkv6_inputs(torch, g, B, S, H, N, draw)
+            r, k, v = r.to(dt), k.to(dt), v.to(dt)
+            y, st = wkv6(r, k, v, w, u)
+            for which, (yr, sr) in (("plain", ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk)),
+                                    ("oracle", ref.rwkv6_ref(r, k, v, w, u))):
+                label = f"{dname} {draw} B={B} S={S} H={H} N={N} chunk={chunk} vs {which}"
+                e = max(_scan_close("wkv6", y, yr, "y " + label),
+                        _scan_close("wkv6", st, sr, "state " + label))
+                err["wkv6"] = max(err["wkv6"], e)
+            n["wkv6"] += 1
+        for B, S, H, P, Ns, draw, chunk in sd_cases:
+            x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, draw)
+            x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
+            y, st = ssd(x, dtv, A_log, Bm, Cm, D)
+            for which, (yr, sr) in (
+                    ("plain", ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D, chunk=chunk)),
+                    ("oracle", ref.ssd_ref(x, dtv, A_log, Bm, Cm, D))):
+                label = f"{dname} {draw} B={B} S={S} H={H} P={P} Ns={Ns} chunk={chunk} vs {which}"
+                e = max(_scan_close("ssd", y, yr, "y " + label),
+                        _scan_close("ssd", st, sr, "state " + label))
+                err["ssd"] = max(err["ssd"], e)
+            n["ssd"] += 1
+    torch.cuda.synchronize()
+    for call in (lambda: wkv6(*(t[..., :48] for t in (r, k, v, w)), u[:, :48]),
+                 lambda: ssd(x[..., :48], dtv, A_log, Bm, Cm, D)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("wkv6 / ssd: an unsupported head size must raise")
+    log(f"[kernels] scans: {n} checks passed (each against the chunked plain version and "
+        f"the sequential oracle, y and state); max abs err {err} (tolerance {SCAN_TOL}: "
+        "atol x max(1, max|plain|) + rtol x |plain|)")
+    return err, n
+
+
+def time_scans(torch):
+    """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at the
+    served prefill shape, B = 1, S = 152, bf16 inputs drawn as the model
+    draws them, at rwkv6-3b's and zamba2's layouts. No single PyTorch call
+    computes either recurrence, so there is no library time. Bound: the
+    larger of the bytes (each input read once, y and the state written
+    once) over 3.35 TB/s and the fp32 operations over 67 TFLOP/s (per step
+    and head: wkv6 5 N^2 + 5 N — the state update 3 N^2, y 2 N^2, the bonus
+    term 5 N; ssd 5 P Ns + 3 P)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import wkv6
+    from repro_torch.kernels.ssd import ssd
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, S, dt = 1, 152, torch.bfloat16
+    H, N = WKV6_LAYOUT
+    r, k, v, w, u = _wkv6_inputs(torch, g, B, S, H, N, "model")
+    r, k, v = r.to(dt), k.to(dt), v.to(dt)
+    nbytes = 2 * 3 * B * S * H * N + 4 * B * S * H * N + 4 * H * N + 4 * B * S * H * N \
+        + 4 * B * H * N * N
+    bms, by = bound(nbytes, B * H * S * (5 * N * N + 5 * N), PEAK_FP32_FLOPS)
+    rows = [_timed(torch, "wkv6", "rwkv6-3b", f"B={B} S={S} H={H} N={N} bf16 in, fp32 out",
+                   lambda: wkv6(r, k, v, w, u),
+                   lambda: ref.wkv6_chunked_ref(r, k, v, w, u, chunk=MODEL_CHUNK),
+                   None, bms, by)]
+    H, P, Ns = SSD_LAYOUT
+    x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, "model")
+    x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
+    nbytes = 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * Ns + 2 * 4 * H \
+        + 4 * B * S * H * P + 4 * B * H * P * Ns
+    bms, by = bound(nbytes, B * H * S * (5 * P * Ns + 3 * P), PEAK_FP32_FLOPS)
+    rows.append(_timed(torch, "ssd", "zamba2-2.7b",
+                       f"B={B} S={S} H={H} P={P} Ns={Ns} bf16 in, fp32 out",
+                       lambda: ssd(x, dtv, A_log, Bm, Cm, D),
+                       lambda: ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D, chunk=MODEL_CHUNK),
+                       None, bms, by))
+    for row in rows:
+        row["library"] = "none: no single PyTorch call computes the recurrence"
+        log("[timing] " + json.dumps(row))
+    return rows
+
+
 def check_model(torch):
     """Phase 4: the model on the card (kernels) against the same model on
-    the CPU (plain versions): full width, 2 layers, fp32, prefill of 37
-    tokens then 3 decode steps; logits within atol 2e-3."""
+    the CPU (plain versions): full width, 2 layers (the hybrid: one group
+    of ``attn_every`` mamba layers and the shared block), fp32, prefill of
+    37 tokens then 3 decode steps; logits within atol 2e-3."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
 
     for arch in registry.ARCH_NAMES:
-        cfg = dataclasses.replace(registry.get(arch), num_layers=2, vocab_size=50_304,
+        full = registry.get(arch)
+        depth = full.attn_every if full.family == "hybrid" else 2
+        cfg = dataclasses.replace(full, num_layers=depth, vocab_size=50_304,
                                   dtype="float32", param_dtype="float32")
         gen = torch.Generator(device="cuda").manual_seed(7)
         p_gpu = lm.init_params(cfg, gen, "cuda")
@@ -625,7 +835,7 @@ def check_model(torch):
         worst = (logits["cuda"] - logits["cpu"]).abs().max().item()
         if not worst <= 2e-3:
             raise AssertionError(f"model {arch}: card vs CPU logits differ by {worst}")
-        log(f"[model] {arch} (2 layers, fp32): card vs CPU max |dlogit| {worst:.3e}")
+        log(f"[model] {arch} ({depth} layers, fp32): card vs CPU max |dlogit| {worst:.3e}")
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
 
@@ -670,11 +880,15 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
 
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_hd"):
+            fn.launches_by_hd.clear()
     t0 = time.perf_counter()
     recs = [agent.run_task(t) for t in tasks]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
+    launches_by_hd = {n: dict(fn.launches_by_hd) for n, fn in kernels.items()
+                      if hasattr(fn, "launches_by_hd")}
 
     hits = sum(r.hit for r in recs)
     accuracy = sum(r.correct for r in recs) / len(recs)
@@ -701,7 +915,7 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
         "run": name, "agent": agent_cfg, "tasks": len(recs), "hits": hits,
         "hit_rate": hits / len(recs), "accuracy": accuracy, "cost_usd": ledger.total_cost(),
         "wall_s": wall, "wall_per_task_s": wall / len(recs), "engine_s": engine_s,
-        "launches": launches,
+        "launches": launches, "launches_by_hd": launches_by_hd,
         "launches_per_task": {n: v / len(recs) for n, v in launches.items()},
         "lookups": lookups, "lookup_s_per_lookup": store.stats.lookup_time_s / max(1, lookups),
         "calls": {role: u.calls for role, u in sorted(ledger.usage.items())},
@@ -957,6 +1171,95 @@ def serve_prefix(torch, engines):
     return out
 
 
+def build_recurrent(torch, engines):
+    """Phase 5d: the recurrent run's engines: rwkv6-3b and zamba2-2.7b at
+    full width (``build_engines`` on a deployment of those two archs), the
+    large planner the deployment phase's nemotron-4-15b engine (no second
+    copy of its weights)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.apc_minion import APCDeployment
+    from repro_torch.launch.serve import build_engines
+
+    t0 = time.perf_counter()
+    own = build_engines(APCDeployment(large_planner=RECURRENT_ROLES["small_planner"],
+                                      **RECURRENT_ROLES), full=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = {**own, "large_planner": engines["large_planner"]}
+    n_params = {e.cfg.name: sum(t.numel() for t in _leaves(e.params))
+                for e in {id(e): e for e in own.values()}.values()}
+    widened = {e.cfg.name: e.cfg.vocab_size for e in own.values()
+               if e.cfg.vocab_size != registry.get(e.cfg.name).vocab_size}
+    log(f"[recurrent] engines built in {init_s:.1f}s; params {n_params} (published "
+        f"widths; vocabularies widened to the tokenizer's: {widened}); "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return rec, init_s, n_params
+
+
+def check_shared_block(cfg, launches_by_hd):
+    """The recurrent run went through the attention kernels at the hybrid
+    actor's head dim (80, a case that only its shared block launches): each
+    of its prefills launches flash attention and each of its decode steps
+    launches decode attention once per application of the shared block
+    (``num_layers // attn_every``), so both counts are positive multiples
+    of that."""
+    apps = cfg.num_layers // cfg.attn_every
+    for n in ("flash_attention", "decode_attention"):
+        got = launches_by_hd[n].get(cfg.head_dim, 0)
+        if got <= 0 or got % apps:
+            raise AssertionError(f"recurrent: {n} launched {got} times at hd "
+                                 f"{cfg.head_dim}; need a positive multiple of {apps}")
+    log(f"[recurrent] shared block at hd {cfg.head_dim}: flash "
+        f"{launches_by_hd['flash_attention'][cfg.head_dim]}, decode "
+        f"{launches_by_hd['decode_attention'][cfg.head_dim]} launches "
+        f"({apps} applications a call)")
+
+
+class ChunkDecayProbe:
+    """While active, records the largest |la| of the recurrent run: a
+    chunk's cumulative log decay as the chunked plain versions form it at
+    the model's chunk (wkv6: cumsum of w_log; ssd: of -dt exp(A_log)),
+    over every wkv6/ssd call. Past ~88, exp(-la) (``rwkv.py:113``) or
+    exp(la_i - la_j) (``mamba.py:104-106``) overflows in fp32. It wraps
+    ``ops.wkv6_op``/``ops.ssd_op`` (the kernels' launch counts are
+    untouched) and keeps the maximum on the device, with no sync."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.max = {"wkv6": None, "ssd": None}
+
+    def _record(self, name, logdecay, chunk):
+        torch = self.torch
+        B, S = logdecay.shape[:2]
+        pad = (-S) % chunk
+        ld = torch.cat([logdecay, logdecay.new_zeros((B, pad) + tuple(logdecay.shape[2:]))], 1)
+        la = ld.reshape(B, -1, chunk, *ld.shape[2:]).cumsum(2).abs().max()
+        self.max[name] = la if self.max[name] is None else torch.maximum(self.max[name], la)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.orig = ops, (ops.wkv6_op, ops.ssd_op)
+        wkv6_op, ssd_op = self.orig
+
+        def wkv6_probe(r, k, v, w_log, u, *, chunk=64):
+            self._record("wkv6", w_log, chunk)
+            return wkv6_op(r, k, v, w_log, u, chunk=chunk)
+
+        def ssd_probe(x, dt, A_log, B_, C_, D, *, chunk=128):
+            self._record("ssd", dt.float() * -self.torch.exp(A_log.float()), chunk)
+            return ssd_op(x, dt, A_log, B_, C_, D, chunk=chunk)
+
+        ops.wkv6_op, ops.ssd_op = wkv6_probe, ssd_probe
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.wkv6_op, self.ops.ssd_op = self.orig
+
+    def result(self):
+        return {n: (None if m is None else m.item()) for n, m in self.max.items()}
+
+
 def check_outputs(torch, engines):
     """What comes out is right: finite logits of the expected shape on
     every engine."""
@@ -977,10 +1280,13 @@ def _kernel_launchers():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.rwkv6 import wkv6
     from repro_torch.kernels.similarity import topk_cosine
+    from repro_torch.kernels.ssd import ssd
 
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "paged_decode_attention": paged_decode_attention, "topk_cosine": topk_cosine}
+            "paged_decode_attention": paged_decode_attention, "topk_cosine": topk_cosine,
+            "wkv6": wkv6, "ssd": ssd}
 
 
 def _leaves(tree):
@@ -1024,7 +1330,10 @@ def main() -> int:
     err, checks = check_kernels(torch)
     err["topk_cosine"], checks["topk_cosine"] = check_topk(torch)
     err["paged_decode_attention"], checks["paged_decode_attention"] = check_paged(torch)
-    timing = time_kernels(torch) + time_topk(torch) + time_paged(torch)
+    scan_err, scan_checks = check_scans(torch)
+    err.update(scan_err)
+    checks.update(scan_checks)
+    timing = time_kernels(torch) + time_topk(torch) + time_paged(torch) + time_scans(torch)
 
     # phase 4: the model on the card against the CPU
     check_model(torch)
@@ -1035,13 +1344,23 @@ def main() -> int:
             for name, cfg, expect, path in SERVE_RUNS}
     runs["prefix"] = serve_prefix(torch, engines)
     check_outputs(torch, engines)
+    rec_engines, rec_init_s, rec_params = build_recurrent(torch, engines)
+    with ChunkDecayProbe(torch) as probe:
+        runs["recurrent"] = serve(torch, rec_engines, "recurrent", {"method": "apc"},
+                                  RECURRENT_EXPECT, RECURRENT_KERNELS)
+    runs["recurrent"].update(init_s=rec_init_s, params=rec_params,
+                             max_chunk_abs_la=probe.result())
+    check_shared_block(rec_engines["actor"].cfg, runs["recurrent"]["launches_by_hd"])
+    log(f"[recurrent] largest |la| of a chunk of {MODEL_CHUNK}: {probe.result()}")
+    check_outputs(torch, rec_engines)
     srv = {"init_s": init_s,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "runs": runs}
 
     # per kernel: the representative shape of its path (the attention
     # kernels: nemotron's layout; top-k: the agent's 8 padded queries against
-    # the 64-row arena, k = 1), and its launches in its path's run
+    # the 64-row arena, k = 1; the scans: the served prefill at rwkv6-3b's
+    # and zamba2's layouts), and its launches in its path's run
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:102", "nemotron-4-15b", "exact"),
@@ -1053,6 +1372,10 @@ def main() -> int:
                                    "nemotron-4-15b", "prefix"),
         "topk_cosine": ("src/repro_torch/kernels/csrc/topk_cosine.cu",
                         "src/repro/kernels/similarity.py:101", "index", "fuzzy"),
+        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/rwkv6.py:94",
+                 "rwkv6-3b", "recurrent"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:91",
+                "zamba2-2.7b", "recurrent"),
     }
     kernels = []
     for name, (src, replaces, arch, run) in sources.items():

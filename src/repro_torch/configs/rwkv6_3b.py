@@ -1,0 +1,25 @@
+"""rwkv6-3b ("Finch"): attention-free RNN with data-dependent decay.
+
+[arXiv:2404.05892; hf] — 32L d_model=2560 (attn-free) d_ff=8960 vocab=65536.
+Head size 64 => 40 heads. Time-mix (wkv6) + channel-mix (squared-relu) blocks
+with token shift.
+"""
+
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+CONFIG = ModelConfig(
+    name="rwkv6-3b",
+    family="ssm",
+    num_layers=32,
+    d_model=2560,
+    num_heads=40,  # d_model / head_dim
+    num_kv_heads=40,
+    head_dim=64,
+    d_ff=8960,
+    vocab_size=65_536,
+    attn_every=0,  # attention-free
+    mlp_act="squared_relu",  # rwkv channel-mix uses relu^2
+    norm_type="layernorm",
+    ssm=SSMConfig(state_dim=64, head_dim=64, chunk_size=128),
+    source="arXiv:2404.05892",
+)

@@ -47,6 +47,14 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
         "topk_cosine_fwd",
         [_P] * 6 + [_I] * 5 + [_P],
     ),
+    "wkv6": (
+        "wkv6_fwd",
+        [_P] * 7 + [_I] * 5 + [_L] * 12 + [_P],
+    ),
+    "ssd": (
+        "ssd_fwd",
+        [_P] * 8 + [_I] * 6 + [_L] * 10 + [_P],
+    ),
 }
 
 _lock = threading.Lock()

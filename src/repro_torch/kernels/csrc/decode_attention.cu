@@ -167,6 +167,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, lengths, o, B, Hq, Hkv, M, st, stream);
     case 64: return launch<T, 64>(q, k, v, lengths, o, B, Hq, Hkv, M, st, stream);
+    case 80: return launch<T, 80>(q, k, v, lengths, o, B, Hq, Hkv, M, st, stream);
     case 128: return launch<T, 128>(q, k, v, lengths, o, B, Hq, Hkv, M, st, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -16,7 +16,8 @@
 //     S % block assert was a Pallas constraint).
 //   * tiles are staged in shared memory as fp32 (rows padded by one
 //     float so the score loop's column reads hit distinct banks); scores
-//     and P.V are fp32 FMAs on a 4x4 / 4x(hd/16) register micro-tile.
+//     and P.V are fp32 FMAs on a 4x4 / 4x(hd/16) register micro-tile
+//     (hd in {32, 64, 80, 128}; at zamba2's hd 80 the P.V tile is 4x5).
 //
 // What bounds it on an H100 at the serving path's shapes (S <= 152,
 // B = 1): launch and latency — a few hundred CTA-tiles of FMA work.
@@ -202,6 +203,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int 
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, B, S, Hq, Hkv, causal, st, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, Hq, Hkv, causal, st, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, Hq, Hkv, causal, st, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, Hq, Hkv, causal, st, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -9,6 +9,8 @@ is bitwise equal to that row alone); its plain version is
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _build
@@ -61,7 +63,9 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
         )
     _build.check("decode_attention", code)
     decode_attention.launches += 1
+    decode_attention.launches_by_hd[hd] += 1
     return o
 
 
 decode_attention.launches = 0  # launches since the last reset
+decode_attention.launches_by_hd = collections.Counter()  # the same, by head dim

@@ -7,12 +7,14 @@ the ragged tail itself; its plain version is ``ref.flash_attention_ref``.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,7 +54,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     _build.check("flash_attention", code)
     flash_attention.launches += 1
+    flash_attention.launches_by_hd[hd] += 1
     return o
 
 
 flash_attention.launches = 0  # launches since the last reset
+flash_attention.launches_by_hd = collections.Counter()  # the same, by head dim

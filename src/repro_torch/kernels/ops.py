@@ -15,7 +15,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.kernels.similarity import topk_cosine
+from repro_torch.kernels.ssd import ssd
 
 
 def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0.0):
@@ -60,6 +62,26 @@ def paged_decode_attention_op(q, k_pages, v_pages, page_table, lengths, *,
     return paged_decode_attention(q, k_pages, v_pages,
                                   torch.as_tensor(page_table, device=q.device),
                                   torch.as_tensor(lengths, device=q.device))
+
+
+def wkv6_op(r, k, v, w_log, u, *, chunk: int = 64):
+    """RWKV6 recurrence from a zero state, model layout: r, k, v, w_log
+    (B, S, H, N), u (H, N) -> (y (B, S, H, N) float32, state (B, H, N, N)
+    float32). On the CPU, the chunked plain version with chunk ``chunk``
+    (the model passes its ``ssm.chunk_size``); the kernel has no chunk."""
+    if r.device.type == "cpu":
+        return ref.wkv6_chunked_ref(r, k, v, w_log, u, chunk=chunk)
+    return wkv6(r, k, v, w_log, u)
+
+
+def ssd_op(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
+    """Mamba-2 SSD scan from a zero state, model layout: x (B, S, H, P), dt
+    (B, S, H), A_log and D (H,), B_/C_ (B, S, Ns) -> (y (B, S, H, P) float32,
+    state (B, H, P, Ns) float32). On the CPU, the chunked plain version
+    with chunk ``chunk``; the kernel has no chunk."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A_log, B_, C_, D, chunk=chunk)
+    return ssd(x, dt, A_log, B_, C_, D)
 
 
 def batch_topk(queries: torch.Tensor, bank, *, k: int = 1):

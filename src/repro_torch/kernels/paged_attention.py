@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
+
+HEAD_DIMS = (32, 64, 128)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

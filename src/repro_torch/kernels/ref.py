@@ -4,6 +4,17 @@
 Deliberately naive: they materialize the scores. They are what the kernel
 wrappers run for a tensor on the CPU, and what each CUDA kernel is held
 against on the card.
+
+The two recurrences have two plain versions each, in the model layout
+(B, S, H, ·): the chunked forms (``wkv6_chunked_ref``, ``ssd_chunked_ref``,
+the twins of ``repro.models.rwkv.wkv6_chunked`` and
+``repro.models.mamba.ssd_chunked``), which the wrappers run, and the
+sequential oracles (``rwkv6_ref``, ``ssd_ref``, the twins of
+``repro.kernels.ref``'s), which the tests hold everything to. The chunked
+forms keep the reference's factorisation, overflow included: they multiply
+``k * exp(-la)`` and take ``exp(la_i - la_j)`` before the causal mask, so a
+chunk whose cumulative log decay ``|la|`` passes ~88 gives inf * 0 = NaN
+where the recurrence stays finite.
 """
 
 from __future__ import annotations
@@ -99,3 +110,115 @@ def topk_cosine_ref(queries: torch.Tensor, bank: torch.Tensor, k: int):
     out_s[:, :kk] = top
     out_i[:, :kk] = torch.where(top <= NEG_INF / 2, -1, order).to(torch.int32)
     return out_s, out_i
+
+
+def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 (the sequence) by ``pad`` positions."""
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))], dim=1)
+
+
+def wkv6_chunked_ref(r, k, v, w_log, u, *, chunk: int = 64):
+    """RWKV6 recurrence from a zero state, chunked. r, k, v, w_log:
+    (B, S, H, N); u: (H, N) -> (y (B, S, H, N) fp32, state (B, H, N, N)
+    fp32). A ragged tail is zero-padded (zero decay, zero inputs)."""
+    B, S, H, N = r.shape
+    C = min(chunk, S)
+    pad = (-S) % C
+    rc, kc, vc, wc = (_pad_seq(t.float(), pad) for t in (r, k, v, w_log))
+    uf = u.float()
+    tri_excl = (torch.arange(C, device=r.device)[None, :]
+                < torch.arange(C, device=r.device)[:, None]).float()
+    state = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for c0 in range(0, S + pad, C):
+        rb, kb, vb, wb = (t[:, c0:c0 + C] for t in (rc, kc, vc, wc))  # (B, C, H, N)
+        la = torch.cumsum(wb, dim=1)  # inclusive cumulative log decay
+        la_prev = la - wb
+        la_end = la[:, -1:]
+        q_t = rb * torch.exp(la_prev)
+        k_t = kb * torch.exp(-la)
+        scores = torch.einsum("bihn,bjhn->bhij", q_t, k_t) * tri_excl
+        y_intra = torch.einsum("bhij,bjhn->bihn", scores, vb)
+        y_diag = (rb * uf * kb).sum(-1, keepdim=True) * vb
+        y_inter = torch.einsum("bihn,bhnm->bihm", q_t, state)
+        ys.append(y_intra + y_diag + y_inter)
+        k_dec = kb * torch.exp(la_end - la)
+        state = torch.exp(la_end[:, 0])[..., None] * state + torch.einsum(
+            "bjhn,bjhm->bhnm", k_dec, vb)
+    return torch.cat(ys, dim=1)[:, :S], state
+
+
+def rwkv6_ref(r, k, v, w_log, u, state0=None):
+    """Sequential wkv6 (the oracle). r, k, v, w_log: (B, S, H, N); u: (H, N);
+    state0: (B, H, N, N) or None (zeros) -> (y (B, S, H, N), state), fp32."""
+    B, S, H, N = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w_log))
+    uf = u.float()
+    state = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]  # (B, H, N)
+        y = torch.einsum("bhn,bhnm->bhm", rt, state)
+        y = y + (rt * uf * kt).sum(-1, keepdim=True) * vt
+        state = torch.exp(wt)[..., None] * state + kt[..., None] * vt[..., None, :]
+        ys.append(y)
+    y = torch.stack(ys, dim=1) if ys else rf.new_zeros((B, 0, H, N))
+    return y, state
+
+
+def ssd_chunked_ref(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
+    """Mamba-2 SSD scan from a zero state, chunked. x: (B, S, H, P); dt:
+    (B, S, H); A_log, D: (H,); B_, C_: (B, S, Ns) shared across heads ->
+    (y (B, S, H, P) fp32, state (B, H, P, Ns) fp32). A ragged tail is
+    zero-padded."""
+    Bb, S, H, P = x.shape
+    Ns = B_.shape[-1]
+    Cs = min(chunk, S)
+    pad = (-S) % Cs
+    xc, dtc, Bc, Cc = (_pad_seq(t.float(), pad) for t in (x, dt, B_, C_))
+    neg_A = -torch.exp(A_log.float())
+    Df = D.float()
+    tri_incl = (torch.arange(Cs, device=x.device)[None, :]
+                <= torch.arange(Cs, device=x.device)[:, None]).float()
+    state = torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, Cs):
+        xb, dtb, Bb_, Cb = (t[:, c0:c0 + Cs] for t in (xc, dtc, Bc, Cc))
+        la = torch.cumsum(dtb * neg_A, dim=1)  # (B, C, H) inclusive
+        la_end = la[:, -1:]
+        dec = torch.exp(la[:, :, None, :] - la[:, None, :, :])  # (B, Ci, Cj, H)
+        cb = torch.einsum("bis,bjs->bij", Cb, Bb_)
+        scores = cb[..., None] * dec * tri_incl[None, :, :, None]
+        dtx = xb * dtb[..., None]
+        y_intra = torch.einsum("bijh,bjhp->bihp", scores, dtx)
+        y_inter = torch.exp(la)[..., None] * torch.einsum("bhps,bis->bihp", state, Cb)
+        ys.append(y_intra + y_inter + Df[:, None] * xb)
+        k_dec = dtx * torch.exp(la_end - la)[..., None]
+        state = torch.exp(la_end[:, 0])[..., None, None] * state + torch.einsum(
+            "bjhp,bjs->bhps", k_dec, Bb_)
+    return torch.cat(ys, dim=1)[:, :S], state
+
+
+def ssd_ref(x, dt, A_log, B_, C_, D, state0=None):
+    """Sequential SSD (the oracle). x: (B, S, H, P); dt: (B, S, H); B_, C_:
+    (B, S, Ns); A_log, D: (H,); state0: (B, H, P, Ns) or None (zeros) ->
+    (y (B, S, H, P), state), fp32."""
+    Bb, S, H, P = x.shape
+    Ns = B_.shape[-1]
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B_, C_))
+    neg_A = -torch.exp(A_log.float())
+    Df = D.float()
+    state = (torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=x.device)
+             if state0 is None else state0.float())
+    ys = []
+    for t in range(S):
+        xt, dtt = xf[:, t], dtf[:, t]  # (B, H, P), (B, H)
+        a = torch.exp(dtt * neg_A)
+        dtx = xt * dtt[..., None]
+        state = a[..., None, None] * state + dtx[..., None] * Bf[:, t, None, None, :]
+        ys.append(torch.einsum("bhps,bs->bhp", state, Cf[:, t]) + Df[:, None] * xt)
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bb, 0, H, P))
+    return y, state

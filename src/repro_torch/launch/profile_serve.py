@@ -1,9 +1,10 @@
 """Where the serving time goes, on the GPU.
 
-    python -m repro_torch.launch.profile_serve --full
+    python -m repro_torch.launch.profile_serve --full [--archs rwkv6-3b zamba2-2.7b]
 
-Builds the deployment's engines as ``launch.serve`` does (the published
-configs with ``--full``) and, for each distinct engine, runs one call of
+Builds an engine for each arch (by default the three of the ``DEFAULT``
+deployment) with ``launch.serve.build_engine`` (the published configs with
+``--full``), one at a time, and runs one call of
 the serving path's shape — prefill of the first FinanceBench task's query
 (seed 0) and ``--max-new`` greedy tokens:
 
@@ -14,8 +15,9 @@ the serving path's shape — prefill of the first FinanceBench task's query
   with the most device time.
 
 The idle share is ``1 - busy / wall``, given both for the profiled wall
-(the profiler adds host time per op) and for the unprofiled one. Prints
-one JSON line per engine.
+(the profiler adds host time per op) and for the unprofiled one. Prints a
+JSON line with the card's name and power limit (nvidia-smi), then one
+JSON line per engine.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import subprocess
 import time
 
 import numpy as np
@@ -31,7 +34,7 @@ import torch
 from repro_torch.configs.apc_minion import DEFAULT
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.envs.finance import get_env
-from repro_torch.launch.serve import build_engines
+from repro_torch.launch.serve import build_engine
 
 
 def profile_engine(engine, prompt: np.ndarray, *, max_new: int, repeats: int) -> dict:
@@ -69,14 +72,24 @@ def main():
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--archs", nargs="+", default=None,
+                    help="archs to profile (default: the DEFAULT deployment's)")
     args = ap.parse_args()
 
-    engines = build_engines(DEFAULT, full=args.full, device="cuda")
+    archs = args.archs or list(dict.fromkeys(
+        (DEFAULT.large_planner, DEFAULT.small_planner, DEFAULT.actor)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(json.dumps({"card": smi.stdout.strip().splitlines()[0],
+                      "torch": torch.__version__}), flush=True)
     task = get_env("financebench").generate(1, seed=0)[0]
     prompt = np.asarray([HashTokenizer().encode(task.query)], np.int32)
-    for e in {id(e): e for e in engines.values()}.values():
-        print(json.dumps(profile_engine(e, prompt, max_new=args.max_new,
+    for arch in archs:
+        engine = build_engine(arch, full=args.full)
+        print(json.dumps(profile_engine(engine, prompt, max_new=args.max_new,
                                         repeats=args.repeats)), flush=True)
+        del engine
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

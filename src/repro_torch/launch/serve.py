@@ -36,12 +36,32 @@ def arch_seed(arch: str) -> int:
     return zlib.crc32(arch.encode())
 
 
-def build_engines(deployment, *, full: bool = False, max_len: int = 192, device=None):
-    """One Engine per distinct arch of the deployment's roles; roles that
-    use the same arch share it. Smoke configs keep the reference's shapes
-    but widen the vocabulary to the backend tokenizer's, so every prompt
-    id is in range (the reference's 512-entry smoke vocab is not)."""
+def engine_config(arch: str, *, full: bool = False):
+    """The config an engine of ``arch`` serves: the published one with
+    ``full``, else the smoke reduction. A vocabulary narrower than the
+    backend tokenizer's is widened to it, so every prompt id is in range:
+    the reference's 512-entry smoke vocab is not, nor is zamba2-2.7b's
+    published 32,000 (the reference's ``jnp.take`` embeds such ids as NaN;
+    the port's embedding raises on them)."""
+    cfg = registry.get(arch) if full else registry.get_smoke(arch)
+    vocab = HashTokenizer().vocab_size
+    if cfg.vocab_size < vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    return cfg
+
+
+def build_engine(arch: str, *, full: bool = False, max_len: int = 192, device=None):
+    """An Engine of ``arch``: ``engine_config``'s config, random weights
+    seeded by ``arch_seed``."""
     device = resolve_device(device)
+    cfg = engine_config(arch, full=full)
+    gen = torch.Generator(device=device).manual_seed(arch_seed(arch))
+    return Engine(cfg, lm.init_params(cfg, gen, device), max_len=max_len, device=device)
+
+
+def build_engines(deployment, *, full: bool = False, max_len: int = 192, device=None):
+    """One Engine per distinct arch of the deployment's roles (``build_engine``
+    of each); roles that use the same arch share it."""
     roles = {
         "large_planner": deployment.large_planner,
         "small_planner": deployment.small_planner,
@@ -52,14 +72,7 @@ def build_engines(deployment, *, full: bool = False, max_len: int = 192, device=
     cache = {}
     for role, arch in roles.items():
         if arch not in cache:
-            if full:
-                cfg = registry.get(arch)
-            else:
-                cfg = dataclasses.replace(registry.get_smoke(arch),
-                                          vocab_size=HashTokenizer().vocab_size)
-            gen = torch.Generator(device=device).manual_seed(arch_seed(arch))
-            params = lm.init_params(cfg, gen, device)
-            cache[arch] = Engine(cfg, params, max_len=max_len, device=device)
+            cache[arch] = build_engine(arch, full=full, max_len=max_len, device=device)
         engines[role] = cache[arch]
     return engines
 

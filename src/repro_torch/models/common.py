@@ -1,5 +1,6 @@
-"""Shared layers: norms, activations, the MLP block, dtype and device
-helpers (the dense parts of ``repro.models.common``)."""
+"""Shared layers: norms, activations, the MLP block, token shift, dtype and
+device helpers (the parts of ``repro.models.common`` the port's families
+use)."""
 
 from __future__ import annotations
 
@@ -91,6 +92,13 @@ def dense_init(generator: torch.Generator, shape, dtype, device, scale: float = 
     (the reference's distribution; the draws themselves differ)."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     return w.mul_(scale).to(dtype)
+
+
+def token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shift the sequence right by one; position 0 receives ``prev`` (or
+    zeros). x: (B, S, D); prev: (B, D) carried state."""
+    first = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 # ---------------------------------------------------------------------------

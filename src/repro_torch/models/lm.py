@@ -1,15 +1,27 @@
-"""Dense language model: init, forward/prefill and decode (the dense family
-of ``repro.models.lm``).
+"""Language model: init, forward/prefill and decode for the dense, ssm
+(rwkv6) and hybrid (zamba2) families of ``repro.models.lm``.
 
 Parameters are a plain dict, as in the reference, with weights in the
 reference's (in, out) orientation (used as ``x @ W``). The reference stacks
-the layers on a leading L axis and runs them under ``lax.scan``; here
-``params["blocks"]`` is a list of per-layer dicts, looped in Python.
+the layers on a leading L axis (hybrid: (G, attn_every)) and runs them
+under ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts
+(hybrid: a list of G groups, each a list of ``attn_every`` layer dicts),
+looped in Python. The hybrid family's one shared attention block is
+``params["shared_attn"]``, a dense layer applied after every group.
 
-The KV cache is a dict ``{"length": int, "kv_k", "kv_v"}`` with
-(L, B, M, Hkv, hd) tensors, bf16 when ``cfg.dtype == "bfloat16"``. Decode
-updates it IN PLACE (the reference donates the buffers instead), so a cache
-passed to ``decode_step`` must not be reused by the caller afterwards.
+Caches are dicts with a Python int ``length``:
+
+* dense: ``kv_k``/``kv_v`` (L, B, M, Hkv, hd), bf16 when ``cfg.dtype ==
+  "bfloat16"``;
+* ssm: ``ssm_state`` (L, B, H, N, N) fp32 and the token-shift carries
+  ``shift_tm``/``shift_cm`` (L, B, D) in ``cfg.dtype``;
+* hybrid: ``ssm_state`` (G, per, B, heads, P, Ns) fp32, ``conv``
+  (G, per, B, K-1, CH) in ``cfg.dtype``, and ``kv_k``/``kv_v``
+  (G, B, M, Hkv, hd), one KV slot per application of the shared block.
+
+Decode updates the cache IN PLACE (the reference donates the buffers
+instead), so a cache passed to ``decode_step`` must not be reused by the
+caller afterwards.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (
     Params,
     apply_norm,
@@ -32,6 +46,7 @@ from repro_torch.models.common import (
 from repro_torch.models.rope import rope_angles
 
 Cache = Dict[str, Any]
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 # ===========================================================================
@@ -39,32 +54,67 @@ Cache = Dict[str, Any]
 # ===========================================================================
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port has the dense family only, not {cfg.family!r}")
+def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the port has the {', '.join(FAMILIES)} families, not {cfg.family!r}")
+    if cfg.family == "hybrid" and cfg.num_layers // cfg.attn_every == 0:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers make no group of "
+                         f"attn_every={cfg.attn_every}; the model would run no layer")
+
+
+def _groups(cfg) -> int:
+    """Hybrid: the number of (attn_every mamba layers + shared block) groups."""
+    return cfg.num_layers // cfg.attn_every
+
+
+def _norms(cfg, names, device) -> Params:
+    return {f"{nm}_{k}": v for nm in names
+            for k, v in norm_param_init(cfg, cfg.d_model, device).items()}
 
 
 def _dense_layer_init(cfg, generator, device) -> Params:
-    p: Params = {}
-    p.update({f"ln1_{k}": v for k, v in norm_param_init(cfg, cfg.d_model, device).items()})
-    p.update({f"ln2_{k}": v for k, v in norm_param_init(cfg, cfg.d_model, device).items()})
+    p = _norms(cfg, ("ln1", "ln2"), device)
     p["attn"] = attn.attn_init(cfg, generator, device)
     p["mlp"] = mlp_init(cfg, generator, device, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _rwkv_layer_init(cfg, generator, device) -> Params:
+    p = _norms(cfg, ("ln1", "ln2"), device)
+    p["rwkv"] = rwkv_mod.rwkv_init(cfg, generator, device)
+    return p
+
+
+def _mamba_layer_init(cfg, generator, device) -> Params:
+    p = _norms(cfg, ("ln1",), device)
+    p["mamba"] = mam.mamba_init(cfg, generator, device)
     return p
 
 
 def init_params(cfg, generator: torch.Generator, device) -> Params:
     """Random parameters on ``device``: ``0.02 * N(0, 1)`` drawn in fp32 and
     cast to ``param_dtype``, one tensor at a time; norm scales 1 and biases
-    0 in fp32 (the reference's distribution). ``generator`` must live on
-    ``device``."""
-    _check_dense(cfg)
+    0 in fp32 (the reference's distribution; the rwkv and mamba mixers
+    draw theirs, see ``rwkv_init`` and ``mamba_init``). ``generator`` must
+    live on ``device``."""
+    _check_family(cfg)
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device)}
-    p.update({f"final_{k}": v for k, v in norm_param_init(cfg, cfg.d_model, device).items()})
+    p.update(_norms(cfg, ("final",), device))
     if not cfg.tie_embeddings:
         p["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), dt, device)
-    p["blocks"] = [_dense_layer_init(cfg, generator, device) for _ in range(cfg.num_layers)]
+    if cfg.family == "ssm":  # rwkv6
+        p["blocks"] = [_rwkv_layer_init(cfg, generator, device)
+                       for _ in range(cfg.num_layers)]
+        p.update(_norms(cfg, ("ln0",), device))
+    elif cfg.family == "hybrid":  # zamba2
+        p["blocks"] = [[_mamba_layer_init(cfg, generator, device)
+                        for _ in range(cfg.attn_every)] for _ in range(_groups(cfg))]
+        p["shared_attn"] = _dense_layer_init(cfg, generator, device)
+    else:
+        p["blocks"] = [_dense_layer_init(cfg, generator, device)
+                       for _ in range(cfg.num_layers)]
     return p
 
 
@@ -86,13 +136,18 @@ def _tree_map(fn, tree):
 def params_from_jax(cfg, params_np: Params) -> Params:
     """The port's (CPU) parameters from a ``repro.models.lm.init_params``
     pytree given as numpy arrays. Unstacks the leading layer axis of
-    ``params_np["blocks"]`` into per-layer dicts; keeps the (in, out)
+    ``params_np["blocks"]`` into per-layer dicts (hybrid: the two leading
+    axes (G, attn_every) into groups of layer dicts); keeps the (in, out)
     orientation, the dtypes (bf16 via a uint16 view) and the names."""
-    _check_dense(cfg)
+    _check_family(cfg)
     out = {k: _tree_map(_from_numpy, v) for k, v in params_np.items() if k != "blocks"}
     stacked = _tree_map(_from_numpy, params_np["blocks"])
-    out["blocks"] = [_tree_map(lambda t: t[i].clone(), stacked)
-                     for i in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        out["blocks"] = [[_tree_map(lambda t: t[g, i].clone(), stacked)
+                          for i in range(cfg.attn_every)] for g in range(_groups(cfg))]
+    else:
+        out["blocks"] = [_tree_map(lambda t: t[i].clone(), stacked)
+                         for i in range(cfg.num_layers)]
     return out
 
 
@@ -107,15 +162,34 @@ def params_to(params: Params, device) -> Params:
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> Cache:
-    """Zeroed cache for ``batch`` sequences of up to ``max_len`` tokens."""
-    _check_dense(cfg)
-    kv_dt = dtype_of(cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "length": 0,
-        "kv_k": torch.zeros(shape, dtype=kv_dt, device=device),
-        "kv_v": torch.zeros(shape, dtype=kv_dt, device=device),
-    }
+    """Zeroed cache for ``batch`` sequences of up to ``max_len`` tokens
+    (the layouts are in the module's docstring)."""
+    _check_family(cfg)
+    dt = dtype_of(cfg.dtype)
+    f32 = torch.float32
+    c: Cache = {"length": 0}
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        H, L = cfg.d_model // s.head_dim, cfg.num_layers
+        c["ssm_state"] = torch.zeros((L, batch, H, s.head_dim, s.head_dim), dtype=f32,
+                                     device=device)
+        c["shift_tm"] = torch.zeros((L, batch, cfg.d_model), dtype=dt, device=device)
+        c["shift_cm"] = torch.zeros_like(c["shift_tm"])
+        return c
+    n_kv = cfg.num_layers
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        _, heads, conv_ch = mam.mamba_dims(cfg)
+        G, per = _groups(cfg), cfg.attn_every
+        c["ssm_state"] = torch.zeros((G, per, batch, heads, s.head_dim, s.state_dim),
+                                     dtype=f32, device=device)
+        c["conv"] = torch.zeros((G, per, batch, s.conv_dim - 1, conv_ch), dtype=dt,
+                                device=device)
+        n_kv = G
+    shape = (n_kv, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    c["kv_k"] = torch.zeros(shape, dtype=dt, device=device)
+    c["kv_v"] = torch.zeros(shape, dtype=dt, device=device)
+    return c
 
 
 def _check_ids(cfg, tokens: torch.Tensor) -> None:
@@ -147,6 +221,14 @@ def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 
 
+def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin):
+    """One dense layer (attention + MLP) over a sequence. Returns (x, k, v)."""
+    h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin)
+    x = x + h
+    x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+    return x, k, v
+
+
 def forward(
     cfg,
     params: Params,
@@ -156,22 +238,50 @@ def forward(
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full-sequence forward. Returns (logits (B, S, V), cache-or-None);
-    the cache covers ``cache_len`` positions (default S) with S filled."""
-    _check_dense(cfg)
+    the cache covers ``cache_len`` positions (default S) with S filled. The
+    recurrent families start from a zero state (``lm.py:315-318`` and
+    ``:387`` of the reference)."""
+    _check_family(cfg)
     _check_ids(cfg, tokens)
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     cache = init_cache(cfg, B, cache_len or S, x.device) if want_cache else None
-    for i, p in enumerate(params["blocks"]):
-        h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x),
-                                       cos, sin)
-        x = x + h
-        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
-        if cache is not None:
-            cache["kv_k"][i, :, :S] = k
-            cache["kv_v"][i, :, :S] = v
+    if cfg.family == "ssm":
+        x = apply_norm(cfg, params, "ln0", x)
+        for i, p in enumerate(params["blocks"]):
+            y, st, sh_tm = rwkv_mod.rwkv_time_mix(cfg, p["rwkv"],
+                                                  apply_norm(cfg, p, "ln1", x), None)
+            x = x + y
+            y, sh_cm = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"],
+                                                 apply_norm(cfg, p, "ln2", x), None)
+            x = x + y
+            if cache is not None:
+                cache["ssm_state"][i] = st
+                cache["shift_tm"][i] = sh_tm
+                cache["shift_cm"][i] = sh_cm
+    else:
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+        if cfg.family == "hybrid":
+            shared = params["shared_attn"]
+            for g, group in enumerate(params["blocks"]):
+                for i, p in enumerate(group):
+                    y, st, cv = mam.mamba_forward(cfg, p["mamba"],
+                                                  apply_norm(cfg, p, "ln1", x), None)
+                    x = x + y
+                    if cache is not None:
+                        cache["ssm_state"][g, i] = st
+                        cache["conv"][g, i] = cv
+                x, k, v = _dense_layer(cfg, shared, x, cos, sin)
+                if cache is not None:
+                    cache["kv_k"][g, :, :S] = k
+                    cache["kv_v"][g, :, :S] = v
+        else:
+            for i, p in enumerate(params["blocks"]):
+                x, k, v = _dense_layer(cfg, p, x, cos, sin)
+                if cache is not None:
+                    cache["kv_k"][i, :, :S] = k
+                    cache["kv_v"][i, :, :S] = v
     if cache is not None:
         cache["length"] = S
     return _logits(cfg, params, x), cache
@@ -203,7 +313,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
             f"prefix extension requires a pure-KV cache; family "
             f"{cfg.family!r} carries recurrent state"
         )
-    _check_dense(cfg)
+    _check_family(cfg)
     _check_ids(cfg, tokens)
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
@@ -233,20 +343,51 @@ def decode_step(cfg, params: Params, cache: Cache,
     shared position ``cache["length"]`` (the reference's semantics,
     lm.py:601-604): its K/V goes to slot ``min(length, M - 1)`` (the
     reference's clamp, attention.py:256) and every row attends over the
-    slots up to it. Returns (logits (B, 1, V), cache) — the cache tensors
-    are updated in place and returned with ``length + 1``."""
-    _check_dense(cfg)
+    slots up to it. The recurrent families step their state with plain
+    PyTorch (``wkv6_step``, ``ssd_step``), as the reference does. Returns
+    (logits (B, 1, V), cache) — the cache tensors are updated in place and
+    returned with ``length + 1``."""
+    _check_family(cfg)
     length = int(cache["length"])
     x = _embed(cfg, params, tokens)
     B = x.shape[0]
+    if cfg.family == "ssm":
+        x = apply_norm(cfg, params, "ln0", x)[:, 0]  # (B, D)
+        for i, p in enumerate(params["blocks"]):
+            y, st, sh = rwkv_mod.rwkv_time_mix_step(
+                cfg, p["rwkv"], apply_norm(cfg, p, "ln1", x), cache["ssm_state"][i],
+                cache["shift_tm"][i])
+            cache["ssm_state"][i] = st
+            cache["shift_tm"][i] = sh
+            x = x + y
+            y, sh = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln2", x),
+                                              cache["shift_cm"][i])
+            cache["shift_cm"][i] = sh
+            x = x + y
+        return _logits(cfg, params, x[:, None]), dict(cache, length=length + 1)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     slot = min(length, cache["kv_k"].shape[2] - 1)
     lengths = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
-    for i, p in enumerate(params["blocks"]):
+
+    def dense_layer(p, x, i):
         h = attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin,
                                   cache["kv_k"][i], cache["kv_v"][i], slot, lengths)
         x = x + h
-        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
-    logits = _logits(cfg, params, x)
-    return logits, {"length": length + 1, "kv_k": cache["kv_k"], "kv_v": cache["kv_v"]}
+        return x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+
+    if cfg.family == "hybrid":
+        x = x[:, 0]
+        for g, group in enumerate(params["blocks"]):
+            for i, p in enumerate(group):
+                y, st, cv = mam.mamba_step(cfg, p["mamba"], apply_norm(cfg, p, "ln1", x),
+                                           cache["ssm_state"][g, i], cache["conv"][g, i])
+                cache["ssm_state"][g, i] = st
+                cache["conv"][g, i] = cv
+                x = x + y
+            x = dense_layer(params["shared_attn"], x[:, None], g)[:, 0]
+        x = x[:, None]
+    else:
+        for i, p in enumerate(params["blocks"]):
+            x = dense_layer(p, x, i)
+    return _logits(cfg, params, x), dict(cache, length=length + 1)

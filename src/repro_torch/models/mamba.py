@@ -1,0 +1,131 @@
+"""Mamba2 (SSD, state space duality) mixer, Zamba2-style (the port of
+``repro.models.mamba``).
+
+Recurrence (per head h, head_dim p, state s; B/C shared across heads,
+n_groups=1):
+    a_t = exp(-dt_t * exp(A_log_h))              scalar decay per head
+    H_t = a_t H_{t-1} + (dt_t x_t) B_t^T         H: (P, S_state)
+    y_t = H_t C_t + D_h x_t
+
+A prefill runs the scan through ``kernels.ops.ssd_op``: the hand-written
+CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor. A
+decode step is plain PyTorch (``ssd_step``), as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import Params, dense_init, dtype_of, rms_norm
+
+
+def mamba_dims(cfg):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    heads = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.state_dim  # conv over (x, B, C)
+    return d_in, heads, conv_ch
+
+
+def mamba_init(cfg, generator, device) -> Params:
+    """The reference's distributions and dtypes: the projections at 0.02 in
+    ``param_dtype``, the conv weights at 0.1 in fp32, A_log 0 (A = -1),
+    dt_bias -2, D 1."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, heads, conv_ch = mamba_dims(cfg)
+    dt = dtype_of(cfg.param_dtype)
+    f32 = torch.float32
+    # in_proj -> [z (d_in), x (d_in), B (state), C (state), dt (heads)]
+    return {
+        "in_proj": dense_init(generator, (d, 2 * d_in + 2 * s.state_dim + heads), dt, device),
+        "conv_w": dense_init(generator, (s.conv_dim, conv_ch), f32, device, scale=0.1),
+        "conv_b": torch.zeros(conv_ch, dtype=f32, device=device),
+        "A_log": torch.zeros(heads, dtype=f32, device=device),
+        "dt_bias": torch.full((heads,), -2.0, dtype=f32, device=device),
+        "D": torch.ones(heads, dtype=f32, device=device),
+        "norm_scale": torch.ones(d_in, dtype=f32, device=device),
+        "out_proj": dense_init(generator, (d_in, d), dt, device),
+    }
+
+
+def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv. xc: (B, S, CH); w: (K, CH); prev: (B, K-1, CH)
+    carry or None (zeros). Returns (y (B, S, CH) in xc's dtype, new carry
+    (B, K-1, CH))."""
+    B, S, CH = xc.shape
+    K = w.shape[0]
+    if prev is None:
+        prev = xc.new_zeros((B, K - 1, CH))
+    full = torch.cat([prev.to(xc.dtype), xc], dim=1)  # (B, S+K-1, CH)
+    y = torch.zeros((B, S, CH), dtype=torch.float32, device=xc.device)
+    for i in range(K):
+        y = y + full[:, i:i + S].float() * w[i]
+    y = y + b
+    return F.silu(y).to(xc.dtype), full[:, -(K - 1):]
+
+
+def ssd_step(x, dt, A_log, B_, C_, D, state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step. x: (B, H, P); dt: (B, H); B_/C_: (B, Ns); state:
+    (B, H, P, Ns) fp32 -> (y (B, H, P) fp32, new state)."""
+    x = x.float()
+    a = torch.exp(-dt.float() * torch.exp(A_log.float()))  # (B, H)
+    dtx = x * dt[..., None]
+    state = a[..., None, None] * state + dtx[..., None] * B_.float()[:, None, None, :]
+    y = torch.einsum("bhps,bs->bhp", state, C_.float()) + D[None, :, None] * x
+    return y, state
+
+
+def _split_proj(cfg, proj):
+    """in_proj output -> (z, x B C for the conv, dt_raw)."""
+    s = cfg.ssm
+    d_in, _, _ = mamba_dims(cfg)
+    z = proj[..., :d_in]
+    conv_in = proj[..., d_in:2 * d_in + 2 * s.state_dim]
+    dt_raw = proj[..., 2 * d_in + 2 * s.state_dim:]
+    return z, conv_in, dt_raw
+
+
+def mamba_forward(cfg, p: Params, x: torch.Tensor,
+                  conv_prev: Optional[torch.Tensor] = None):
+    """x: (B, S, D). The scan starts from a zero state. Returns (y, state
+    (B, H, P, Ns) fp32, conv carry (B, K-1, CH))."""
+    B, S, D = x.shape
+    s = cfg.ssm
+    d_in, heads, _ = mamba_dims(cfg)
+    z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    conv_out, conv_carry = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_prev)
+    xin = conv_out[..., :d_in]
+    Bc = conv_out[..., d_in:d_in + s.state_dim]
+    Cc = conv_out[..., d_in + s.state_dim:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
+    y, state = kops.ssd_op(xin.reshape(B, S, heads, s.head_dim), dt, p["A_log"], Bc, Cc,
+                           p["D"], chunk=s.chunk_size)
+    y = rms_norm(y.reshape(B, S, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
+    return y @ p["out_proj"], state, conv_carry
+
+
+def mamba_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
+               conv_prev: torch.Tensor):
+    """Decode step. x: (B, D); conv_prev: (B, K-1, CH). Returns (y (B, D),
+    state, new conv carry)."""
+    B, D = x.shape
+    s = cfg.ssm
+    d_in, heads, _ = mamba_dims(cfg)
+    z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    window = torch.cat([conv_prev.to(conv_in.dtype), conv_in[:, None]], dim=1)  # (B, K, CH)
+    conv_out = (window.float() * p["conv_w"][None]).sum(dim=1)
+    conv_out = F.silu(conv_out + p["conv_b"]).to(x.dtype)
+    xin = conv_out[..., :d_in]
+    Bc = conv_out[..., d_in:d_in + s.state_dim]
+    Cc = conv_out[..., d_in + s.state_dim:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, H)
+    y, state = ssd_step(xin.reshape(B, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
+                        state)
+    y = rms_norm(y.reshape(B, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
+    return y @ p["out_proj"], state, window[:, 1:]

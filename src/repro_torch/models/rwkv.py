@@ -1,0 +1,149 @@
+"""RWKV6 ("Finch") blocks: time-mix with data-dependent decay + channel-mix
+(the port of ``repro.models.rwkv``).
+
+Recurrence (per head, key dim n, value dim m):
+    y_t = r_t^T (S_t + diag(u) k_t v_t^T)
+    S_{t+1} = diag(w_t) S_t + k_t v_t^T
+with w_t = exp(-exp(w_base + lora(x^w_t))) in (0, 1), data-dependent.
+
+A prefill runs the recurrence through ``kernels.ops.wkv6_op``: the
+hand-written CUDA kernel on a CUDA tensor, the chunked plain version on a
+CPU tensor. A decode step is plain PyTorch (``wkv6_step``), as in the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import Params, dense_init, dtype_of, layer_norm, token_shift
+
+LORA_DIM = 64
+
+
+def rwkv_init(cfg, generator, device) -> Params:
+    """The reference's distributions and dtypes: mixes 0.5, decay base -4.6
+    (decay ~ exp(-0.01)), the decay LoRA at scale 0.01 and the bonus at 0.1
+    in fp32, the projections at 0.02 in ``param_dtype``."""
+    d = cfg.d_model
+    s = cfg.ssm
+    heads = d // s.head_dim
+    dt = dtype_of(cfg.param_dtype)
+    f32 = torch.float32
+
+    def full(value):
+        return torch.full((d,), value, dtype=f32, device=device)
+
+    def dense(shape, dtype=dt, scale=0.02):
+        return dense_init(generator, shape, dtype, device, scale=scale)
+
+    return {
+        # time-mix
+        "mix_r": full(0.5),
+        "mix_k": full(0.5),
+        "mix_v": full(0.5),
+        "mix_g": full(0.5),
+        "mix_w": full(0.5),
+        "wr": dense((d, d)),
+        "wk": dense((d, d)),
+        "wv": dense((d, d)),
+        "wg": dense((d, d)),
+        "wo": dense((d, d)),
+        "w_base": full(-4.6),
+        "w_lora_a": dense((d, LORA_DIM), f32, 0.01),
+        "w_lora_b": dense((LORA_DIM, d), f32, 0.01),
+        "bonus": dense((heads, s.head_dim), f32, 0.1),
+        "ln_x_scale": full(1.0),
+        "ln_x_bias": full(0.0),
+        # channel-mix
+        "mix_ck": full(0.5),
+        "mix_cr": full(0.5),
+        "ck": dense((d, cfg.d_ff)),
+        "cv": dense((cfg.d_ff, d)),
+        "cr": dense((d, d)),
+    }
+
+
+def wkv6_step(r, k, v, w_log, u, state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step. r, k, v, w_log: (B, H, N); u: (H, N); state:
+    (B, H, N, N) fp32 -> (y (B, H, N) fp32, new state)."""
+    r, k, v = r.float(), k.float(), v.float()
+    w = torch.exp(w_log.float())
+    y = torch.einsum("bhn,bhnm->bhm", r, state)
+    coef = (r * u[None] * k).sum(-1, keepdim=True)  # (B, H, 1)
+    y = y + coef * v
+    state = w[..., None] * state + k[..., None] * v[..., None, :]
+    return y, state
+
+
+def _ddlerp(x, x_shift, mix):
+    return x + (x_shift - x) * mix.to(x.dtype)
+
+
+def _decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent log decay (Finch): -exp(w_base + lora(xw)), clipped to
+    [-8, -1e-5], in fp32."""
+    lora = torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
+    return torch.clamp(-torch.exp(p["w_base"] + lora), -8.0, -1e-5)
+
+
+def _projections(p: Params, x, xs):
+    """r, k, v, g and the log decay from x and its shifted copy."""
+    xr = _ddlerp(x, xs, p["mix_r"])
+    xk = _ddlerp(x, xs, p["mix_k"])
+    xv = _ddlerp(x, xs, p["mix_v"])
+    xg = _ddlerp(x, xs, p["mix_g"])
+    xw = _ddlerp(x, xs, p["mix_w"])
+    g = F.silu(xg @ p["wg"])
+    return xr @ p["wr"], xk @ p["wk"], xv @ p["wv"], g, _decay(p, xw)
+
+
+def _out(p: Params, y: torch.Tensor, g: torch.Tensor, x_dtype) -> torch.Tensor:
+    """Per-head group norm of the fp32 y (..., H, N), affine, gate, output
+    projection."""
+    yh = layer_norm(y, None, None)
+    y = yh.flatten(-2) * p["ln_x_scale"] + p["ln_x_bias"]
+    return (y.to(x_dtype) * g) @ p["wo"]
+
+
+def rwkv_time_mix(cfg, p: Params, x: torch.Tensor,
+                  x_prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, D); x_prev: (B, D) shift carry or None. The recurrence
+    starts from a zero state. Returns (y, state (B, H, N, N) fp32,
+    new x_prev)."""
+    B, S, D = x.shape
+    s = cfg.ssm
+    H, N = D // s.head_dim, s.head_dim
+    r, k, v, g, w_log = _projections(p, x, token_shift(x, x_prev))
+    y, state = kops.wkv6_op(r.reshape(B, S, H, N), k.reshape(B, S, H, N),
+                            v.reshape(B, S, H, N), w_log.reshape(B, S, H, N), p["bonus"],
+                            chunk=s.chunk_size)
+    return _out(p, y, g, x.dtype), state, x[:, -1]
+
+
+def rwkv_time_mix_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
+                       x_prev: torch.Tensor):
+    """Decode step. x: (B, D). Returns (y (B, D), state, new x_prev)."""
+    B, D = x.shape
+    s = cfg.ssm
+    H, N = D // s.head_dim, s.head_dim
+    r, k, v, g, w_log = _projections(p, x, x_prev)
+    y, state = wkv6_step(r.reshape(B, H, N), k.reshape(B, H, N), v.reshape(B, H, N),
+                         w_log.reshape(B, H, N), p["bonus"], state)
+    return _out(p, y, g, x.dtype), state, x
+
+
+def rwkv_channel_mix(cfg, p: Params, x: torch.Tensor,
+                     x_prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) (or (B, D) with x_prev for decode). Returns (y,
+    new x_prev)."""
+    xs = x_prev if x.dim() == 2 else token_shift(x, x_prev)
+    xk = _ddlerp(x, xs, p["mix_ck"])
+    xr = _ddlerp(x, xs, p["mix_cr"])
+    kk = torch.relu(xk @ p["ck"])
+    y = torch.sigmoid(xr @ p["cr"]) * ((kk * kk) @ p["cv"])
+    return y, (x if x.dim() == 2 else x[:, -1])

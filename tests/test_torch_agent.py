@@ -160,3 +160,43 @@ def test_torch_backend_fuzzy_run_on_smoke_engines():
     assert led_t.breakdown() == led_j.breakdown()
     assert ag_t.cache.pipeline.stage("fuzzy").index.device.type == "cpu"
     assert sum(e.stats.decode_tokens for e in {id(e): e for e in engines.values()}.values()) > 0
+
+
+def test_recurrent_deployment_run_records_match_reference():
+    """chip_smoke.py's `recurrent` run on smoke engines: exact `apc` on a
+    deployment whose small planner and keyword extractor are rwkv6-3b and
+    whose actor is zamba2-2.7b. The port's TorchBackend on its CPU smoke
+    engines and the reference's JaxBackend on its smoke engines give equal
+    RunRecords and ledgers, and the (hits, accuracy, cost) chip_smoke.py
+    pins for the run on the card (RECURRENT_EXPECT)."""
+    import os
+    import sys
+
+    from repro.configs.apc_minion import APCDeployment as JDeployment
+    from repro.launch.serve import build_engines as jbuild_engines
+    from repro_torch.configs.apc_minion import APCDeployment
+    from repro_torch.launch.serve import build_engines
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+
+    roles = chip_smoke.RECURRENT_ROLES
+    assert roles == {"small_planner": "rwkv6-3b", "keyword_extractor": "rwkv6-3b",
+                     "actor": "zamba2-2.7b"}
+    jdep, tdep = JDeployment(**roles), APCDeployment(**roles)
+    assert jdep.pricing == tdep.pricing
+    jeng = jbuild_engines(jdep, full=False, max_len=192)
+    teng = build_engines(tdep, full=False, max_len=192, device="cpu")
+    assert {r: e.cfg.family for r, e in teng.items()} == {
+        r: e.cfg.family for r, e in jeng.items()}
+    recs_j, led_j, _ = _run(JAgent, JAgentConfig, JLedger, JaxBackend(jeng, seed=0),
+                            jdep.pricing, jget_env("financebench").generate(N_TASKS, seed=0))
+    recs_t, led_t, _ = _run(PlanActAgent, AgentConfig, CostLedger, TorchBackend(teng, seed=0),
+                            tdep.pricing, get_env("financebench").generate(N_TASKS, seed=0))
+    _assert_same_records(recs_t, recs_j)
+    assert led_t.breakdown() == led_j.breakdown()
+    got = (sum(r.hit for r in recs_t), sum(r.correct for r in recs_t) / N_TASKS,
+           round(led_t.total_cost(), 4))
+    assert got == chip_smoke.RECURRENT_EXPECT == (2, 0.875, 0.2987)
+    for role in ("small_planner", "actor"):  # the recurrent engines served real tokens
+        assert teng[role].stats.decode_tokens > 0

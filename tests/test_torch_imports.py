@@ -46,5 +46,7 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     mods = set(got["modules"])
     for m in ("repro_torch.kernels.paged_attention", "repro_torch.serving.kv_cache",
               "repro_torch.serving.router", "repro_torch.serving.engine",
-              "repro_torch.index.device", "repro_torch.launch.serve"):
+              "repro_torch.index.device", "repro_torch.launch.serve",
+              "repro_torch.models.rwkv", "repro_torch.models.mamba",
+              "repro_torch.kernels.rwkv6", "repro_torch.kernels.ssd"):
         assert m in mods

@@ -49,6 +49,7 @@ def _close(t, j, tol):
         (2, 8, 2, 256, 64, 128, 64),  # GQA 4:1
         (1, 8, 8, 192, 32, 64, 64),   # non-pow2 seq (192 = 3*64)
         (2, 4, 1, 128, 128, 64, 128), # MQA, wide head
+        (1, 4, 4, 128, 80, 64, 64),   # zamba2's shared block: hd 80
     ],
 )
 def test_flash_attention_op_matches_pallas(B, Hq, Hkv, S, hd, bq, bk, dtype):
@@ -67,6 +68,7 @@ def test_flash_attention_op_matches_pallas(B, Hq, Hkv, S, hd, bq, bk, dtype):
         (2, 8, 2, 256, 64, 177, 64),
         (1, 4, 4, 512, 128, 512, 128),
         (3, 8, 1, 128, 64, 1, 64),  # single valid position
+        (1, 4, 4, 128, 80, 77, 64),  # zamba2's shared block: hd 80
     ],
 )
 def test_decode_attention_op_matches_pallas(B, Hq, Hkv, M, hd, length, bk, dtype):
@@ -146,9 +148,19 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     table = torch.tensor([[1, 0]], dtype=torch.int32)
     out = ops.paged_decode_attention_op(q[:, :1], pages, pages, table, torch.tensor([7]))
     assert out.shape == (1, 1, 4, 32)
+    y, st = ops.wkv6_op(q, q, q, -torch.rand(1, 5, 4, 32), torch.randn(4, 32), chunk=4)
+    assert y.shape == (1, 5, 4, 32) and st.shape == (1, 4, 32, 32)
+    y, st = ops.ssd_op(q, torch.rand(1, 5, 4), torch.zeros(4), k[:, :, 0], k[:, :, 1],
+                       torch.ones(4), chunk=4)
+    assert y.shape == (1, 5, 4, 32) and st.shape == (1, 4, 32, 32)
     meta = torch.empty(1, 5, 4, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_op(meta, meta[:, :, :2], meta[:, :, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.wkv6_op(meta, meta, meta, meta.float(), torch.empty(4, 32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_op(meta, torch.empty(1, 5, 4, device="meta"), torch.empty(4, device="meta"),
+                   meta[:, :, 0], meta[:, :, 0], torch.empty(4, device="meta"))
 
 
 def _page_table(B, P, npages, ps, lengths, seed=0):
@@ -230,3 +242,133 @@ def test_paged_op_softcap_on_cpu_and_refusals():
     mpages = torch.empty(6, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_decode_attention_op(meta, mpages, mpages, table, lens)
+
+
+# tolerances of tests/test_kernels.py's sweeps: the chunked and sequential
+# forms round their fp32 sums in other orders
+WKV6_TOL = dict(atol=2e-4, rtol=1e-3)
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+def _scan_close(t, j, tol):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **tol)
+
+
+def _wkv6_np(B, S, H, N, seed=0):
+    """The draws of tests/test_kernels.py::test_wkv6_sweep, from numpy."""
+    rs = np.random.RandomState(seed)
+    r, k, v = (rs.standard_normal((B, S, H, N)).astype(np.float32) * 0.5 for _ in range(3))
+    w = -np.exp(rs.standard_normal((B, S, H, N)).astype(np.float32) * 0.5 - 2.0)
+    u = rs.standard_normal((H, N)).astype(np.float32) * 0.3
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("N", [16, 64])
+@pytest.mark.parametrize("S,chunk", [(64, 16), (128, 32), (96, 32), (37, 16)])
+def test_wkv6_plain_matches_reference(S, chunk, N):
+    """The port's chunked plain wkv6 (what ops.wkv6_op runs on the CPU)
+    against JAX's model form (wkv6_chunked), its sequential oracle
+    (rwkv6_ref) and the Pallas kernel in interpret mode, on the sweep's
+    shapes plus a ragged S (37, zero-padded to the chunk; the Pallas
+    kernel, which needs S % chunk == 0, takes the whole sequence as one
+    chunk there). The port's sequential oracle matches too."""
+    from repro.kernels import ref as jref
+    from repro.models.rwkv import wkv6_chunked
+
+    B, H = 2, 3
+    arrs = _wkv6_np(B, S, H, N)
+    jx = [jnp.asarray(a) for a in arrs]
+    tx = [torch.from_numpy(a) for a in arrs]
+    y, st = ops.wkv6_op(*tx, chunk=chunk)
+    assert y.dtype == torch.float32 and st.shape == (B, H, N, N)
+    zeros = jnp.zeros((B, H, N, N))
+    for want_y, want_st in (wkv6_chunked(*jx, zeros, chunk=chunk),
+                            jref.rwkv6_ref(*jx, zeros),
+                            jops.wkv6_op(*jx, chunk=chunk if S % chunk == 0 else S)):
+        _scan_close(y, want_y, WKV6_TOL)
+        _scan_close(st, want_st, WKV6_TOL)
+    ys, sts = tref.rwkv6_ref(*tx)
+    _scan_close(ys, y.numpy(), WKV6_TOL)
+    _scan_close(sts, st.numpy(), WKV6_TOL)
+
+
+def _ssd_np(B, S, H, P, Ns, seed=1):
+    """The draws of tests/test_kernels.py::test_ssd_sweep, from numpy."""
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((B, S, H, P)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rs.standard_normal((B, S, H)).astype(np.float32)))
+    Bc = rs.standard_normal((B, S, Ns)).astype(np.float32) * 0.5
+    Cc = rs.standard_normal((B, S, Ns)).astype(np.float32) * 0.5
+    return x, dt, np.zeros(H, np.float32), Bc, Cc, np.ones(H, np.float32)
+
+
+@pytest.mark.parametrize("S,chunk,P,Ns", [(64, 16, 32, 16), (128, 64, 64, 64),
+                                          (37, 16, 32, 16)])
+def test_ssd_plain_matches_reference(S, chunk, P, Ns):
+    """The port's chunked plain SSD scan (what ops.ssd_op runs on the CPU)
+    against JAX's model form (ssd_chunked), its sequential oracle (ssd_ref)
+    and the Pallas kernel in interpret mode, on the sweep's shapes plus a
+    ragged S (the Pallas kernel takes it as one chunk)."""
+    from repro.kernels import ref as jref
+    from repro.models.mamba import ssd_chunked
+
+    B, H = 2, 3
+    arrs = _ssd_np(B, S, H, P, Ns)
+    jx = [jnp.asarray(a) for a in arrs]
+    tx = [torch.from_numpy(a) for a in arrs]
+    y, st = ops.ssd_op(*tx, chunk=chunk)
+    assert y.dtype == torch.float32 and st.shape == (B, H, P, Ns)
+    zeros = jnp.zeros((B, H, P, Ns))
+    for want_y, want_st in (ssd_chunked(*jx, zeros, chunk=chunk),
+                            jref.ssd_ref(*jx, zeros),
+                            jops.ssd_op(*jx, chunk=chunk if S % chunk == 0 else S)):
+        _scan_close(y, want_y, SSD_TOL)
+        _scan_close(st, want_st, SSD_TOL)
+    ys, sts = tref.ssd_ref(*tx)
+    _scan_close(ys, y.numpy(), SSD_TOL)
+    _scan_close(sts, st.numpy(), SSD_TOL)
+
+
+def test_scan_plain_versions_overflow_as_the_reference_does():
+    """The chunked forms keep the reference's factorisation, overflow
+    included: a chunk whose cumulative log decay passes ~88 makes
+    exp(-la) (wkv6) or exp(la_i - la_j) (ssd) inf, and inf * 0 NaN, in JAX
+    and in the port alike, while both sequential oracles stay finite."""
+    from repro.kernels import ref as jref
+    from repro.models.mamba import ssd_chunked
+    from repro.models.rwkv import wkv6_chunked
+
+    B, S, H, N = 1, 128, 1, 16
+    r, k, v, _, u = _wkv6_np(B, S, H, N)
+    w = np.full((B, S, H, N), -1.0, np.float32)  # |la| reaches 128 in one chunk
+    yj, _ = wkv6_chunked(*map(jnp.asarray, (r, k, v, w, u)), jnp.zeros((B, H, N, N)),
+                         chunk=128)
+    yt, _ = ops.wkv6_op(*map(torch.from_numpy, (r, k, v, w, u)), chunk=128)
+    assert not np.isfinite(np.asarray(yj)).all() and not torch.isfinite(yt).all()
+    assert torch.isfinite(tref.rwkv6_ref(*map(torch.from_numpy, (r, k, v, w, u)))[0]).all()
+    x, dt, A, Bc, Cc, D = _ssd_np(B, S, H, 16, 16)
+    dt = np.full_like(dt, 1.0)
+    yj, _ = ssd_chunked(*map(jnp.asarray, (x, dt, A, Bc, Cc, D)), jnp.zeros((B, H, 16, 16)),
+                        chunk=128)
+    yt, _ = ops.ssd_op(*map(torch.from_numpy, (x, dt, A, Bc, Cc, D)), chunk=128)
+    assert not np.isfinite(np.asarray(yj)).all() and not torch.isfinite(yt).all()
+    yo, _ = jref.ssd_ref(*map(jnp.asarray, (x, dt, A, Bc, Cc, D)), jnp.zeros((B, H, 16, 16)))
+    assert np.isfinite(np.asarray(yo)).all()
+    assert torch.isfinite(tref.ssd_ref(*map(torch.from_numpy, (x, dt, A, Bc, Cc, D)))[0]).all()
+
+
+def test_scan_launchers_refuse_tensors_off_cuda():
+    """The wkv6 and ssd launchers themselves (not the ops, which dispatch
+    CPU tensors to the plain versions) refuse CPU and meta tensors before
+    any build: they launch on a CUDA device or raise."""
+    from repro_torch.kernels.rwkv6 import wkv6
+    from repro_torch.kernels.ssd import ssd
+
+    x = torch.randn(1, 5, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(x, x, x, x, torch.randn(2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd(x, torch.rand(1, 5, 2), torch.zeros(2), x[:, :, 0], x[:, :, 1], torch.ones(2))
+    m = torch.empty(1, 5, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(m, m, m, m, torch.empty(2, 64, device="meta"))

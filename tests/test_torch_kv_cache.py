@@ -394,25 +394,30 @@ def test_prefix_length_mismatch_falls_back_and_reregisters(engines):
         assert eng.kv_prefix.length_of("stale-tpl") == Sp  # re-registered
 
 
-def test_prefix_families_gate():
-    """A family that carries recurrent state can't re-enter a stored
-    prefix: the engine drops the kv_prefix wiring (the port has no ssm
-    config yet, so the family is set on a dense smoke config), and
-    ``prefill_extend`` refuses it as the reference does."""
-    cfg = dataclasses.replace(registry.get_smoke("olmo-1b"), family="ssm")
-    params = lm.init_params(registry.get_smoke("olmo-1b"), torch.Generator().manual_seed(0),
-                            "cpu")
-    kvc = tkv.KVPrefixCache(tkv.pool_for_config(cfg, num_pages=4, page_size=8, device="cpu"))
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_prefix_families_gate(arch):
+    """A family that carries recurrent state (ssm: rwkv6-3b; hybrid:
+    zamba2-2.7b) can't re-enter a stored prefix: the engine drops the
+    kv_prefix wiring, as the reference's engine does, and
+    ``prefill_extend`` refuses it with the reference's message."""
+    cfg = registry.get_smoke(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dense_cfg = registry.get_smoke("olmo-1b")
+    kvc = tkv.KVPrefixCache(tkv.pool_for_config(dense_cfg, num_pages=4, page_size=8,
+                                                device="cpu"))
     assert Engine(cfg, params, max_len=48, device="cpu", kv_prefix=kvc).kv_prefix is None
-    jcfg = dataclasses.replace(jregistry.get_smoke("olmo-1b"), family="ssm")
+    jcfg = jregistry.get_smoke(arch)
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    jkvc = jkv.KVPrefixCache(jkv.PagePool(2, 4, 8, 4, 32, dtype=jnp.float32))
+    assert JEngine(jcfg, jparams, max_len=48, kv_prefix=jkvc).kv_prefix is None
     with pytest.raises(NotImplementedError) as want:
-        jlm.prefill_extend(jcfg, None, {"tokens": jnp.zeros((1, 2), jnp.int32)},
+        jlm.prefill_extend(jcfg, jparams, {"tokens": jnp.zeros((1, 2), jnp.int32)},
                            None, None, 0)
     with pytest.raises(NotImplementedError) as got:
         lm.prefill_extend(cfg, params, torch.zeros(1, 2, dtype=torch.long), None, None, 0)
     assert str(got.value) == str(want.value)
-    dense = Engine(registry.get_smoke("olmo-1b"), params, max_len=48, device="cpu",
-                   kv_prefix=kvc)
+    dense = Engine(dense_cfg, lm.init_params(dense_cfg, torch.Generator().manual_seed(0),
+                                             "cpu"), max_len=48, device="cpu", kv_prefix=kvc)
     assert dense.kv_prefix is kvc
 
 

@@ -1,5 +1,6 @@
-"""The port's dense model (``repro_torch.models``) against ``repro.models``
-on the CPU, at smoke size, on the same weights and inputs.
+"""The port's models (``repro_torch.models``: the dense family, rwkv6-3b's
+ssm family and zamba2-2.7b's hybrid family) against ``repro.models`` on the
+CPU, at smoke size, on the same weights and inputs.
 
 Weights are drawn by ``repro.models.lm.init_params`` and carried across
 with ``params_from_jax``; inputs come from numpy with a fixed seed. The
@@ -30,6 +31,7 @@ from repro_torch.models import rope as trope  # noqa: E402
 torch.set_num_threads(2)
 
 ARCHS = ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b"]
+RECURRENT = ["rwkv6-3b", "zamba2-2.7b"]
 VOCAB = 50_304
 # f32: both sides compute in f32 and differ in summation order only.
 # bf16: activations round to bf16 after every op on both sides, at places
@@ -57,15 +59,27 @@ def _close(t, j, tol):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _fields_equal(t, j):
+    """Whether the port's config ``t`` carries ``j``'s value on each of its
+    own fields; a sub-config (SSMConfig) is held on the port's fields too,
+    since the two packages' classes differ."""
+    for f in dataclasses.fields(t):
+        tv, jv = getattr(t, f.name), getattr(j, f.name)
+        if dataclasses.is_dataclass(tv):
+            assert dataclasses.is_dataclass(jv), f.name
+            _fields_equal(tv, jv)
+        else:
+            assert tv == jv, f.name
+
+
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_configs_match_reference(arch):
     """The port's configs carry the reference's values on every field
     they share, at full size and smoke size."""
     for getter in ("get", "get_smoke"):
         j = getattr(jregistry, getter)(arch)
         t = getattr(tregistry, getter)(arch)
-        for f in dataclasses.fields(t):
-            assert getattr(t, f.name) == getattr(j, f.name), (getter, f.name)
+        _fields_equal(t, j)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -251,3 +265,171 @@ def test_init_params_distribution_and_dtypes():
     assert bool((p["blocks"][1]["ln2_bias"] == 0).all())
     p2 = tlm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     assert torch.equal(p["blocks"][1]["mlp"]["w_down"], p2["blocks"][1]["mlp"]["w_down"])
+
+
+def test_token_shift_matches_reference():
+    x = np.random.RandomState(9).standard_normal((2, 5, 8)).astype(np.float32)
+    prev = np.random.RandomState(10).standard_normal((2, 8)).astype(np.float32)
+    for p in (None, prev):
+        want = jcommon.token_shift(jnp.asarray(x), None if p is None else jnp.asarray(p))
+        got = tcommon.token_shift(torch.from_numpy(x), None if p is None else torch.from_numpy(p))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_params_from_jax_recurrent_layouts(arch):
+    """Every leaf of an ssm / hybrid pytree crosses exactly: the layer axis
+    (hybrid: the (G, attn_every) axes) unstacked, names and dtypes kept
+    (the decay LoRA, bonus, conv and SSM parameters in f32, the
+    projections in bf16)."""
+    jcfg, tcfg = _cfgs(arch, "bfloat16")
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(4))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    assert set(pt) == set(pj)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(pj["blocks"])[0]:
+        keys = [p.key for p in path]
+        lead = leaf.shape[:2] if tcfg.family == "hybrid" else leaf.shape[:1]
+        for idx in np.ndindex(*lead):
+            got = pt["blocks"]
+            for i in idx:
+                got = got[i]
+            for k in keys:
+                got = got[k]
+            want = np.asarray(leaf[idx])
+            assert str(got.dtype).endswith(want.dtype.name), (keys, got.dtype, want.dtype)
+            np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+    if tcfg.family == "hybrid":
+        assert len(pt["blocks"]) == tcfg.num_layers // tcfg.attn_every
+        assert all(len(g) == tcfg.attn_every for g in pt["blocks"])
+        assert pt["shared_attn"]["attn"]["wq"].dtype == torch.bfloat16
+    else:
+        assert len(pt["blocks"]) == tcfg.num_layers
+        assert pt["ln0_scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_decode_and_caches_match_reference(arch, dtype):
+    """rwkv6-3b (ssm) and zamba2-2.7b (hybrid) at smoke size: forward
+    logits, prefill logits and cache, 3 teacher-forced decode steps, and
+    the final caches (ssm_state and shift_* / conv and kv_*), against
+    repro.models.lm on the same weights."""
+    jcfg, tcfg = _cfgs(arch, dtype)
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(12))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    B, S, M = 2, 21, 32
+    toks = np.random.RandomState(13).randint(3, VOCAB, (B, S + 3)).astype(np.int32)
+    tol = TOL[dtype]
+
+    lj, _, _ = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(pj, {"tokens": jnp.asarray(toks)})
+    lt, none = tlm.forward(tcfg, pt, torch.from_numpy(toks))
+    assert none is None
+    _close(lt, lj, tol)
+
+    lj, cj = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, cache_len=M))(
+        pj, {"tokens": jnp.asarray(toks[:, :S])})
+    lt, ct = tlm.prefill(tcfg, pt, torch.from_numpy(toks[:, :S]), cache_len=M)
+    assert set(ct) == set(cj) and ct["length"] == int(cj["length"]) == S
+    for name in ct:
+        if name != "length":
+            assert tuple(ct[name].shape) == cj[name].shape, name
+            assert str(ct[name].dtype).endswith(cj[name].dtype.name), name
+            _close(ct[name], cj[name], tol)
+    _close(lt, lj, tol)
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jcfg, p, c, t))
+    for i in range(3):
+        t_in = toks[:, S + i:S + i + 1]
+        lj, cj = step(pj, cj, jnp.asarray(t_in))
+        lt, ct = tlm.decode_step(tcfg, pt, ct, torch.from_numpy(t_in))
+        assert ct["length"] == int(cj["length"]) == S + i + 1
+        _close(lt, lj, tol)
+    for name in ct:
+        if name != "length":
+            _close(ct[name], cj[name], tol)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_multi_step_decode_matches_forward(arch):
+    """The port's own decode against its own forward (as
+    tests/test_models.py does for the reference): prefill 18 tokens, then 3
+    decode steps; each step's logits within 1e-3 (relative to the largest)
+    of the full forward's at that position. f32."""
+    _, cfg = _cfgs(arch)
+    p = tlm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    B, S, extra = 1, 18, 3
+    toks = torch.randint(3, VOCAB, (B, S + extra), generator=torch.Generator().manual_seed(4))
+    full, _ = tlm.forward(cfg, p, toks)
+    _, cache = tlm.prefill(cfg, p, toks[:, :S], cache_len=S + extra + 2)
+    for i in range(extra):
+        ld, cache = tlm.decode_step(cfg, p, cache, toks[:, S + i:S + i + 1])
+        a, b = full[:, S + i], ld[:, 0]
+        rel = (a - b).abs().max().item() / (a.abs().max().item() + 1e-9)
+        assert rel < 1e-3, (arch, i, rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_block_hd80_matches_reference(dtype):
+    """Zamba2's shared attention block at its published head dim 80
+    (4 heads at smoke width): prefill through the plain flash version and
+    one decode step through the plain decode version, against the
+    reference's jnp attention on the same projections."""
+    jcfg, tcfg = _cfgs("zamba2-2.7b", dtype)
+    jcfg = dataclasses.replace(jcfg, head_dim=80)
+    tcfg = dataclasses.replace(tcfg, head_dim=80)
+    pj = jattn.attn_init(jcfg, jax.random.PRNGKey(8))
+    pt = {k: _t(v) for k, v in pj.items()}
+    S, M, B = 13, 16, 2
+    x = jnp.asarray(np.random.RandomState(14).standard_normal((B, S, jcfg.d_model)),
+                    jnp.float32).astype(getattr(jnp, dtype))
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    cj, sj = jrope.rope_angles(pos, 80, jcfg.rope_theta)
+    ct, st = trope.rope_angles(_t(pos), 80, tcfg.rope_theta)
+    oj, (kj, vj) = jattn.attention_seq(jcfg, pj, x, cj, sj)
+    ot, (kt, vt) = tattn.attention_seq(tcfg, pt, _t(x), ct, st)
+    tol = TOL[dtype]
+    _close(ot, oj, tol)
+    ck = jnp.zeros((B, M, jcfg.num_kv_heads, 80), kj.dtype).at[:, :S].set(kj)
+    cv = jnp.zeros_like(ck).at[:, :S].set(vj)
+    pd = jnp.full((B, 1), S, jnp.int32)
+    cdj, sdj = jrope.rope_angles(pd, 80, jcfg.rope_theta)
+    cdt, sdt = trope.rope_angles(_t(pd), 80, tcfg.rope_theta)
+    odj, ckj, _ = jattn.attention_decode(jcfg, pj, x[:, -1:], cdj, sdj, ck, cv, jnp.asarray(S))
+    ckt, cvt = _t(ck), _t(cv)
+    odt = tattn.attention_decode(tcfg, pt, _t(x[:, -1:]), cdt, sdt, ckt, cvt, S,
+                                 torch.full((B,), S + 1, dtype=torch.int32))
+    _close(odt, odj, tol)
+    _close(ckt, ckj, tol)
+
+
+def test_recurrent_init_distributions_and_dtypes():
+    """The mixers draw the reference's distributions: rwkv's mixes 0.5,
+    decay base -4.6, LoRA at 0.01 and bonus at 0.1 in f32; mamba's conv at
+    0.1 in f32, A_log 0, dt_bias -2, D 1; projections in param_dtype.
+    Smoke depth, widened to 512 so the standard deviations are estimated
+    from enough draws (tolerance 15%: at least 512 draws each)."""
+    cfg = dataclasses.replace(tregistry.get_smoke("rwkv6-3b"), d_model=512)
+    p = tlm.init_params(cfg, torch.Generator().manual_seed(2), "cpu")["blocks"][1]["rwkv"]
+    assert bool((p["mix_w"] == 0.5).all()) and bool((p["w_base"] == -4.6).all())
+    for name, std in (("w_lora_a", 0.01), ("w_lora_b", 0.01), ("bonus", 0.1), ("wr", 0.02)):
+        assert abs(p[name].float().std().item() - std) < 0.15 * std, name
+    assert all(p[n].dtype == torch.float32 for n in ("w_lora_a", "w_lora_b", "bonus"))
+    assert p["wr"].dtype == torch.bfloat16 and p["bonus"].shape == (16, 32)
+    cfg = dataclasses.replace(tregistry.get_smoke("zamba2-2.7b"), d_model=512)
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    m = params["blocks"][1][1]["mamba"]
+    assert len(params["blocks"]) == 2 and len(params["blocks"][0]) == 2
+    assert m["conv_w"].dtype == torch.float32
+    assert abs(m["conv_w"].std().item() - 0.1) < 0.015
+    assert bool((m["A_log"] == 0).all()) and bool((m["dt_bias"] == -2).all())
+    assert bool((m["D"] == 1).all()) and m["in_proj"].dtype == torch.bfloat16
+    assert m["in_proj"].shape == (512, 2 * 1024 + 2 * 16 + 32)  # z, x, B, C, dt
+    assert params["shared_attn"]["attn"]["wq"].shape == (512, 4 * 32)
+
+
+def test_hybrid_needs_one_whole_group():
+    """A hybrid config with fewer layers than attn_every would run no layer
+    at all (the reference's group count is num_layers // attn_every): the
+    port refuses it."""
+    cfg = dataclasses.replace(tregistry.get_smoke("zamba2-2.7b"), num_layers=1)
+    with pytest.raises(ValueError, match="no group"):
+        tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -88,7 +88,8 @@ def test_engine_prefill_counts_only_valid_tokens():
     assert eng.stats.prefill_tokens == 26
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b", "rwkv6-3b",
+                                  "zamba2-2.7b"])
 def test_greedy_generate_token_identical_to_reference(arch):
     """f32, same weights (carried from the reference's init), same prompts:
     the port's greedy tokens equal the reference engine's."""
@@ -134,3 +135,38 @@ def test_sampler_greedy_and_top_k():
     g = torch.Generator().manual_seed(0)
     draws = torch.cat([sample_token(logits, 1.0, g, top_k=2) for _ in range(200)], dim=1)
     assert set(draws[0].tolist()) == {1, 2} and set(draws[1].tolist()) == {0, 3}
+
+
+def test_engine_config_widens_narrow_vocabularies_only():
+    """Every smoke config, and zamba2-2.7b's published 32,000, widen to the
+    tokenizer's 50,304; the published configs with wider vocabularies keep
+    theirs, and nothing else changes."""
+    from repro_torch.launch.serve import engine_config
+
+    for arch in registry.ARCH_NAMES:
+        smoke = engine_config(arch)
+        assert smoke == dataclasses.replace(registry.get_smoke(arch), vocab_size=50_304)
+        full = engine_config(arch, full=True)
+        assert full == dataclasses.replace(registry.get(arch),
+                                           vocab_size=max(50_304, registry.get(arch).vocab_size))
+    assert engine_config("zamba2-2.7b", full=True).vocab_size == 50_304
+    assert engine_config("rwkv6-3b", full=True).vocab_size == 65_536
+
+
+def test_build_engines_takes_the_recurrent_archs():
+    """A deployment with rwkv6-3b and zamba2-2.7b roles builds their smoke
+    engines (vocab widened to the tokenizer's), shares an arch between
+    roles, keeps them off the page pool, and generates from a state cache."""
+    from repro_torch.configs.apc_minion import APCDeployment
+
+    dep = APCDeployment(small_planner="rwkv6-3b", keyword_extractor="rwkv6-3b",
+                        actor="zamba2-2.7b")
+    eng = build_engines(dep, device="cpu")
+    assert eng["small_planner"] is eng["keyword_extractor"]
+    assert {e.cfg.family for e in eng.values()} == {"dense", "ssm", "hybrid"}
+    toks = np.random.RandomState(2).randint(3, 50_000, (1, 11)).astype(np.int32)
+    for role in ("small_planner", "actor"):
+        e = eng[role]
+        assert e.cfg.vocab_size == 50_304 and e.kv_prefix is None
+        out = e.generate(toks, max_new=4)
+        assert out.shape == (1, 4) and e.stats.decode_tokens == 3
