@@ -15,7 +15,10 @@ printing the ok line):
 3. kernels against their plain PyTorch versions on the card: the attention
    kernels at the three full-width head layouts of the deployment
    (16/16, 16/2, 48/8; hd 128) and zamba2's shared block (32/32, hd 80) in
-   bf16 and fp32, plus the decode kernel's bitwise batch-invariance check;
+   bf16 and fp32 (flash at S up to 152, 63/64/65 among them; decode at
+   lengths 0 to M = 192, the split-K chunk's edges among them, also against
+   the split-K plain version, length 0 giving zeros), plus the decode
+   kernel's bitwise batch-invariance check;
    the wkv6 and SSD scan kernels at rwkv6-3b's (H 40, N 64) and zamba2's
    (H 80, P 64, Ns 64) layouts and the shapes of tests/test_kernels.py's
    sweeps, y and final state, bf16 and fp32 inputs, decays drawn as the
@@ -29,7 +32,7 @@ printing the ok line):
    ``ops.batch_topk`` with a host bank (the ``pallas`` index backend, which
    uploads the bank every call); then each kernel is timed with CUDA events
    beside its plain version and a PyTorch library yardstick for the same
-   function;
+   function (and flash once more off the path, at S = 2,048);
 4. the model on the card against the model on the CPU: each arch at full
    width, depth cut to 2 layers (zamba2: one group of 6), fp32, same
    weights;
@@ -84,6 +87,13 @@ LAYOUTS = {"olmo-1b": (16, 16, 128), "qwen2.5-3b": (16, 2, 128),
 # zamba2-2.7b's shared attention block: the attention kernels' hd-80 case
 ATTN_LAYOUTS = {**LAYOUTS, "zamba2-2.7b": (32, 32, 80)}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain: sums in another order
+# the attention checks' prefill lengths (63/64/65 straddle one 64-row tile)
+# and decode batches of lengths; the last batch puts 0, 1, the edges of the
+# decode kernels' 32-position split-K chunk (31, 32, 33), the served 168 and
+# the full M = 192 in one call
+FLASH_SEQS = (1, 37, 63, 64, 65, 128, 152)
+LONG_S = 2048  # the off-path flash timing's prefill length
+DECODE_LENGTHS = ((1, 100, 192), (192,), (37,), (0, 1, 31, 32, 33, 168, 192))
 # the scan kernels at full width: rwkv6-3b (H, N) and zamba2-2.7b (H, P, Ns)
 WKV6_LAYOUT = (40, 64)
 SSD_LAYOUT = (80, 64, 64)
@@ -196,21 +206,58 @@ def time_ms(torch, fn, repeats: int = 5, calls: int = 20):
     return statistics.median(device), statistics.median(call)
 
 
+def ptxas_summary(text: str) -> list:
+    """Each kernel of an ``nvcc -Xptxas -v`` log as "name<type,hd[,rows]>:
+    registers, static shared memory, spill stores / loads (bytes)". Dynamic
+    shared memory is set at launch and not in the log."""
+    import re
+
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            # the kernel's identifier: a length prefix, then that many characters
+            name = next((c for g in re.finditer(r"(?=(\d+))", mangled)
+                         for c in [mangled[g.end(1):g.end(1) + int(g.group(1))]]
+                         if re.fullmatch(r"[a-z]\w*(?:kernel|stage\d)", c)), mangled)
+            args = ["bf16" if "bfloat16" in mangled else "f32"]
+            args += re.findall(r"Li(\d+)E", mangled)
+            args += [r for r in ("DenseRows", "PagedRows") if r in mangled]
+            cur = {"fn": f"{name}<{','.join(args)}>"}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill"] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["regs"] = int(m.group(1))
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return [f"{c['fn']}: {c.get('regs')} regs, smem {c.get('smem')}, spill "
+            f"{c.get('spill')}" for c in out]
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_kernels(torch):
-    """Phase 3: the attention kernels against their plain versions. Returns
-    the max abs error and the number of checks per kernel."""
+    """Phase 3: the attention kernels against their plain versions, flash at
+    S in FLASH_SEQS, decode at the batches of DECODE_LENGTHS (also against
+    the split-K plain version; a row of length 0 must be zeros, and each row
+    bitwise equal to that row decoded alone). Returns the max abs error and
+    the number of checks per kernel."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import CHUNK, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(0)
     err = {"flash_attention": 0.0, "decode_attention": 0.0}
     n = {"flash_attention": 0, "decode_attention": 0}
+    by_dtype = {}  # (kernel, dtype) -> max abs err
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
         tol = TOL[dname]
@@ -219,7 +266,7 @@ def check_kernels(torch):
             return torch.randn(shape, generator=g, device="cuda").to(dt)
 
         for arch, (hq, hkv, hd) in ATTN_LAYOUTS.items():
-            for S in (1, 37, 128, 152):
+            for S in FLASH_SEQS:
                 for B in (1, 3):
                     for causal in ((True, False) if S == 37 else (True,)):
                         q, k, v = rnd(B, S, hq, hd), rnd(B, S, hkv, hd), rnd(B, S, hkv, hd)
@@ -234,21 +281,29 @@ def check_kernels(torch):
                                 f"flash_attention {dname} {arch} S={S} B={B} "
                                 f"causal={causal}: max abs err {e} > {tol}")
                         err["flash_attention"] = max(err["flash_attention"], e)
+                        by_dtype[("flash", dname)] = max(by_dtype.get(("flash", dname), 0.0), e)
                         n["flash_attention"] += 1
             M = 192
-            for lens in ((1, 100, 192), (192,), (37,)):
+            for lens in DECODE_LENGTHS:
                 B = len(lens)
                 q, ck, cv = rnd(B, 1, hq, hd), rnd(B, M, hkv, hd), rnd(B, M, hkv, hd)
                 L = torch.tensor(lens, dtype=torch.int32, device="cuda")
                 o = decode_attention(q, ck, cv, L)
-                r = ref.decode_attention_ref(q[:, 0], ck.transpose(1, 2),
-                                             cv.transpose(1, 2), L)[:, None]
+                qt, ckt, cvt = q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2)
+                r = ref.decode_attention_ref(qt, ckt, cvt, L)[:, None]
+                rs = ref.decode_attention_split_ref(qt, ckt, cvt, L, chunk=CHUNK)[:, None]
                 torch.cuda.synchronize()
-                e = (o.float() - r.float()).abs().max().item()
+                live = L > 0  # the plain version averages v at length 0
+                e = max((o.float() - r.float())[live].abs().max().item(),
+                        (o.float() - rs.float()).abs().max().item())
                 if not e <= tol:
                     raise AssertionError(f"decode_attention {dname} {arch} lengths="
                                          f"{lens}: max abs err {e} > {tol}")
+                if not bool((o[~live] == 0).all()):
+                    raise AssertionError(f"decode_attention {dname} {arch} lengths={lens}: "
+                                         "a row of length 0 is not zeros")
                 err["decode_attention"] = max(err["decode_attention"], e)
+                by_dtype[("decode", dname)] = max(by_dtype.get(("decode", dname), 0.0), e)
                 n["decode_attention"] += 1
                 for b in range(B):  # batch invariance: bitwise
                     ob = decode_attention(q[b:b + 1], ck[b:b + 1], cv[b:b + 1], L[b:b + 1])
@@ -256,8 +311,10 @@ def check_kernels(torch):
                         raise AssertionError(
                             f"decode_attention {dname} {arch} lengths={lens}: row {b} "
                             "of the batch differs from the row decoded alone")
-    log(f"[kernels] {n} checks passed; max abs err {err} "
-        f"(tolerance bf16 {TOL['bfloat16']}, fp32 {TOL['float32']})")
+    log(f"[kernels] {n} checks passed; max abs err {err}, by type "
+        f"{ {f'{k} {d}': v for (k, d), v in by_dtype.items()} } "
+        f"(tolerance bf16 {TOL['bfloat16']}, fp32 {TOL['float32']}; decode also against "
+        f"the split-K plain version, chunk {CHUNK})")
     return err, n
 
 
@@ -456,7 +513,8 @@ def time_kernels(torch):
     """Phase 3b: kernel, plain version and library call at the serving
     path's shapes (B=1, bf16; prefill S=152 — the longest prompt the
     backend sends — and decode M=192 at length 168), at the deployment's
-    head layouts and zamba2's hd 80."""
+    head layouts and zamba2's hd 80; plus one flash row off the path, at
+    nemotron's layout and S = LONG_S, marked ``off_path``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -503,6 +561,27 @@ def time_kernels(torch):
             lambda: F.scaled_dot_product_attention(q1t, ckt, cvt, attn_mask=mask,
                                                    enable_gqa=True),
             bms, by))
+    # off the path: one prefill at nemotron's layout long enough that the
+    # tensor-core work, not latency, bounds it (the ground for or against a
+    # wgmma/TMA flash kernel)
+    hq, hkv, hd = LAYOUTS["nemotron-4-15b"]
+    B, S = 1, LONG_S
+    q = torch.randn(B, S, hq, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dt)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bms, by = bound(esz * B * S * hd * (2 * hq + 2 * hkv),
+                    4 * B * hq * hd * S * (S + 1) / 2, PEAK_BF16_FLOPS)
+    row = _timed(
+        torch, "flash_attention", "nemotron-4-15b",
+        f"B={B} S={S} Hq={hq} Hkv={hkv} hd={hd} bf16 (off the path: long prefill)",
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        bms, by)
+    row["off_path"] = True
+    rows.append(row)
     for r in rows:
         log("[timing] " + json.dumps(r))
     return rows
@@ -1323,8 +1402,7 @@ def main() -> int:
     _build.build(names)
     log(f"[build] {names} built in {time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
     for n, text in _build.build_logs.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"[build] {n}: {regs[:2]}")
+        log(f"[build] {n}: {ptxas_summary(text)}")
 
     # phase 3: kernels against their plain versions, then timings
     err, checks = check_kernels(torch)
@@ -1379,7 +1457,8 @@ def main() -> int:
     }
     kernels = []
     for name, (src, replaces, arch, run) in sources.items():
-        row = next(r for r in timing if r["kernel"] == name and r["arch"] == arch)
+        row = next(r for r in timing if r["kernel"] == name and r["arch"] == arch
+                   and not r.get("off_path"))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": runs[run]["launches"][name], "max_abs_err": err[name],

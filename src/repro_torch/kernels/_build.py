@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
 repository root at first use, and loaded with ``ctypes``. The file name
-carries a hash of the source and flags, so an edited source is rebuilt and
-a stale library is never loaded. Nothing here runs at import time: the
+carries a hash of the source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing here runs at import time: the
 CPU-only test environment has no ``nvcc``.
 """
 
@@ -37,11 +38,11 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     ),
     "decode_attention": (
         "decode_attention_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 10 + [_P],
+        [_P] * 6 + [_L] + [_I] * 6 + [_L] * 10 + [_P],
     ),
     "paged_decode_attention": (
         "paged_decode_attention_fwd",
-        [_P] * 6 + [_I] * 8 + [_L] * 10 + [_P],
+        [_P] * 7 + [_L] + [_I] * 8 + [_L] * 10 + [_P],
     ),
     "topk_cosine": (
         "topk_cosine_fwd",
@@ -73,9 +74,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, pathlib.Path]:

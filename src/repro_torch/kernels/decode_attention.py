@@ -4,7 +4,10 @@ Replaces ``repro/kernels/decode_attention.py::decode_attention``. The kernel
 reads the cache in the model layout (B, M, Hkv, hd) through strides, masks
 each row at its own length, and is batch-invariant (a row of a mixed batch
 is bitwise equal to that row alone); its plain version is
-``ref.decode_attention_ref``.
+``ref.decode_attention_ref``, and ``ref.decode_attention_split_ref`` repeats
+its split-K arithmetic: the cache is cut into chunks of ``CHUNK`` positions,
+each scored by its own CTA into fp32 partials (in a scratch allocated here),
+which a second kernel of the same call combines in chunk order.
 """
 
 from __future__ import annotations
@@ -14,7 +17,17 @@ import collections
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_aligned16
+
+CHUNK = 32  # cache positions per chunk CTA: DC in csrc/decode_common.cuh
+
+
+def split_scratch(B: int, Hq: int, Hkv: int, M: int, hd: int, device) -> torch.Tensor:
+    """The fp32 partials of a split-K decode over M cache positions: per
+    (sequence, kv head, chunk), acc (G, hd) then (m, l) (G, 2)."""
+    n_chunks = -(-M // CHUNK)
+    return torch.empty(B * Hkv * n_chunks * (Hq // Hkv) * (hd + 2), dtype=torch.float32,
+                       device=device)
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -45,16 +58,19 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     if lengths.dim() > 1 or lengths.numel() not in (1, B) or lengths.is_floating_point():
         raise ValueError(f"decode_attention: lengths shape {tuple(lengths.shape)}, "
                          f"need () or ({B},) integers")
+    check_aligned16("decode_attention", cache_k, cache_v)
     lens = lengths.to(torch.int32).reshape(-1).expand(B).contiguous()
     o = torch.empty((B, 1, Hq, hd), dtype=q.dtype, device=dev)
     if B == 0:
         return o
+    scratch = split_scratch(B, Hq, Hkv, M, hd, dev)
     fn = _build.entry("decode_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), DTYPES[q.dtype], B, Hq, Hkv, M, hd,
+            o.data_ptr(), scratch.data_ptr(), scratch.numel(), DTYPES[q.dtype],
+            B, Hq, Hkv, M, hd,
             q.stride(0), q.stride(2),
             cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
             cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),

@@ -3,6 +3,9 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention``. The kernel
 reads the model layout (B, S, H, hd) through strides, takes any S and masks
 the ragged tail itself; its plain version is ``ref.flash_attention_ref``.
+In bf16 it runs on the tensor cores (mma.sync) and copies K/V tiles with
+16-byte cp.async, so it takes bf16 tensors whose data pointers and strides
+are 16-byte aligned (``check_aligned16``); fp32 runs exact CUDA-core FMAs.
 """
 
 from __future__ import annotations
@@ -15,6 +18,18 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+
+
+def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ValueError unless each tensor's data pointer, and its stride
+    in bytes along every dimension of size above 1 but the last, is a
+    multiple of 16: the kernels copy rows with 16-byte cp.async."""
+    for t in tensors:
+        esz = t.element_size()
+        if t.data_ptr() % 16 or any(st * esz % 16 for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                                    if n > 1):
+            raise ValueError(f"{name}: a {tuple(t.shape)} tensor with strides {t.stride()} "
+                             "is not 16-byte aligned (data pointer and row strides)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,6 +52,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        check_aligned16("flash_attention", q, k, v)
     o = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
     if S == 0 or B == 0:
         return o

@@ -4,9 +4,10 @@
 Replaces ``repro/kernels/paged_attention.py::paged_decode_attention``. The
 kernel reads K/V from the page pool's (N, page_size, Hkv, hd) slabs through a
 (B, P) page table (-1 past a sequence's last page, clamped to row 0 and
-masked by the length), with the dense decode kernel's tiles and sum order:
-it is bitwise equal to ``decode_attention`` on the cache gathered in table
-order. Its plain version is ``ref.paged_attention_ref``.
+masked by the length), with the dense decode kernel's chunk body and combine
+(``csrc/decode_common.cuh``): it is bitwise equal to ``decode_attention`` on
+the cache gathered in table order. Its plain version is
+``ref.paged_attention_ref``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.decode_attention import split_scratch
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -52,17 +54,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if lengths.dim() > 1 or lengths.numel() not in (1, B) or lengths.is_floating_point():
         raise ValueError(f"paged_decode_attention: lengths shape {tuple(lengths.shape)}, "
                          f"need () or ({B},) integers")
+    check_aligned16("paged_decode_attention", k_pages, v_pages)
     table = page_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).reshape(-1).expand(B).contiguous()
     o = torch.empty((B, 1, Hq, hd), dtype=q.dtype, device=dev)
     if B == 0:
         return o
+    scratch = split_scratch(B, Hq, Hkv, table.shape[1] * ps, hd, dev)
     fn = _build.entry("paged_decode_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-            lens.data_ptr(), o.data_ptr(), DTYPES[q.dtype], B, Hq, Hkv, N, ps,
+            lens.data_ptr(), o.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            DTYPES[q.dtype], B, Hq, Hkv, N, ps,
             table.shape[1], hd,
             q.stride(0), q.stride(2),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),

@@ -65,13 +65,51 @@ def decode_attention_ref(q, k, v, length, *, logit_softcap: float = 0.0):
     return torch.einsum("bhk,bhkd->bhd", p, vr).to(q.dtype)
 
 
+def decode_attention_split_ref(q, k, v, length, chunk: int = 32):
+    """``decode_attention_ref`` as the split-K CUDA kernel computes it. The
+    positions are cut into chunks of ``chunk`` from position 0; per chunk
+    below the row's length, its max score m_c, l_c = sum exp(s - m_c) and
+    acc_c = sum exp(s - m_c) v over its positions below the length; then
+    m = max m_c, and L and O sum l_c and acc_c scaled by exp(m_c - m) over
+    those chunks in chunk order; out = O / max(L, 1e-30). A row of length 0
+    gives zeros, as the TPU and CUDA kernels do (``decode_attention_ref``
+    averages v there). q: (B, Hq, hd); k, v: (B, Hkv, M, hd); length: () or
+    (B,) -> (B, Hq, hd) in q's dtype."""
+    B, Hq, hd = q.shape
+    Hkv, M = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    nc = -(-M // chunk)
+    Mp = nc * chunk
+    lens = torch.as_tensor(length, dtype=torch.int32, device=q.device).reshape(-1)
+    lens = lens.expand(B).clamp(0, M)
+    kr = _pad_seq(k.repeat_interleave(G, dim=1).float().transpose(1, 2), Mp - M)
+    vr = _pad_seq(v.repeat_interleave(G, dim=1).float().transpose(1, 2), Mp - M)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kr) / math.sqrt(hd)  # (B, Hq, Mp)
+    valid = torch.arange(Mp, device=q.device)[None, :] < lens[:, None]  # (B, Mp)
+    s = s.masked_fill(~valid[:, None, :], NEG_INF).reshape(B, Hq, nc, chunk)
+    m_c = s.amax(-1)  # (B, Hq, nc)
+    p = torch.exp(s - m_c[..., None]) * valid.reshape(B, 1, nc, chunk)
+    l_c = p.sum(-1)
+    acc_c = torch.einsum("bhcj,bcjhd->bhcd", p, vr.reshape(B, nc, chunk, Hq, hd))
+    live = (torch.arange(nc, device=q.device) * chunk)[None, :] < lens[:, None]  # (B, nc)
+    m = m_c.masked_fill(~live[:, None, :], NEG_INF).amax(-1)  # (B, Hq)
+    L = torch.zeros((B, Hq), dtype=torch.float32, device=q.device)
+    O = torch.zeros((B, Hq, hd), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        w = torch.exp(m_c[..., c] - m) * live[:, None, c]
+        L = L + l_c[..., c] * w
+        O = O + acc_c[..., c, :] * w[..., None]
+    return (O / L.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
-                        logit_softcap: float = 0.0):
+                        logit_softcap: float = 0.0, chunk: int | None = None):
     """q: (B, Hq, hd); k_pages, v_pages: (N, page_size, Hkv, hd) pool slabs;
     page_table: (B, P) pool rows (-1 past a sequence's last page); lengths:
     () or (B,) valid counts -> (B, Hq, hd). Gathers each sequence's pages in
     table order (entries below 0 clamped to row 0, as the kernel clamps them)
-    into a dense cache, then runs ``decode_attention_ref``."""
+    into a dense cache, then runs ``decode_attention_ref``, or with
+    ``chunk`` (no softcap) ``decode_attention_split_ref``."""
     B, P = page_table.shape
     _, ps, Hkv, hd = k_pages.shape
     rows = page_table.to(device=k_pages.device, dtype=torch.long).clamp(min=0).reshape(-1)
@@ -80,6 +118,11 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
         g = pages.index_select(0, rows).reshape(B, P * ps, Hkv, hd)
         return g.transpose(1, 2)
 
+    if chunk is not None:
+        if logit_softcap:
+            raise ValueError("paged_attention_ref: the split form takes no softcap")
+        return decode_attention_split_ref(q, dense(k_pages), dense(v_pages), lengths,
+                                          chunk=chunk)
     return decode_attention_ref(q, dense(k_pages), dense(v_pages), lengths,
                                 logit_softcap=logit_softcap)
 

@@ -105,6 +105,121 @@ def test_decode_attention_op_per_sequence_lengths(B, Hq, Hkv, M, hd, lengths, bk
         _close(ob, ot[b:b + 1].float().numpy(), 1e-6 if dtype == "float32" else 8e-3)
 
 
+# the decode sweeps above as (B, Hq, Hkv, M, hd, lengths, bk), plus one
+# batch of the split-K edges: lengths 0, 1, C - 1, C, C + 1 for every chunk C
+# tested, the served 168 and the full M
+SPLIT_CHUNKS = (16, 32, 64)
+SPLIT_CASES = [
+    (2, 8, 2, 256, 64, (177, 177), 64),
+    (1, 4, 4, 512, 128, (512,), 128),
+    (3, 8, 1, 128, 64, (1, 1, 1), 64),
+    (1, 4, 4, 128, 80, (77,), 64),
+    (3, 8, 2, 256, 64, (17, 177, 256), 64),
+    (2, 4, 4, 128, 32, (1, 128), 64),
+    (4, 4, 1, 256, 64, (64, 64, 64, 64), 128),
+    (13, 8, 2, 192, 64, (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 168, 192), 64),
+]
+_pallas_decode = {}  # (case, dtype) -> (inputs, the Pallas kernel's output)
+
+
+def _decode_case(case, dtype):
+    """Inputs of a SPLIT_CASES case and the reference's Pallas decode kernel
+    (interpret mode) on them, computed once per case and dtype."""
+    if (case, dtype) not in _pallas_decode:
+        B, Hq, Hkv, M, hd, lengths, bk = SPLIT_CASES[case]
+        (qj, kj, vj), (qt, kt, vt) = _inputs(
+            7, [(B, 1, Hq, hd), (B, M, Hkv, hd), (B, M, Hkv, hd)], dtype)
+        oj = jops.decode_attention_op(qj, kj, vj, jnp.asarray(lengths, jnp.int32), block_k=bk)
+        _pallas_decode[case, dtype] = ((qj, kj, vj), (qt, kt, vt), np.asarray(oj, np.float32))
+    return _pallas_decode[case, dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", SPLIT_CHUNKS)
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_decode_split_ref_matches_pallas_and_reference(case, chunk, dtype):
+    """The split-K arithmetic of the CUDA decode kernels (per-chunk m, l, acc,
+    then the in-order combine over the chunks below each row's length), as
+    ``ref.decode_attention_split_ref``, against the reference's Pallas
+    kernel in interpret mode and its oracle, at tests/test_kernels.py's
+    tolerances. A row of length 0 gives zeros, as the Pallas kernel does
+    (the oracle averages v there)."""
+    from repro.kernels import ref as jref
+
+    B, Hq, Hkv, M, hd, lengths, bk = SPLIT_CASES[case]
+    (qj, kj, vj), (qt, kt, vt), oj = _decode_case(case, dtype)
+    lens = np.asarray(lengths, np.int32)
+    os_ = tref.decode_attention_split_ref(qt[:, 0], kt.transpose(1, 2), vt.transpose(1, 2),
+                                          torch.from_numpy(lens), chunk=chunk)
+    assert os_.shape == (B, Hq, hd) and os_.dtype == qt.dtype
+    _close(os_, oj[:, 0], DECODE_TOL[dtype])
+    assert not os_[torch.from_numpy(lens == 0)].any()
+    live = lens > 0
+    orj = jref.decode_attention_ref(qj[:, 0], kj.transpose(0, 2, 1, 3), vj.transpose(0, 2, 1, 3),
+                                    jnp.asarray(lens))
+    _close(os_[torch.from_numpy(live)], np.asarray(orj, np.float32)[live], DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("ps", [8, 32])
+def test_paged_split_ref_equals_dense_split_on_gathered_cache(ps):
+    """The paged plain path through the same split (``chunk=``) is the dense
+    split on the pages gathered in table order, exactly: the CUDA paged
+    kernel shares the dense one's chunk body and combine, and is pinned
+    bitwise to it on the card."""
+    B, Hq, Hkv, hd, npages, P = 4, 8, 2, 64, 40, 4
+    lengths = (0, 1, ps + 3, P * ps)
+    (_, _, _), (qt, kt, vt) = _inputs(
+        8, [(B, 1, Hq, hd), (npages, ps, Hkv, hd), (npages, ps, Hkv, hd)], "float32")
+    table = torch.from_numpy(_page_table(B, P, npages, ps, lengths, seed=ps))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    rows = table.clamp(min=0).long()
+    kd = kt[rows].reshape(B, P * ps, Hkv, hd).transpose(1, 2)
+    vd = vt[rows].reshape(B, P * ps, Hkv, hd).transpose(1, 2)
+    for chunk in SPLIT_CHUNKS:
+        op = tref.paged_attention_ref(qt[:, 0], kt, vt, table, lens, chunk=chunk)
+        od = tref.decode_attention_split_ref(qt[:, 0], kd, vd, lens, chunk=chunk)
+        assert torch.equal(op, od)
+        _close(op[1:], tref.paged_attention_ref(qt[:, 0], kt, vt, table, lens)[1:].numpy(), 2e-6)
+    with pytest.raises(ValueError, match="softcap"):
+        tref.paged_attention_ref(qt[:, 0], kt, vt, table, lens, chunk=32, logit_softcap=5.0)
+
+
+def test_build_target_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name carries a hash of its source and of every shared
+    header in csrc/, so editing a header (decode_common.cuh, common.cuh)
+    gives a new name and the stale library in build/kernels is not loaded."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("decode_attention", "paged_decode_attention", "flash_attention")
+    before = {n: _build._target(n) for n in names}
+    assert {n: _build._target(n) for n in names} == before  # stable
+    header = csrc / "decode_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert all(after[n].name.startswith(f"lib{n}-") for n in names)
+    (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text() + "\n")
+    assert _build._target("flash_attention") != after["flash_attention"]
+
+
+def test_check_aligned16_refuses_unaligned_rows():
+    """The cp.async copies of the bf16 flash kernel and the decode kernels
+    need 16-byte aligned pointers and row strides; the wrappers refuse
+    anything else with ValueError (no fallback)."""
+    from repro_torch.kernels.flash_attention import check_aligned16
+
+    x = torch.zeros(2, 40, 4, 64, dtype=torch.bfloat16)
+    check_aligned16("t", x, x[:, 3:], x[:, :, 1:], x.transpose(1, 2))
+    check_aligned16("t", torch.zeros(1, 1, 3, 32, dtype=torch.bfloat16)[:, :, :, :16])
+    with pytest.raises(ValueError, match="16-byte"):  # a row stride of 36 bf16
+        check_aligned16("t", torch.zeros(2, 5, 3, 36, dtype=torch.bfloat16)[..., :32])
+    with pytest.raises(ValueError, match="16-byte"):  # a data pointer 2 bytes off
+        check_aligned16("t", torch.zeros(4 * 32 + 1, dtype=torch.bfloat16)[1:].view(1, 4, 1, 32))
+
+
 def test_plain_refs_match_repro_refs():
     """The port's plain versions are twins of repro.kernels.ref's oracles,
     in the kernels' (B, H, S, hd) layout, causal and not."""
