@@ -98,6 +98,15 @@ DECODE_LENGTHS = ((1, 100, 192), (192,), (37,), (0, 1, 31, 32, 33, 168, 192))
 WKV6_LAYOUT = (40, 64)
 SSD_LAYOUT = (80, 64, 64)
 SCAN_SEQS = (1, 37, 128, 152, 300)
+# the other layouts the scan wrappers take, checked at H 3, B 2 in the sweep
+# draw: wkv6 head sizes and ssd (P, Ns) besides the full-width ones above
+# and the sweeps' own (N 16; (32, 16), (64, 64))
+SCAN_EXTRA_WKV6 = (32,)
+SCAN_EXTRA_SSD = ((32, 32), (32, 64), (64, 16), (64, 32))
+SCAN_EXTRA_SEQS = (37, 152)
+# the scans' timing rows: the served prefill (B 1, S 152), then off the path
+# a batch of 4 and a long prompt (S = LONG_S)
+SCAN_TIMED = ((1, 152), (4, 152), (1, LONG_S))
 MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # scan kernel vs plain: |err| <= atol * max(1, max|plain|) + rtol * |plain|,
 # elementwise, with tests/test_kernels.py's atol and rtol (wkv6 2e-4 / 1e-3,
@@ -785,8 +794,10 @@ def check_scans(torch):
     S in SCAN_SEQS, B in {1, 4}, decays drawn as the model draws them
     (chunk 128, the model's) and as the JAX sweeps do (wkv6 chunk 128;
     ssd chunk 64: at 128 the sweep's decays overflow the chunked form,
-    see ROADMAP section 3); plus the sweeps' own shapes and chunks; bf16
-    and fp32 inputs. Returns ({name: max abs error}, {name: checks})."""
+    see ROADMAP section 3); plus the sweeps' own shapes and chunks, and
+    the other layouts the wrappers take (SCAN_EXTRA_*, chunk 64); bf16
+    and fp32 inputs. Unsupported head sizes and rows not 16-byte aligned
+    must raise. Returns ({name: max abs error}, {name: checks})."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6 import wkv6
     from repro_torch.kernels.ssd import ssd
@@ -797,10 +808,13 @@ def check_scans(torch):
                 for S in SCAN_SEQS for B in (1, 4)]
     wk_cases += [(2, S, 3, n, "sweep", c) for S, c in ((64, 16), (128, 32), (96, 32))
                  for n in (16, 64)]
+    wk_cases += [(2, S, 3, n, "sweep", 64) for n in SCAN_EXTRA_WKV6 for S in SCAN_EXTRA_SEQS]
     H, P, Ns = SSD_LAYOUT
     sd_cases = [(B, S, H, P, Ns, draw, MODEL_CHUNK if draw == "model" else 64)
                 for draw in ("model", "sweep") for S in SCAN_SEQS for B in (1, 4)]
     sd_cases += [(2, 64, 3, 32, 16, "sweep", 16), (2, 128, 3, 64, 64, "sweep", 64)]
+    sd_cases += [(2, S, 3, p, ns, "sweep", 64) for p, ns in SCAN_EXTRA_SSD
+                 for S in SCAN_EXTRA_SEQS]
     err = {"wkv6": 0.0, "ssd": 0.0}
     n = {"wkv6": 0, "ssd": 0}
     for dname in ("bfloat16", "float32"):
@@ -829,13 +843,24 @@ def check_scans(torch):
                 err["ssd"] = max(err["ssd"], e)
             n["ssd"] += 1
     torch.cuda.synchronize()
-    for call in (lambda: wkv6(*(t[..., :48] for t in (r, k, v, w)), u[:, :48]),
-                 lambda: ssd(x[..., :48], dtv, A_log, Bm, Cm, D)):
+
+    def unaligned(t):  # t's values one element off a 16-byte boundary
+        out = torch.empty(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype, device=t.device)
+        out = out.narrow(-1, 1, t.shape[-1])
+        out.copy_(t)
+        return out
+
+    for what, call in (
+            ("an unsupported head size", lambda: wkv6(*(t[..., :24] for t in (r, k, v, w)),
+                                                      u[:, :24])),
+            ("an unsupported head size", lambda: ssd(x[..., :24], dtv, A_log, Bm, Cm, D)),
+            ("unaligned rows", lambda: wkv6(r, unaligned(k), v, w, u)),
+            ("unaligned rows", lambda: ssd(x, dtv, A_log, unaligned(Bm), Cm, D))):
         try:
             call()
         except ValueError:
             continue
-        raise AssertionError("wkv6 / ssd: an unsupported head size must raise")
+        raise AssertionError(f"wkv6 / ssd: {what} must raise")
     log(f"[kernels] scans: {n} checks passed (each against the chunked plain version and "
         f"the sequential oracle, y and state); max abs err {err} (tolerance {SCAN_TOL}: "
         "atol x max(1, max|plain|) + rtol x |plain|)")
@@ -843,44 +868,51 @@ def check_scans(torch):
 
 
 def time_scans(torch):
-    """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at the
-    served prefill shape, B = 1, S = 152, bf16 inputs drawn as the model
-    draws them, at rwkv6-3b's and zamba2's layouts. No single PyTorch call
-    computes either recurrence, so there is no library time. Bound: the
-    larger of the bytes (each input read once, y and the state written
-    once) over 3.35 TB/s and the fp32 operations over 67 TFLOP/s (per step
-    and head: wkv6 5 N^2 + 5 N — the state update 3 N^2, y 2 N^2, the bonus
-    term 5 N; ssd 5 P Ns + 3 P)."""
+    """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at
+    rwkv6-3b's and zamba2's layouts, bf16 inputs drawn as the model draws
+    them, at each (B, S) of SCAN_TIMED: the served prefill (B = 1, S = 152)
+    first, then, marked ``off_path``, B = 4 and S = LONG_S. No single
+    PyTorch call computes either recurrence, so there is no library time.
+    Bound: the larger of the bytes (each input read once, y and the state
+    written once) over 3.35 TB/s and the fp32 operations over 67 TFLOP/s
+    (per step and head: wkv6 5 N^2 + 5 N — the state update 3 N^2, y 2 N^2,
+    the bonus term 5 N; ssd 5 P Ns + 3 P)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6 import wkv6
     from repro_torch.kernels.ssd import ssd
 
     g = torch.Generator(device="cuda").manual_seed(8)
-    B, S, dt = 1, 152, torch.bfloat16
-    H, N = WKV6_LAYOUT
-    r, k, v, w, u = _wkv6_inputs(torch, g, B, S, H, N, "model")
-    r, k, v = r.to(dt), k.to(dt), v.to(dt)
-    nbytes = 2 * 3 * B * S * H * N + 4 * B * S * H * N + 4 * H * N + 4 * B * S * H * N \
-        + 4 * B * H * N * N
-    bms, by = bound(nbytes, B * H * S * (5 * N * N + 5 * N), PEAK_FP32_FLOPS)
-    rows = [_timed(torch, "wkv6", "rwkv6-3b", f"B={B} S={S} H={H} N={N} bf16 in, fp32 out",
-                   lambda: wkv6(r, k, v, w, u),
-                   lambda: ref.wkv6_chunked_ref(r, k, v, w, u, chunk=MODEL_CHUNK),
-                   None, bms, by)]
-    H, P, Ns = SSD_LAYOUT
-    x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, "model")
-    x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
-    nbytes = 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * Ns + 2 * 4 * H \
-        + 4 * B * S * H * P + 4 * B * H * P * Ns
-    bms, by = bound(nbytes, B * H * S * (5 * P * Ns + 3 * P), PEAK_FP32_FLOPS)
-    rows.append(_timed(torch, "ssd", "zamba2-2.7b",
-                       f"B={B} S={S} H={H} P={P} Ns={Ns} bf16 in, fp32 out",
-                       lambda: ssd(x, dtv, A_log, Bm, Cm, D),
-                       lambda: ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D, chunk=MODEL_CHUNK),
-                       None, bms, by))
-    for row in rows:
-        row["library"] = "none: no single PyTorch call computes the recurrence"
-        log("[timing] " + json.dumps(row))
+    dt = torch.bfloat16
+    rows = []
+    for B, S in SCAN_TIMED:
+        H, N = WKV6_LAYOUT
+        r, k, v, w, u = _wkv6_inputs(torch, g, B, S, H, N, "model")
+        r, k, v = r.to(dt), k.to(dt), v.to(dt)
+        nbytes = 2 * 3 * B * S * H * N + 4 * B * S * H * N + 4 * H * N + 4 * B * S * H * N \
+            + 4 * B * H * N * N
+        bms, by = bound(nbytes, B * H * S * (5 * N * N + 5 * N), PEAK_FP32_FLOPS)
+        rows.append(_timed(torch, "wkv6", "rwkv6-3b",
+                           f"B={B} S={S} H={H} N={N} bf16 in, fp32 out",
+                           lambda: wkv6(r, k, v, w, u),
+                           lambda: ref.wkv6_chunked_ref(r, k, v, w, u, chunk=MODEL_CHUNK),
+                           None, bms, by))
+        H, P, Ns = SSD_LAYOUT
+        x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, "model")
+        x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
+        nbytes = 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * Ns + 2 * 4 * H \
+            + 4 * B * S * H * P + 4 * B * H * P * Ns
+        bms, by = bound(nbytes, B * H * S * (5 * P * Ns + 3 * P), PEAK_FP32_FLOPS)
+        rows.append(_timed(torch, "ssd", "zamba2-2.7b",
+                           f"B={B} S={S} H={H} P={P} Ns={Ns} bf16 in, fp32 out",
+                           lambda: ssd(x, dtv, A_log, Bm, Cm, D),
+                           lambda: ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D,
+                                                       chunk=MODEL_CHUNK),
+                           None, bms, by))
+        for row in rows[-2:]:
+            row["library"] = "none: no single PyTorch call computes the recurrence"
+            if (B, S) != SCAN_TIMED[0]:
+                row["off_path"] = True
+            log("[timing] " + json.dumps(row))
     return rows
 
 

@@ -33,15 +33,23 @@ def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0
     return flash_attention(q, k, v, causal=causal)
 
 
+def _zero_empty_rows(o, lengths):
+    """o (B, Hq, hd) with the rows of length 0 set to zeros, as the kernels
+    return them (the plain oracle averages v over a fully masked row)."""
+    lens = torch.as_tensor(lengths, device=o.device).reshape(-1).expand(o.shape[0])
+    return o.masked_fill((lens <= 0)[:, None, None], 0.0)
+
+
 def decode_attention_op(q, cache_k, cache_v, lengths, *, logit_softcap: float = 0.0):
     """q (B,1,Hq,hd); cache (B,M,Hkv,hd); lengths () or (B,) int32
-    per-sequence valid counts -> (B,1,Hq,hd)."""
+    per-sequence valid counts -> (B,1,Hq,hd). A row of length 0 gives
+    zeros."""
     if q.device.type == "cpu":
         o = ref.decode_attention_ref(
             q[:, 0], cache_k.transpose(1, 2), cache_v.transpose(1, 2), lengths,
             logit_softcap=logit_softcap,
         )
-        return o[:, None]
+        return _zero_empty_rows(o, lengths)[:, None]
     if logit_softcap:
         raise ValueError("decode_attention kernel: attn_logit_softcap is not supported")
     return decode_attention(q, cache_k, cache_v, torch.as_tensor(lengths, device=q.device))
@@ -52,11 +60,12 @@ def paged_decode_attention_op(q, k_pages, v_pages, page_table, lengths, *,
     """Decode attention through a page table (the ``serving/kv_cache.py``
     pool). q (B,1,Hq,hd) model layout; k_pages/v_pages (N, page_size, Hkv,
     hd) pool slabs; page_table (B, P) int32 pool rows (-1 past the end);
-    lengths (B,) valid tokens -> (B,1,Hq,hd)."""
+    lengths (B,) valid tokens -> (B,1,Hq,hd). A row of length 0 gives
+    zeros."""
     if q.device.type == "cpu":
         o = ref.paged_attention_ref(q[:, 0], k_pages, v_pages, page_table, lengths,
                                     logit_softcap=logit_softcap)
-        return o[:, None]
+        return _zero_empty_rows(o, lengths)[:, None]
     if logit_softcap:
         raise ValueError("paged_decode_attention kernel: attn_logit_softcap is not supported")
     return paged_decode_attention(q, k_pages, v_pages,

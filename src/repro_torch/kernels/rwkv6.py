@@ -4,7 +4,9 @@ Replaces ``repro/kernels/rwkv6.py::wkv6``. The kernel runs the RWKV6
 recurrence step by step from a zero state, reads r, k, v and w_log in the
 model layout (B, S, H, N) through strides, takes any S, and returns y in
 fp32 (as the model's chunked form does) with the final fp32 state; its
-plain version is ``ref.wkv6_chunked_ref``.
+plain version is ``ref.wkv6_chunked_ref``. It copies r, k, v and w_log with
+16-byte cp.async, so it takes only tensors whose data pointers and strides
+are 16-byte aligned (``check_aligned16``); the model's are.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
 
 HEAD_SIZES = (16, 32, 64)
 
@@ -44,6 +46,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
         raise ValueError(f"wkv6: head size {N} not in {HEAD_SIZES}")
     if any(t.stride(-1) != 1 for t in (r, k, v, w_log)):
         raise ValueError("wkv6: the head dim must be contiguous")
+    check_aligned16("wkv6", r, k, v, w_log)
     u = u.contiguous()
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     state = torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)

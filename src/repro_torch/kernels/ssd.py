@@ -5,7 +5,9 @@ recurrence step by step from a zero state, reads x (B, S, H, P), dt
 (B, S, H) and B_/C_ (B, S, Ns) in the model layout through strides (the
 model's views of its projection, used in place), takes any S, and returns
 y in fp32 (as the model's chunked form does) with the final fp32 state;
-its plain version is ``ref.ssd_chunked_ref``.
+its plain version is ``ref.ssd_chunked_ref``. It copies x, B_ and C_ with
+16-byte cp.async, so it takes only tensors whose data pointers and strides
+are 16-byte aligned (``check_aligned16``); the model's are.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
 
 SHAPES = ((32, 16), (32, 32), (32, 64), (64, 16), (64, 32), (64, 64))  # (P, Ns)
 
@@ -46,6 +48,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, B_: torch.Tensor
         raise ValueError(f"ssd: (head dim, state dim) {(P, Ns)} not in {SHAPES}")
     if x.stride(-1) != 1 or B_.stride(-1) != 1 or C_.stride(-1) != 1:
         raise ValueError("ssd: the last dims of x, B_ and C_ must be contiguous")
+    check_aligned16("ssd", x, B_, C_)
     A_log, D = A_log.contiguous(), D.contiguous()
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
     state = torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=dev)

@@ -87,6 +87,7 @@ def test_decode_attention_op_matches_pallas(B, Hq, Hkv, M, hd, length, bk, dtype
         (3, 8, 2, 256, 64, (17, 177, 256), 64),   # mixed-length batch
         (2, 4, 4, 128, 32, (1, 128), 64),         # extremes
         (4, 4, 1, 256, 64, (64, 64, 64, 64), 128),  # uniform via vector
+        (2, 4, 2, 64, 32, (0, 5), 32),            # an empty row: zeros
     ],
 )
 def test_decode_attention_op_per_sequence_lengths(B, Hq, Hkv, M, hd, lengths, bk, dtype):
@@ -99,6 +100,7 @@ def test_decode_attention_op_per_sequence_lengths(B, Hq, Hkv, M, hd, lengths, bk
     lens = torch.tensor(lengths, dtype=torch.int32)
     ot = ops.decode_attention_op(qt, kt, vt, lens)
     _close(ot, oj, DECODE_TOL[dtype])
+    assert not ot[lens == 0].any()  # a row of length 0 is zeros, as in the kernels
     for b, ln in enumerate(lengths):
         ob = ops.decode_attention_op(qt[b:b + 1], kt[b:b + 1], vt[b:b + 1],
                                      torch.tensor(ln, dtype=torch.int32))
@@ -296,6 +298,7 @@ def _page_table(B, P, npages, ps, lengths, seed=0):
         (3, 8, 2, 64, 64, 16, 4, (200, 100, 256)),
         (2, 4, 4, 32, 16, 32, 8, (128, 7)),
         (1, 4, 1, 64, 32, 8, 2, (33,)),
+        (2, 4, 2, 32, 16, 8, 4, (0, 21)),  # row 0: table all -1, length 0
     ],
 )
 def test_paged_decode_attention_op_matches_pallas(B, Hq, Hkv, hd, ps, npages, P, lengths,
@@ -314,6 +317,7 @@ def test_paged_decode_attention_op_matches_pallas(B, Hq, Hkv, hd, ps, npages, P,
                                        torch.from_numpy(lens))
     assert ot.shape == (B, 1, Hq, hd) and ot.dtype == qt.dtype
     _close(ot[:, 0], oj, DECODE_TOL[dtype])
+    assert not ot[torch.from_numpy(lens) == 0].any()
 
 
 @pytest.mark.parametrize("ps", [8, 16, 32, 64])
