@@ -27,8 +27,9 @@ printing the ok line):
    64, permuted pool rows, each result also bitwise equal to the dense
    decode kernel on the gathered pages and batch-invariant; the top-k
    kernel at Q in {1, 8, 64, 130}, N in {1, 3, 64, 20,000, 1,000,000}, k in
-   {1, 4, 32} with planted exact ties and zero rows, plus its bitwise
-   invariance to the batch and to the split count, and once through
+   {1, 4, 32} with planted exact ties and zero rows, also at D = 388 and
+   1,024, plus its bitwise invariance to the batch and to the split count,
+   one CUDA kernel a call (torch.profiler), and once through
    ``ops.batch_topk`` with a host bank (the ``pallas`` index backend, which
    uploads the bank every call); then each kernel is timed with CUDA events
    beside its plain version and a PyTorch library yardstick for the same
@@ -81,6 +82,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 LAYOUTS = {"olmo-1b": (16, 16, 128), "qwen2.5-3b": (16, 2, 128),
            "nemotron-4-15b": (48, 8, 128)}
@@ -116,7 +118,13 @@ MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # serves both types.
 SCAN_TOL = {"wkv6": (2e-4, 1e-3), "ssd": (5e-4, 1e-3)}
 N_TASKS = 16
-TOPK_TOL = 1e-5  # kernel (fp32 FMA chain) vs plain (float64 sum rounded to fp32)
+# top-k kernel (3xTF32 on the tensor cores: hi.hi + hi.lo + lo.hi, each
+# operand split as hi = tf32(x), lo = x - hi, each 32-dim window's sum added
+# into an fp32 sum) vs plain (float64 sum rounded to fp32)
+TOPK_TOL = 1e-5
+TOPK_PRODUCTS = 3  # tensor-core products a multiply-add: hi.hi, hi.lo, lo.hi
+# bank rows -> (queries, k) of the calls whose CUDA kernels are counted
+TOPK_PROFILED = {64: (8, 1), 1_000_000: (64, 4)}
 # (name, AgentConfig fields, the reference's (hits, accuracy, cost) on the
 # same 16 tasks, and the kernels the run's path must launch)
 SERVE_RUNS = (
@@ -327,12 +335,12 @@ def check_kernels(torch):
     return err, n
 
 
-def _topk_bank(torch, n, g):
-    """(n, 384) unit rows on the card with planted exact ties and zero rows
+def _topk_bank(torch, n, g, d=384):
+    """(n, d) unit rows on the card with planted exact ties and zero rows
     (the positions that fall inside n): row 1 and rows 19,999 and 999,999
     repeat row 0; rows 40 and 63 repeat row 5; rows 2, 50-53 and
     10,000-10,003 are zero."""
-    b = torch.randn(n, 384, generator=g, device="cuda")
+    b = torch.randn(n, d, generator=g, device="cuda")
     b /= b.norm(dim=1, keepdim=True)
     for dup, src in ((1, 0), (19_999, 0), (999_999, 0), (40, 5), (63, 5)):
         if dup < n:
@@ -379,15 +387,71 @@ def _check_topk_result(s, i, rs, ri, k, label):
     return err
 
 
+def _topk_queries(torch, bank, g, n=130):
+    """n unit queries of the bank's width; query 0 is bank row 0 and query
+    1 bank row 5 (or the last row), so the planted ties are hit."""
+    N, d = bank.shape
+    queries = torch.randn(n, d, generator=g, device="cuda")
+    queries /= queries.norm(dim=1, keepdim=True)
+    queries[0] = bank[0]
+    queries[1] = bank[min(5, N - 1)]
+    return queries
+
+
+def _topk_case(torch, queries, bank, rs, ri, Q, k, label):
+    """One kernel call on the first Q queries against the plain version's
+    top-K (rs, ri) of all queries (K >= min(N, k); the order is total, so
+    top-k is its prefix): scores, rows and padding, and the planted ties
+    of query 0 lowest row first. Returns the max abs score error."""
+    import numpy as np
+
+    from repro_torch.kernels.similarity import topk_cosine
+
+    N, K = bank.shape[0], rs.shape[1]
+    s, i = topk_cosine(queries[:Q], bank, k)
+    torch.cuda.synchronize()
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    pad_s, pad_i = rs[:Q], ri[:Q]
+    if K < k:  # N < k: the plain version pads past N
+        pad_s = np.pad(pad_s, ((0, 0), (0, k - K)), constant_values=-1e30)
+        pad_i = np.pad(pad_i, ((0, 0), (0, k - K)), constant_values=-1)
+    err = _check_topk_result(s, i, pad_s, pad_i, k, label)
+    expect = [r for r in (0, 1, 19_999, 999_999) if r < N][:k]
+    if list(i[0, :len(expect)]) != expect:
+        raise AssertionError(f"topk_cosine {label}: planted ties of query 0 "
+                             f"came out {list(i[0, :len(expect)])}, want {expect}")
+    return err
+
+
+def _cuda_kernels_of(torch, fn):
+    """Names of the device activities (kernels, copies, fills) that one
+    call of ``fn`` runs, by torch.profiler's CUDA events; ``fn`` is called
+    once before, unprofiled, to build and allocate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for a in prof.key_averages():
+        if a.device_type == DeviceType.CUDA:
+            names += [a.key] * a.count
+    return names
+
+
 def check_topk(torch):
     """Phase 3 (top-k): the cosine top-k kernel against its plain version
     at Q in {1, 8, 64, 130}, N in {1, 3, 64, 20,000, 1,000,000}, k in
-    {1, 4, 32}; the planted ties come out lowest row first; a query's
-    result is bitwise equal alone, inside a batch of 64, and at two other
-    split counts; one call through ``ops.batch_topk`` with a host bank.
-    Returns (max abs score error, checks)."""
-    import numpy as np
-
+    {1, 4, 32}, D = 384, and at D = 388 (a ragged last k-step) and 1,024 for
+    Q in {1, 8, 64}, N in {64, 20,000}; the planted ties come out lowest row
+    first; a query's result is bitwise equal alone, inside a batch of 64,
+    and at two other split counts; one call is one CUDA kernel
+    (torch.profiler) at the agent's shape and at (64, 1e6, 4); one call
+    through ``ops.batch_topk`` with a host bank. Returns (max abs score
+    error, checks)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.similarity import topk_cosine
 
@@ -395,29 +459,15 @@ def check_topk(torch):
     worst, n_checks = 0.0, 0
     for N in (1, 3, 64, 20_000, 1_000_000):
         bank = _topk_bank(torch, N, g)
-        queries = torch.randn(130, 384, generator=g, device="cuda")
-        queries /= queries.norm(dim=1, keepdim=True)
-        queries[0] = bank[0]
-        queries[1] = bank[min(5, N - 1)]
+        queries = _topk_queries(torch, bank, g)
         # the plain version's top-K of all 130 queries; top-k of the first
         # Q queries is its prefix (the order is total)
         K = min(N, 48)
         rs, ri = (x.cpu().numpy() for x in ref.topk_cosine_ref(queries, bank, K))
         for Q in (1, 8, 64, 130):
             for k in (1, 4, 32):
-                s, i = topk_cosine(queries[:Q], bank, k)
-                torch.cuda.synchronize()
-                s, i = s.cpu().numpy(), i.cpu().numpy()
-                pad_s, pad_i = rs[:Q], ri[:Q]
-                if K < k:  # N < k: the plain version pads past N
-                    pad_s = np.pad(pad_s, ((0, 0), (0, k - K)), constant_values=-1e30)
-                    pad_i = np.pad(pad_i, ((0, 0), (0, k - K)), constant_values=-1)
-                label = f"Q={Q} N={N} k={k}"
-                worst = max(worst, _check_topk_result(s, i, pad_s, pad_i, k, label))
-                expect = [r for r in (0, 1, 19_999, 999_999) if r < N][:k]
-                if list(i[0, :len(expect)]) != expect:
-                    raise AssertionError(f"topk_cosine {label}: planted ties of query 0 "
-                                         f"came out {list(i[0, :len(expect)])}, want {expect}")
+                worst = max(worst, _topk_case(torch, queries, bank, rs, ri, Q, k,
+                                              f"Q={Q} N={N} k={k}"))
                 n_checks += 1
         if N >= 20_000:  # batch and split invariance, bitwise
             for k in (4, 32):
@@ -431,7 +481,27 @@ def check_topk(torch):
                         raise AssertionError(f"topk_cosine N={N} k={k}: result depends on "
                                              "the batch or the split count")
                 n_checks += 1
+        if N in TOPK_PROFILED:  # the agent's (8, 64, 1) and the scale (64, 1e6, 4)
+            Q, k = TOPK_PROFILED[N]
+            names = _cuda_kernels_of(torch, lambda: topk_cosine(queries[:Q], bank, k))
+            if len(names) != 1 or "topk" not in names[0]:
+                raise AssertionError(f"topk_cosine Q={Q} N={N} k={k}: one call ran "
+                                     f"{names}, not one top-k kernel")
+            n_checks += 1
         del bank
+    # other widths: D = 388 ends in a k-step of 4 real dims and 4 zero ones
+    for D in (388, 1024):
+        for N in (64, 20_000):
+            bank = _topk_bank(torch, N, g, D)
+            queries = _topk_queries(torch, bank, g, 64)
+            K = min(N, 48)
+            rs, ri = (x.cpu().numpy() for x in ref.topk_cosine_ref(queries, bank, K))
+            for Q in (1, 8, 64):
+                for k in (1, 4, 32):
+                    worst = max(worst, _topk_case(torch, queries, bank, rs, ri, Q, k,
+                                                  f"Q={Q} N={N} k={k} D={D}"))
+                    n_checks += 1
+            del bank
     # the `pallas` index backend at the agent's shape: 8 padded queries
     # against the 64-row host arena, uploaded by ops.batch_topk every call
     bank = _topk_bank(torch, 64, g)
@@ -470,7 +540,9 @@ def time_topk(torch):
     the 64-row arena, k = 1) and at the index's scale shapes; then the
     ``pallas`` backend's call at the agent's shape, ``ops.batch_topk`` with
     the bank on the host, whose upload the three versions all pay (the
-    bound counts the card's memory only)."""
+    bound counts the card's memory only). The bound is the larger of the
+    bytes over the card's memory rate and the kernel's three TF32 products
+    a multiply-add over the tensor cores' TF32 peak."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.similarity import topk_cosine
 
@@ -482,7 +554,7 @@ def time_topk(torch):
         q = torch.randn(Q, 384, generator=g, device="cuda")
         q /= q.norm(dim=1, keepdim=True)
         nbytes = 4 * (Q * 384 + N * 384) + 8 * Q * k
-        bms, by = bound(nbytes, 2 * Q * N * 384, PEAK_FP32_FLOPS)
+        bms, by = bound(nbytes, TOPK_PRODUCTS * 2 * Q * N * 384, PEAK_TF32_FLOPS)
         rows.append(_timed(
             torch, "topk_cosine", "index", f"Q={Q} N={N} k={k} D=384 fp32",
             lambda: topk_cosine(q, bank, k),
@@ -494,7 +566,8 @@ def time_topk(torch):
     host = _topk_bank(torch, N, g).cpu().numpy()
     q = torch.randn(Q, 384, generator=g, device="cuda")
     q /= q.norm(dim=1, keepdim=True)
-    bms, by = bound(4 * (Q * 384 + N * 384) + 8 * Q * k, 2 * Q * N * 384, PEAK_FP32_FLOPS)
+    bms, by = bound(4 * (Q * 384 + N * 384) + 8 * Q * k, TOPK_PRODUCTS * 2 * Q * N * 384,
+                    PEAK_TF32_FLOPS)
     rows.append(_timed(
         torch, "topk_cosine", "index, host bank", f"Q={Q} N={N} k={k} D=384 fp32",
         lambda: ops.batch_topk(q, host, k=k),

@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     ),
     "topk_cosine": (
         "topk_cosine_fwd",
-        [_P] * 6 + [_I] * 5 + [_P],
+        [_P] * 7 + [_I] * 7 + [_P],
     ),
     "wkv6": (
         "wkv6_fwd",

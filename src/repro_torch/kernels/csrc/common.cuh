@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels (flash_attention.cu,
-// decode_attention.cu, paged_decode_attention.cu) for Hopper, sm_90a:
+// decode_attention.cu, paged_decode_attention.cu), the scans (through
+// scan_common.cuh) and topk_cosine.cu for Hopper, sm_90a:
 // element conversions, 16-byte cp.async copies, and the once-per-device
 // raise of a kernel's dynamic shared-memory limit.
 

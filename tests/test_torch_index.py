@@ -24,7 +24,7 @@ from repro.kernels.similarity import topk_cosine as jtopk  # noqa: E402
 from repro_torch.index import DIM, SimilarityIndex, embed_batch  # noqa: E402
 from repro_torch.index.bank import EmbeddingBank  # noqa: E402
 from repro_torch.index.device import DeviceBank  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, ref, similarity  # noqa: E402
 from repro_torch.kernels.similarity import topk_cosine  # noqa: E402
 
 torch.set_num_threads(2)
@@ -98,6 +98,65 @@ def test_topk_kernel_wrapper_refuses_what_it_cannot_launch():
     assert topk_cosine.launches == 0
     with pytest.raises(ValueError, match="bank on"):
         ops.resident_topk(q, b.to("meta"), k=1)
+
+
+H100_SMS = 132
+
+
+def test_launch_plan_at_the_agent_shape_writes_directly():
+    """8 padded queries against the 64-row arena, k = 1: one CTA, which
+    writes the result itself and touches no workspace."""
+    plan = similarity.launch_plan(8, 64, DIM, 1, H100_SMS)
+    assert (plan.qb, plan.n_qb, plan.n_split, plan.rows_per) == (8, 1, 1, 64)
+    assert (plan.tile, plan.kg) == (64, 4)  # 2 row groups of 32 by 4 k-groups
+    assert plan.direct and plan.ws_pairs == 0
+
+
+def test_launch_plan_at_scale_gives_every_sm_a_cta():
+    plan = similarity.launch_plan(64, 1_000_000, DIM, 4, H100_SMS)
+    assert plan.n_qb * plan.n_split >= H100_SMS
+    assert not plan.direct and plan.ws_pairs == 64 * plan.n_split * 4
+    assert plan.qb * plan.n_qb >= 64
+
+
+@pytest.mark.parametrize("d", [4, 384, 388, 1024])
+@pytest.mark.parametrize("k", [1, 4, 32])
+def test_launch_plan_covers_the_call_within_its_scratch(d, k):
+    """Over batch sizes, bank sizes and forced split counts: the blocks
+    cover every query and row, no CTA gets an empty range, a CTA fits the
+    shared memory, and the workspace and counters that ``scratch`` keeps
+    (on the CPU here) never fall short of what a plan uses; the counters
+    start at 0."""
+    similarity._scratch.clear()
+    dev = torch.device("cpu")
+    for q in (1, 7, 8, 9, 64, 130, 5000):
+        for n in (1, 3, 64, 255, 256, 257, 20_000, 1_000_000):
+            for ns in (None, 1, 7, 1000, 10**6):
+                plan = similarity.launch_plan(q, n, d, k, H100_SMS, ns)
+                assert plan.n_qb == -(-q // plan.qb) and (plan.n_qb - 1) * plan.qb < q
+                assert plan.n_split * plan.rows_per >= n
+                assert (plan.n_split - 1) * plan.rows_per < n
+                assert plan.smem == similarity.smem_bytes(plan.qb, d, k, plan.kg)
+                assert plan.kg == 1 or (plan.direct and plan.rows_per <= plan.tile)
+                assert plan.smem <= similarity.SMEM_MAX
+                assert plan.direct == (plan.n_split == 1)
+                assert plan.ws_pairs == (0 if plan.direct else q * plan.n_split * k)
+                assert plan.qb in similarity.QB_SIZES
+                if ns is None:  # at most two CTAs an SM, at least 64 rows each
+                    assert plan.n_split <= max(1, 2 * H100_SMS // plan.n_qb)
+                    assert plan.n_split == 1 or plan.rows_per >= 64
+                if plan.direct or plan.ws_pairs > 1 << 22:  # allocate up to 32 MiB here
+                    continue
+                ws, ctr = similarity.scratch(dev, 0, plan)
+                assert ws.dtype == ctr.dtype == torch.int32
+                assert ws.numel() >= 2 * plan.ws_pairs and ctr.numel() >= plan.n_qb
+                assert not ctr.any()
+    similarity._scratch.clear()
+
+
+def test_launch_plan_refuses_a_zero_split():
+    with pytest.raises(ValueError, match="n_split=0"):
+        similarity.launch_plan(8, 64, DIM, 1, H100_SMS, 0)
 
 
 # -- bank ---------------------------------------------------------------------
