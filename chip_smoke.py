@@ -39,9 +39,11 @@ printing the ok line):
    weights;
 5. serving: ``build_engines(DEFAULT, full=True)`` — nemotron-4-15b,
    olmo-1b and qwen2.5-3b at full published width in bf16, random weights
-   from a fixed seed — then three runs of 16 FinanceBench tasks (seed 0)
-   on those engines, each with a fresh agent: ``apc`` with exact matching;
-   ``apc`` with fuzzy matching at 0.6 on the ``device`` index (a bank on
+   from a fixed seed — then four runs of 16 FinanceBench tasks (seed 0)
+   on those engines, each with a fresh agent (``SERVE_RUNS``): ``apc``
+   with exact matching; directly after it the ``accuracy_optimal``
+   baseline, so that the paper's headline comparison reads two walls taken
+   under the same host load; ``apc`` with fuzzy matching at 0.6 on the ``device`` index (a bank on
    the card searched by the top-k kernel); and the ``semantic`` baseline on
    the ``device`` index. Each run's hits, accuracy and cost must equal the
    reference's on the CPU (tests/test_torch_agent.py). Then the ``prefix``
@@ -59,10 +61,21 @@ printing the ok line):
    hd 80. Before each run the kernels' launch counters are set to 0, and
    they are read just after: every kernel of the run's path must have
    risen, and in the recurrent run the attention kernels' hd-80 counts
-   must be positive multiples of the shared block's 9 applications.
+   must be positive multiples of the shared block's 9 applications;
+6. the paper's baselines, its other workloads and its second agent, on the
+   ``DEFAULT`` engines of phase 5 (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
+   (8), ``cascade`` on 8 AIME tasks at default thresholds on the
+   ``device`` index (its fuzzy and semantic stages on the top-k kernel),
+   ``apc`` on 8 tasks each of TabMWP, QASPER and AIME, and the
+   deep-research agent with APC on 16 GAIA tasks. Each run's hits,
+   accuracy and cost must equal the reference's, and each must launch
+   flash and decode attention (``cascade`` also top-k). Then the paper's
+   headline comparison: the exact run against ``accuracy_optimal``, the
+   run served directly after it.
 
 Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+one ``{"baselines": {...}}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -125,16 +138,61 @@ TOPK_TOL = 1e-5
 TOPK_PRODUCTS = 3  # tensor-core products a multiply-add: hi.hi, hi.lo, lo.hi
 # bank rows -> (queries, k) of the calls whose CUDA kernels are counted
 TOPK_PROFILED = {64: (8, 1), 1_000_000: (64, 4)}
-# (name, AgentConfig fields, the reference's (hits, accuracy, cost) on the
-# same 16 tasks, and the kernels the run's path must launch)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanAct:
+    """(backend, ledger) -> a ``PlanActAgent`` with these AgentConfig
+    fields over a 100-entry plan cache."""
+
+    cfg: dict
+
+    def __call__(self, backend, ledger):
+        from repro_torch.core.agent_loop import AgentConfig, PlanActAgent
+
+        return PlanActAgent(backend, ledger, AgentConfig(cache_capacity=100, **self.cfg))
+
+
+def deep_research(backend, ledger):
+    """(backend, ledger) -> run_deep_research's APC arm on ``backend``
+    instead of the simulated one."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.deep_research import DeepResearchAgent, DeepResearchConfig
+
+    return DeepResearchAgent(backend, ledger, DeepResearchConfig(seed=0), PlanCache(100))
+
+
+# a serving run: (name, env, tasks of seed 0, the agent's factory, the
+# reference's (hits, accuracy, cost) on those tasks (tests/test_torch_agent.py),
+# the kernels the run's path must launch)
+ATTN = ("flash_attention", "decode_attention")
+ATTN_TOPK = ATTN + ("topk_cosine",)
+# phase 5's runs on the DEFAULT engines. accuracy_optimal runs the exact
+# run's 16 tasks directly after it, so that the paper's headline comparison
+# (APC against that baseline) reads two walls taken under the same host load
 SERVE_RUNS = (
-    ("exact", {"method": "apc"}, (2, 0.875, 0.2987),
-     ("flash_attention", "decode_attention")),
-    ("fuzzy", {"method": "apc", "fuzzy": True, "fuzzy_threshold": 0.6,
-               "index_backend": "device"}, (3, 0.8125, 0.2804),
-     ("flash_attention", "decode_attention", "topk_cosine")),
-    ("semantic", {"method": "semantic", "index_backend": "device"}, (2, 0.8125, 0.2953),
-     ("flash_attention", "decode_attention", "topk_cosine")),
+    ("exact", "financebench", N_TASKS, PlanAct({"method": "apc"}), (2, 0.875, 0.2987), ATTN),
+    ("accuracy_optimal", "financebench", N_TASKS, PlanAct({"method": "accuracy_optimal"}),
+     (0, 0.9375, 0.3444), ATTN),
+    ("fuzzy", "financebench", N_TASKS,
+     PlanAct({"method": "apc", "fuzzy": True, "fuzzy_threshold": 0.6,
+              "index_backend": "device"}), (3, 0.8125, 0.2804), ATTN_TOPK),
+    ("semantic", "financebench", N_TASKS,
+     PlanAct({"method": "semantic", "index_backend": "device"}), (2, 0.8125, 0.2953),
+     ATTN_TOPK),
+)
+# phase 6's runs, on the same engines: the other baselines, workloads and agent
+BASELINE_RUNS = (
+    ("full_history", "financebench", 16, PlanAct({"method": "full_history"}),
+     (2, 0.9375, 0.2966), ATTN),
+    ("cost_optimal", "financebench", 8, PlanAct({"method": "cost_optimal"}),
+     (0, 0.75, 0.0095), ATTN),
+    ("cascade", "aime", 8, PlanAct({"method": "cascade", "index_backend": "device"}),
+     (4, 0.75, 0.0866), ATTN_TOPK),
+    ("apc_tabmwp", "tabmwp", 8, PlanAct({"method": "apc"}), (1, 0.875, 0.1301), ATTN),
+    ("apc_qasper", "qasper", 8, PlanAct({"method": "apc"}), (2, 0.75, 0.1127), ATTN),
+    ("apc_aime", "aime", 8, PlanAct({"method": "apc"}), (1, 1.0, 0.1416), ATTN),
+    ("deep_research", "gaia", 16, deep_research, (1, 0.9375, 0.4195), ATTN),
 )
 # the recurrent run: these roles on the ssm and hybrid archs (the large
 # planner stays the deployment's nemotron-4-15b engine), exact `apc`; the
@@ -1043,22 +1101,22 @@ def build_deployment(torch):
     return engines, init_s
 
 
-def serve(torch, engines, name, agent_cfg, expect, path_kernels):
-    """Phase 5b: 16 FinanceBench tasks through a fresh agent on the shared
-    engines. The kernels' launch counters are set to 0 just before the run
-    and read just after; hits, accuracy and cost must equal the
-    reference's (``expect``)."""
+def serve(torch, engines, name, env, n, make_agent, expect, path_kernels):
+    """One serving run: ``n`` tasks of ``env`` (seed 0) through a fresh agent
+    from ``make_agent(backend, ledger)`` on the shared engines. The kernels'
+    launch counters are set to 0 just before the run and read just after;
+    hits, accuracy and cost must equal the reference's (``expect``), and
+    every kernel of ``path_kernels`` must have been launched."""
     from repro_torch.configs.apc_minion import DEFAULT
-    from repro_torch.core.agent_loop import AgentConfig, PlanActAgent
     from repro_torch.core.cost_model import CostLedger
-    from repro_torch.envs.finance import get_env
+    from repro_torch.envs.workloads import get_env
     from repro_torch.serving.torch_backend import TorchBackend
 
     kernels = _kernel_launchers()
     backend = TorchBackend(engines, seed=0)
     ledger = CostLedger(pricing_map=dict(DEFAULT.pricing))
-    agent = PlanActAgent(backend, ledger, AgentConfig(cache_capacity=100, **agent_cfg))
-    tasks = get_env("financebench").generate(N_TASKS, seed=0)
+    agent = make_agent(backend, ledger)
+    tasks = get_env(env).generate(n, seed=0)
     uniq = {id(e): e for e in engines.values()}.values()
     before = {id(e): dataclasses.replace(e.stats) for e in uniq}
 
@@ -1080,10 +1138,10 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
     if got != tuple(expect):
         raise AssertionError(f"serve {name}: (hits, accuracy, cost) {got}, "
                              f"reference {tuple(expect)}")
-    for n in path_kernels:
-        if launches[n] <= 0:
-            raise AssertionError(f"serve {name}: kernel {n} was not launched")
-    store = getattr(agent._method, "store", agent.cache)
+    for kernel in path_kernels:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"serve {name}: kernel {kernel} was not launched")
+    store = getattr(getattr(agent, "_method", None), "store", agent.cache)
     lookups = store.stats.hits + store.stats.misses
     deltas = {}
     for role, e in engines.items():
@@ -1096,7 +1154,8 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
     engine_s = sum(e.stats.prefill_s + e.stats.decode_s - before[id(e)].prefill_s
                    - before[id(e)].decode_s for e in uniq)
     out = {
-        "run": name, "agent": agent_cfg, "tasks": len(recs), "hits": hits,
+        "run": name, "env": env, "agent": type(agent).__name__,
+        "config": getattr(make_agent, "cfg", {}), "tasks": len(recs), "hits": hits,
         "hit_rate": hits / len(recs), "accuracy": accuracy, "cost_usd": ledger.total_cost(),
         "wall_s": wall, "wall_per_task_s": wall / len(recs), "engine_s": engine_s,
         "launches": launches, "launches_by_hd": launches_by_hd,
@@ -1105,10 +1164,34 @@ def serve(torch, engines, name, agent_cfg, expect, path_kernels):
         "calls": {role: u.calls for role, u in sorted(ledger.usage.items())},
         "engines": deltas,
     }
-    log(f"[serve] {name}: {len(recs)} tasks, accuracy {accuracy:.4f}, hits {hits}, cost "
+    log(f"[serve] {name} ({env}): {len(recs)} tasks, accuracy {accuracy:.4f}, hits {hits}, cost "
         f"${ledger.total_cost():.4f}, wall {wall:.1f}s ({wall / len(recs):.2f}s a task), "
         f"launches {launches}, lookup {out['lookup_s_per_lookup'] * 1e3:.3f} ms each "
         f"over {lookups} lookups")
+    return out
+
+
+def compare_baselines(runs):
+    """The paper's headline comparison on one set of tasks: APC (the
+    ``exact`` run) against the ``accuracy_optimal`` baseline served directly
+    after it. Cost, wall time and engine seconds of each, and APC's over the
+    baseline's. Each wall is one run, so the ratio holds host drift between
+    two neighbouring runs (about a minute each)."""
+    order = list(runs)
+    if order.index("accuracy_optimal") != order.index("exact") + 1:
+        raise AssertionError(f"baselines: accuracy_optimal must run directly after exact: {order}")
+    apc, base = runs["exact"], runs["accuracy_optimal"]
+    if (apc["env"], apc["tasks"]) != (base["env"], base["tasks"]):
+        raise AssertionError(f"baselines: runs on different tasks: {apc['env']}/"
+                             f"{apc['tasks']} against {base['env']}/{base['tasks']}")
+    keys = ("hits", "accuracy", "cost_usd", "wall_s", "engine_s")
+    out = {"env": apc["env"], "tasks": apc["tasks"], "order": ["exact", "accuracy_optimal"],
+           "apc": {k: apc[k] for k in keys},
+           "accuracy_optimal": {k: base[k] for k in keys},
+           "apc_over_accuracy_optimal": {k: apc[k] / base[k]
+                                         for k in ("cost_usd", "wall_s", "engine_s")}}
+    log(f"[baselines] apc / accuracy_optimal on {out['tasks']} {out['env']} tasks: "
+        f"{out['apc_over_accuracy_optimal']}")
     return out
 
 
@@ -1204,7 +1287,7 @@ def serve_prefix(torch, engines):
     from repro_torch.configs import registry
     from repro_torch.core.cache import PlanCache
     from repro_torch.data.tokenizer import HashTokenizer
-    from repro_torch.envs.finance import get_env
+    from repro_torch.envs.workloads import get_env
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
@@ -1450,7 +1533,7 @@ def check_outputs(torch, engines):
     import numpy as np
 
     from repro_torch.data.tokenizer import HashTokenizer
-    from repro_torch.envs.finance import get_env
+    from repro_torch.envs.workloads import get_env
 
     task = get_env("financebench").generate(1, seed=0)[0]
     tok = np.asarray([HashTokenizer().encode(task.query)], np.int32)
@@ -1523,19 +1606,25 @@ def main() -> int:
 
     # phase 5: serving, one run per path on the same engines
     engines, init_s = build_deployment(torch)
-    runs = {name: serve(torch, engines, name, cfg, expect, path)
-            for name, cfg, expect, path in SERVE_RUNS}
+    runs = {row[0]: serve(torch, engines, *row) for row in SERVE_RUNS}
     runs["prefix"] = serve_prefix(torch, engines)
     check_outputs(torch, engines)
     rec_engines, rec_init_s, rec_params = build_recurrent(torch, engines)
     with ChunkDecayProbe(torch) as probe:
-        runs["recurrent"] = serve(torch, rec_engines, "recurrent", {"method": "apc"},
-                                  RECURRENT_EXPECT, RECURRENT_KERNELS)
+        runs["recurrent"] = serve(torch, rec_engines, "recurrent", "financebench", N_TASKS,
+                                  PlanAct({"method": "apc"}), RECURRENT_EXPECT,
+                                  RECURRENT_KERNELS)
     runs["recurrent"].update(init_s=rec_init_s, params=rec_params,
                              max_chunk_abs_la=probe.result())
     check_shared_block(rec_engines["actor"].cfg, runs["recurrent"]["launches_by_hd"])
     log(f"[recurrent] largest |la| of a chunk of {MODEL_CHUNK}: {probe.result()}")
     check_outputs(torch, rec_engines)
+
+    # phase 6: the paper's baselines, its other workloads and the
+    # deep-research agent, on the DEFAULT engines
+    for row in BASELINE_RUNS:
+        runs[row[0]] = serve(torch, engines, *row)
+    baselines = compare_baselines(runs)
     srv = {"init_s": init_s,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "runs": runs}
@@ -1571,6 +1660,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "path_run": run,
+            "launches_per_task": {r: v["launches_per_task"][name] for r, v in runs.items()
+                                  if v.get("launches_per_task", {}).get(name)},
             **({"library": row["library"]} if "library" in row else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
@@ -1578,6 +1669,7 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))
+    print(json.dumps({"baselines": baselines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,17 @@
 ``repro.core.agent_loop``).
 
 ``PlanActAgent`` owns one serving deployment (backend + plan cache +
-ledger) and the two inner loops the ``apc`` method composes:
+ledger) and the two inner loops every method composes:
 
 * ``_loop_scratch`` — plan from scratch on the large/small planner
-  (Algorithm 3);
+  (Algorithm 3's replan path and both no-cache baselines);
 * ``_loop_adapt``   — adapt a cached template with the small planner
   (Algorithm 2).
 
 ``run_task`` dispatches to the method registered in
-:mod:`repro_torch.core.methods`.
+:mod:`repro_torch.memory.registry` and implemented in
+:mod:`repro_torch.core.methods`; ``prewarm`` fills the cache from offline
+samples before deployment (paper §4.5).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.core.backends import SimulatedBackend
 from repro_torch.core.cache import PlanCache
 from repro_torch.core.cost_model import CostLedger
 from repro_torch.core.journal import StepJournal
-from repro_torch.core.template import ExecutionLog, PlanTemplate
+from repro_torch.core.template import ExecutionLog, PlanTemplate, make_template
 from repro_torch.envs.base import Task
 
 
@@ -52,8 +54,10 @@ class AgentConfig:
     fuzzy_threshold: float = 0.8
     semantic_threshold: float = 0.85
     index_backend: str = "auto"  # repro_torch.index backend for fuzzy/semantic search
-    index_device: Optional[str] = None  # where that index searches; None = CUDA
+    index_device: Optional[str] = None  # where a pallas/device index searches; None = CUDA
+    eviction: str = "lru"  # repro_torch.memory eviction policy (lru | lfu | cost)
     async_cachegen: bool = False  # beyond-paper: don't block on cache writes
+    seed: int = 0
 
 
 class PlanActAgent:
@@ -72,7 +76,11 @@ class PlanActAgent:
         self.ledger = ledger
         self.cfg = config
         # NB: `cache is not None` — an empty PlanCache is falsy
+        self.cache_external = cache is not None
         self.cache: Optional[PlanCache] = cache
+        # the method may supply self.cache in its setup() (cascade builds an
+        # exact -> fuzzy -> semantic store); the default store is built only
+        # if neither the caller nor the method provided one
         self._method = make_method(config.method, self)
         if self.cache is None:
             self.cache = PlanCache(
@@ -80,8 +88,33 @@ class PlanActAgent:
                 fuzzy=config.fuzzy,
                 fuzzy_threshold=config.fuzzy_threshold,
                 index_backend=config.index_backend,
+                eviction=config.eviction,
                 device=config.index_device,
             )
+
+    # ==================================================================
+    # Cache pre-warming (paper §4.5: pre-populating the cache with offline
+    # samples before deployment mitigates cold start)
+    # ==================================================================
+
+    def prewarm(self, tasks: List[Task]) -> int:
+        """Run offline samples through the miss path to populate templates.
+        Costs accrue to the ledger (offline budget); returns #inserted."""
+        inserted = 0
+        for task in tasks:
+            kw, ki, ko = self.be.extract_keyword(task)
+            self.ledger.record("keyword_extractor", ki, ko)
+            if kw in self.cache:
+                continue
+            answer, _, log, _ = self._loop_scratch(task, large=True)
+            if answer is not None and log.final_answer is not None:
+                gi, go = self.be.cachegen_tokens(log.raw_tokens())
+                self.ledger.record("cache_generator", gi, go)
+                miss = self.be.generalization_misses(task)
+                self.cache.insert(kw, make_template(log, kw, task.slots,
+                                                    miss_slots=miss))
+                inserted += 1
+        return inserted
 
     # ==================================================================
     # Algorithm 1: end-to-end (registry dispatch, no method branching)

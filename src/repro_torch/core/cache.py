@@ -1,6 +1,6 @@
-"""The plan cache: a batch-native plan store with LRU eviction and a
-pluggable match pipeline (the twin of ``repro.core.cache.PlanCache``,
-without the cold tier, TTL and metrics registry).
+"""The plan cache: a batch-native plan store with composable eviction
+policies and a pluggable match pipeline (the twin of
+``repro.core.cache.PlanCache``, without the cold tier and metrics registry).
 
 ``lookup_batch``/``insert_batch`` are the primitives (one lock acquisition,
 one batched fuzzy/semantic resolution, one device write per admission wave
@@ -9,28 +9,34 @@ from ``PlanStoreBase``.
 
 Matching is a :class:`~repro_torch.memory.pipeline.MatchPipeline`: exact
 dict membership by default, exact -> fuzzy with ``fuzzy=True`` (the paper's
-Tables 5-6 configuration, searched by the ``index_backend`` on ``device``),
+Tables 5-6 configuration, searched by the ``index_backend``: ``brute`` |
+``bucketed`` | ``auto`` on the host, ``pallas`` | ``device`` on ``device``),
 or any cascade of stage names via ``pipeline=("exact", "fuzzy",
-"semantic")``. Stage
-indexes are kept up to date under the cache lock on insert and eviction.
+"semantic")``. Stage indexes are kept up to date under the cache lock on
+insert, eviction and TTL expiry.
+
+Eviction is an :class:`~repro_torch.memory.policies.EvictionPolicy`
+(``eviction="lru" | "lfu" | "cost"`` or an instance); ``ttl_s`` wraps the
+chosen policy in TTL expiry, applied on the lookup path.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.memory.pipeline import build_pipeline
-from repro_torch.memory.policies import CacheEntry, LRUPolicy
+from repro_torch.memory.policies import CacheEntry, EvictionPolicy, make_policy
 from repro_torch.memory.protocol import CacheStats, PlanStoreBase, V
 
 
 class PlanCache(PlanStoreBase, Generic[V]):
-    """keyword -> plan-template store with LRU eviction and matching.
+    """keyword -> plan-template store with pluggable eviction and matching.
 
     Thread-safe: one re-entrant lock guards the store, the policy and the
-    stage indexes.
+    stage indexes. A capacity of 0 admits nothing: every insert is evicted
+    at once (a store that never reuses).
     """
 
     def __init__(
@@ -41,16 +47,17 @@ class PlanCache(PlanStoreBase, Generic[V]):
         fuzzy_threshold: float = 0.8,
         semantic_threshold: float = 0.85,
         index_backend: str = "auto",
+        ttl_s: Optional[float] = None,
+        eviction: Union[str, EvictionPolicy] = "lru",
         pipeline: Optional[Sequence[str]] = None,
         clock: Optional[Callable[[], float]] = None,
         device=None,
     ):
-        if capacity < 1:
-            raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
-        # injectable time source for entry timestamps and `now()`
+        # injectable time source: TTL expiry, entry timestamps and `now()`
+        # read this, never the wall clock directly
         self._clock = clock if clock is not None else time.time
-        self.policy = LRUPolicy()
+        self.policy = make_policy(eviction, ttl_s=ttl_s)
         if pipeline is None:
             pipeline = ("exact", "fuzzy") if fuzzy else ("exact",)
         self.pipeline = build_pipeline(
@@ -90,6 +97,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
             contexts = [None] * len(keywords)
         try:
             with self._lock:
+                now = self._clock()
                 out: List[Optional[V]] = [None] * len(keywords)
                 pending = list(range(len(keywords)))
                 for stage in self.pipeline.stages:
@@ -102,7 +110,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
                     )
                     still: List[int] = []
                     for i, alt in zip(pending, alts):
-                        v = None if alt is None else self._get_live(alt)
+                        v = None if alt is None else self._get_live(alt, now)
                         if v is None:
                             still.append(i)
                         else:
@@ -118,10 +126,13 @@ class PlanCache(PlanStoreBase, Generic[V]):
             with self._lock:
                 self.stats.lookup_time_s += time.perf_counter() - t0
 
-    def _get_live(self, keyword: str) -> Optional[V]:
-        """Serve one exact key: count the hit, touch the policy."""
+    def _get_live(self, keyword: str, now: float) -> Optional[V]:
+        """Serve one exact key: TTL-expire, count the hit, touch the policy."""
         entry = self._store.get(keyword)
         if entry is None:
+            return None
+        if self.policy.expired(keyword, entry, now):
+            self._delete(keyword)  # an expiry is a delete, not an eviction
             return None
         entry.hits += 1
         self.policy.on_access(keyword, entry)
@@ -182,7 +193,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
                     None if vectors is None else [vectors[i] for i in kept],
                 )
             while len(self._store) > self.capacity:
-                self._delete(self.policy.victim())
+                self._delete(self.policy.victim(self._store))
                 self.stats.evictions += 1
 
     def remove(self, keyword: str) -> bool:

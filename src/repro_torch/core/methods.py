@@ -1,64 +1,42 @@
-"""Agent run-strategies (trimmed copy of ``repro.core.methods``): the
-registered methods and the one ``record`` accounting path.
+"""Agent run-strategies: every evaluation method as a registered class (the
+twin of ``repro.core.methods``, without ``speculative``).
 
-  apc       Alg.1: keyword -> cache -> Alg.2 (hit, small planner adapts the
-            template) / Alg.3 (miss, large planner plans from scratch; the
-            successful log is distilled into the cache)
-  semantic  GPTCache-style query-similarity cache of final responses
+Method map (paper §4.1, plus the beyond-paper ``cascade`` hybrid):
 
-The reference's other methods (accuracy_optimal, cost_optimal,
-full_history, cascade, speculative) are not ported yet.
+  apc               Alg.1: keyword -> cache -> Alg.2 (hit, small planner
+                    adapts the template) / Alg.3 (miss, large planner plans
+                    from scratch; the successful log is distilled into the
+                    cache)
+  accuracy_optimal  always the large planner, no cache
+  cost_optimal      always the small planner, no cache
+  semantic          GPTCache-style query-similarity cache of final responses
+  full_history      keyword cache of raw execution logs used as in-context
+                    examples for the small planner
+  cascade           exact -> fuzzy -> semantic match pipeline over one plan
+                    store: keyword matching first, then query-text
+                    similarity against each template's source task; a hit
+                    reuses the template (adapted by the small planner)
+
+Importing this module populates the :mod:`repro_torch.memory.registry`.
+Every strategy accounts its result through the one :func:`record` helper.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional, Type
+from typing import Optional
 
 from repro_torch.core.cache import PlanCache
-from repro_torch.core.template import PlanTemplate, make_template
+from repro_torch.core.template import ExecutionLog, PlanTemplate, make_template, rule_filter
 from repro_torch.envs.base import Task, judge
-
-
-class AgentMethod:
-    """One run strategy bound to one agent deployment."""
-
-    name = ""  # set by register_method
-
-    def __init__(self, agent: Any):
-        self.agent = agent
-        self.setup()
-
-    def setup(self) -> None:
-        """Runs once at agent construction (before the agent's own cache
-        is built)."""
-
-    def run(self, task: Task):
-        raise NotImplementedError
-
-
-METHOD_REGISTRY: Dict[str, Type[AgentMethod]] = {}
-
-
-def register_method(name: str):
-    """Class decorator: register an :class:`AgentMethod` under ``name``."""
-
-    def deco(cls: Type[AgentMethod]) -> Type[AgentMethod]:
-        cls.name = name
-        METHOD_REGISTRY[name] = cls
-        return cls
-
-    return deco
-
-
-def make_method(name: str, agent: Any) -> AgentMethod:
-    try:
-        cls = METHOD_REGISTRY[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown method {name!r}; registered: {sorted(METHOD_REGISTRY)}"
-        ) from None
-    return cls(agent)
+from repro_torch.memory.registry import (
+    METHOD_REGISTRY,
+    AgentMethod,
+    get_method_class,
+    make_method,
+    method_names,
+    register_method,
+)
 
 
 def record(
@@ -74,14 +52,42 @@ def record(
     latency_s: float,
     lookup_s: float = 0.0,
     gen_s: float = 0.0,
+    speculated: bool = False,
+    spec_outcome: str = "",
 ):
-    """The single RunRecord accounting path."""
+    """The single RunRecord accounting path shared by every method."""
     from repro_torch.core.agent_loop import RunRecord
 
     return RunRecord(
         task.id, method, correct, hit, keyword, iterations, answer,
         agent.ledger.total_cost(), latency_s, lookup_s, gen_s,
+        speculated, spec_outcome,
     )
+
+
+class _ScratchMethod(AgentMethod):
+    """No cache: every task planned from scratch on one fixed tier."""
+
+    large = True
+
+    def run(self, task: Task):
+        agent = self.agent
+        answer, iters, _, lat = agent._loop_scratch(task, large=self.large)
+        return record(
+            agent, task, self.name,
+            correct=judge(answer, task.gt_answer), hit=False, keyword="",
+            iterations=iters, answer=answer, latency_s=lat,
+        )
+
+
+@register_method("accuracy_optimal")
+class AccuracyOptimalMethod(_ScratchMethod):
+    large = True
+
+
+@register_method("cost_optimal")
+class CostOptimalMethod(_ScratchMethod):
+    large = False
 
 
 @register_method("semantic")
@@ -125,9 +131,55 @@ class SemanticMethod(AgentMethod):
         )
 
 
+@register_method("full_history")
+class FullHistoryMethod(AgentMethod):
+    """Cache raw execution logs by keyword; replay them unfiltered as
+    in-context examples for the small planner."""
+
+    def run(self, task: Task):
+        agent = self.agent
+        lat = 0.0
+        kw, ki, ko = agent.be.extract_keyword(task)
+        lat += agent.ledger.record("keyword_extractor", ki, ko)
+        t0 = time.perf_counter()
+        log: Optional[ExecutionLog] = agent.cache.lookup(kw)
+        lookup_s = time.perf_counter() - t0
+        lat += lookup_s
+        if log is not None:
+            # the raw log as in-context example: an unfiltered pseudo-template
+            steps = rule_filter(log)
+            tpl = PlanTemplate(keyword=kw, steps=steps, source_task=log.task_query)
+            # the long history is charged into the small planner's context
+            agent.ledger.record("small_planner", log.raw_tokens(), 0)
+            answer, iters, l2 = agent._loop_adapt(task, tpl, full_history=True)
+            lat += l2
+            return record(
+                agent, task, self.name,
+                correct=judge(answer, task.gt_answer), hit=True, keyword=kw,
+                iterations=iters, answer=answer, latency_s=lat,
+                lookup_s=lookup_s,
+            )
+        answer, iters, log, l3 = agent._loop_scratch(task, large=True)
+        lat += l3
+        if answer is not None:
+            agent.cache.insert(kw, log)
+        return record(
+            agent, task, self.name,
+            correct=judge(answer, task.gt_answer), hit=False, keyword=kw,
+            iterations=iters, answer=answer, latency_s=lat, lookup_s=lookup_s,
+        )
+
+
 @register_method("apc")
 class ApcMethod(AgentMethod):
-    """Algorithms 1-3."""
+    """Algorithms 1-3. Subclasses override the store hooks to change how
+    templates are matched and admitted without touching the accounting."""
+
+    def _lookup(self, kw: str, task: Task) -> Optional[PlanTemplate]:
+        return self.agent.cache.lookup(kw)
+
+    def _admit(self, kw: str, task: Task, tpl: PlanTemplate) -> None:
+        self.agent.cache.insert(kw, tpl)
 
     def run(self, task: Task):
         agent = self.agent
@@ -136,7 +188,7 @@ class ApcMethod(AgentMethod):
         lat += agent.ledger.record("keyword_extractor", ki, ko)
 
         t0 = time.perf_counter()
-        template: Optional[PlanTemplate] = agent.cache.lookup(kw)
+        template = self._lookup(kw, task)
         lookup_s = time.perf_counter() - t0
         lat += lookup_s
 
@@ -160,7 +212,7 @@ class ApcMethod(AgentMethod):
             gen_s = agent.ledger.record("cache_generator", gi, go)
             miss_slots = agent.be.generalization_misses(task)
             tpl = make_template(log, kw, task.slots, miss_slots=miss_slots)
-            agent.cache.insert(kw, tpl)
+            self._admit(kw, task, tpl)
             if not agent.cfg.async_cachegen:
                 lat += gen_s  # synchronous generation blocks the response
         return record(
@@ -169,3 +221,53 @@ class ApcMethod(AgentMethod):
             iterations=iters, answer=answer, latency_s=lat,
             lookup_s=lookup_s, gen_s=gen_s,
         )
+
+
+@register_method("cascade")
+class CascadeMethod(ApcMethod):
+    """Exact -> fuzzy -> semantic over one plan store.
+
+    The store's match pipeline resolves a keyword exactly, then by keyword
+    similarity, then, with the raw task query as the lookup *context*, by
+    similarity against the query each template was distilled from. A
+    semantic-stage hit still goes through template adaptation (small
+    planner): unlike the ``semantic`` baseline, a similar task reuses the
+    plan, not the stale final answer.
+    """
+
+    def setup(self) -> None:
+        agent = self.agent
+        if not agent.cache_external:
+            cfg = agent.cfg
+            agent.cache = PlanCache(
+                capacity=cfg.cache_capacity,
+                pipeline=("exact", "fuzzy", "semantic"),
+                fuzzy_threshold=cfg.fuzzy_threshold,
+                semantic_threshold=cfg.semantic_threshold,
+                index_backend=cfg.index_backend,
+                eviction=cfg.eviction,
+                device=cfg.index_device,
+            )
+
+    def _lookup(self, kw, task):
+        return self.agent.cache.lookup(kw, context=task.query)
+
+    def _admit(self, kw, task, tpl):
+        self.agent.cache.insert(kw, tpl, context=task.query)
+
+
+__all__ = [
+    "METHOD_REGISTRY",
+    "AccuracyOptimalMethod",
+    "AgentMethod",
+    "ApcMethod",
+    "CascadeMethod",
+    "CostOptimalMethod",
+    "FullHistoryMethod",
+    "SemanticMethod",
+    "get_method_class",
+    "make_method",
+    "method_names",
+    "record",
+    "register_method",
+]

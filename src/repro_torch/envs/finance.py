@@ -223,9 +223,3 @@ class FinanceEnv(AgentEnv):
     def entities(self) -> Dict[str, List[str]]:
         return {"company": _COMPANIES, "year": _YEARS}
 
-
-def get_env(name: str) -> AgentEnv:
-    """The port's env registry: FinanceBench only (the slice's workload)."""
-    if name != "financebench":
-        raise KeyError(f"unknown env {name!r}; the port has 'financebench' only")
-    return FinanceEnv()

@@ -5,22 +5,26 @@ match stages (the twin of ``repro.index``).
   freelist (O(1) add/remove) and the batched hashed-ngram embedding.
 * ``ops.batch_topk`` / ``ops.resident_topk`` — cosine top-k, one call per
   request batch: the CUDA kernel on the card, the plain version on the CPU.
+* :class:`~repro_torch.index.bucketed.BucketedIndex` — multi-probe SRP-LSH
+  on the host for sublinear candidates at 1e6 entries.
 * :class:`~repro_torch.index.device.DeviceBank` — the arena mirrored on the
   card, written in place, searched with no bank bytes uploaded per lookup.
 
-:class:`SimilarityIndex` is the facade: pick a backend (``brute`` |
-``pallas`` | ``device``) and get add/remove/topk/best_match over keys.
-``brute`` is the exact numpy scan on the host. ``pallas`` uploads the host
-arena to ``device`` on every call and searches it there; ``device`` keeps a
-``DeviceBank`` on ``device`` in lockstep with the host arena. The
-reference's ``bucketed`` (multi-probe LSH) and ``auto`` backends are not
-ported yet and raise.
+:class:`SimilarityIndex` is the facade: pick a backend (``auto`` |
+``brute`` | ``bucketed`` | ``pallas`` | ``device``) and get
+add/remove/topk/best_match over keys. ``brute`` is the exact numpy scan on
+the host; ``bucketed`` the LSH index on the host; ``auto`` (the default, as
+in the reference) scans exactly while the bank holds at most
+``auto_bucketed_min`` live entries and probes the LSH tables beyond.
+``pallas`` uploads the host arena to ``device`` on every call and searches
+it there; ``device`` keeps a ``DeviceBank`` on ``device`` in lockstep with
+the host arena.
 
 Thread-safety: all mutation takes ``self.bank.lock`` and updates the host
-and device arenas together. ``pallas``/``device`` searches run under
-``bank.lock``; a ``brute`` search reads the arena as it is, and callers
-that need a consistent view hold the lock (``PlanCache`` wraps every index
-call in its own lock).
+arena, the LSH buckets and the device arena together. ``pallas``/``device``
+searches run under ``bank.lock``; a host search reads the arena as it is,
+and callers that need a consistent view hold the lock (``PlanCache`` wraps
+every index call in its own lock).
 """
 
 from __future__ import annotations
@@ -31,35 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.index.bank import DIM, EmbeddingBank, embed, embed_batch
+from repro_torch.index.bucketed import NEG_INF, BucketedIndex, _brute_topk
 from repro_torch.index.device import DeviceBank
 
-BACKENDS = ("brute", "pallas", "device")
-NOT_PORTED = ("auto", "bucketed")
-NEG_INF = -1e30
-
-
-def _brute_topk(
-    matrix: np.ndarray, queries: np.ndarray, k: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact numpy top-k over ``matrix`` rows (a copy of
-    ``repro.index.bucketed._brute_topk``)."""
-    Q = queries.shape[0]
-    N = matrix.shape[0]
-    scores = np.full((Q, k), NEG_INF, np.float32)
-    idx = np.full((Q, k), -1, np.int32)
-    if N == 0 or Q == 0:
-        return scores, idx
-    s = queries.astype(np.float32) @ matrix.T  # (Q, N)
-    kk = min(k, N)
-    if kk < N:
-        part = np.argpartition(-s, kk - 1, axis=1)[:, :kk]
-    else:
-        part = np.broadcast_to(np.arange(N), (Q, N)).copy()
-    ps = np.take_along_axis(s, part, axis=1)
-    order = np.argsort(-ps, axis=1, kind="stable")
-    scores[:, :kk] = np.take_along_axis(ps, order, axis=1)
-    idx[:, :kk] = np.take_along_axis(part, order, axis=1).astype(np.int32)
-    return scores, idx
+BACKENDS = ("auto", "brute", "pallas", "bucketed", "device")
 
 
 class SimilarityIndex:
@@ -67,27 +46,30 @@ class SimilarityIndex:
 
     ``device`` is where the ``pallas`` and ``device`` backends search:
     CUDA unless the caller asks for another (the tests pass ``"cpu"``,
-    which runs the plain version). ``brute`` always scans on the host.
+    which runs the plain version). ``brute``, ``bucketed`` and ``auto``
+    always search on the host and ignore ``device``.
     """
 
     def __init__(
         self,
         *,
-        backend: str = "brute",
+        backend: str = "auto",
         initial_capacity: int = 64,
+        auto_bucketed_min: int = 4096,
         device=None,
     ):
-        if backend in NOT_PORTED:
-            raise ValueError(
-                f"index backend {backend!r} is not ported yet (the LSH "
-                f"BucketedIndex is; see ROADMAP); use one of {BACKENDS}"
-            )
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.backend = backend
         self.bank = EmbeddingBank(initial_capacity)
         self.device: Optional[torch.device] = None
+        self._bucketed: Optional[BucketedIndex] = None
         self._device: Optional[DeviceBank] = None
+        if backend in ("bucketed", "auto"):
+            self._bucketed = BucketedIndex(
+                self.bank,
+                scan_threshold=auto_bucketed_min if backend == "auto" else 2048,
+            )
         if backend in ("pallas", "device"):
             from repro_torch.models.common import resolve_device
 
@@ -106,6 +88,8 @@ class SimilarityIndex:
     def add(self, key: str, vector: Optional[np.ndarray] = None) -> int:
         with self.bank.lock:
             slot = self.bank.add(key, vector)
+            if self._bucketed is not None:
+                self._bucketed.on_add(slot, self.bank.matrix()[slot])
             if self._device is not None:
                 self._device.set_row(slot, self.bank.matrix()[slot])
             return slot
@@ -128,7 +112,10 @@ class SimilarityIndex:
         with self.bank.lock:
             slot_of = {}
             for key, vec in vec_of.items():
-                slot_of[key] = self.bank.add(key, vec)
+                slot = self.bank.add(key, vec)
+                slot_of[key] = slot
+                if self._bucketed is not None:
+                    self._bucketed.on_add(slot, self.bank.matrix()[slot])
             if self._device is not None:
                 self._device.set_rows(
                     list(slot_of.values()),
@@ -139,14 +126,28 @@ class SimilarityIndex:
     def remove(self, key: str) -> None:
         with self.bank.lock:
             slot = self.bank.remove(key)
-            if slot is not None and self._device is not None:
-                self._device.clear_row(slot)
+            if slot is not None:
+                if self._bucketed is not None:
+                    self._bucketed.on_remove(slot)
+                if self._device is not None:
+                    self._device.clear_row(slot)
 
     def clear(self) -> None:
         with self.bank.lock:
             self.bank.clear()
+            if self._bucketed is not None:
+                self._bucketed.clear()
             if self._device is not None:
                 self._device.clear()
+
+    def autotune(self, **thresholds) -> Optional[str]:
+        """One LSH auto-tuning step from live telemetry (``bucketed`` and
+        ``auto`` backends; None otherwise), under ``bank.lock``; see
+        :meth:`BucketedIndex.autotune` for the rules."""
+        if self._bucketed is None:
+            return None
+        with self.bank.lock:
+            return self._bucketed.autotune(**thresholds)
 
     # -- search -----------------------------------------------------------
 
@@ -185,6 +186,8 @@ class SimilarityIndex:
                 else:
                     s, i = ops.batch_topk(qt, self.bank.arena(), k=k)
                 scores, slots = s[:nq].cpu().numpy(), i[:nq].cpu().numpy()
+        elif self._bucketed is not None:  # bucketed | auto
+            scores, slots = self._bucketed.topk(q, k)
         else:
             scores, slots = _brute_topk(self.bank.matrix(), q, k)
         # mask tombstoned / beyond-high-water slots: slot >= 0 => live key
@@ -216,14 +219,20 @@ class SimilarityIndex:
     ) -> Optional[str]:
         if isinstance(query, str):
             query = embed(query)
-        if self.backend == "brute":  # the lean host single-lookup path
+        # pallas/device answer through the batched device call; the host
+        # backends take the lean single-lookup path (no (Q, k) arrays)
+        if self.backend not in ("pallas", "device"):
             q = query.astype(np.float32, copy=False).reshape(-1)
-            M = self.bank.matrix()
-            if M.shape[0] == 0:
-                return None
-            s = M @ q
-            slot = int(np.argmax(s))
-            if slot >= 0 and float(s[slot]) >= threshold:
+            if self._bucketed is not None:
+                score, slot = self._bucketed.best_slot(q)
+            else:
+                M = self.bank.matrix()
+                if M.shape[0] == 0:
+                    return None
+                s = M @ q
+                slot = int(np.argmax(s))
+                score = float(s[slot])
+            if slot >= 0 and score >= threshold:
                 return self.bank.key_of(slot)
             return None
         return self.best_match_batch(query.reshape(1, -1), threshold)[0]
@@ -233,6 +242,7 @@ __all__ = [
     "BACKENDS",
     "DIM",
     "NEG_INF",
+    "BucketedIndex",
     "DeviceBank",
     "EmbeddingBank",
     "SimilarityIndex",

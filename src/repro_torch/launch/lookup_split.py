@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache import PlanCache
-from repro_torch.envs.finance import get_env
+from repro_torch.envs.workloads import get_env
 from repro_torch.index import embed_batch
 from repro_torch.kernels import ops
 

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.configs.apc_minion import DEFAULT
 from repro_torch.data.tokenizer import HashTokenizer
-from repro_torch.envs.finance import get_env
+from repro_torch.envs.workloads import get_env
 from repro_torch.launch.serve import build_engine
 
 

@@ -1,8 +1,10 @@
 """Serving entry point: APC two-tier agent serving on the port's torch engines.
 
     python -m repro_torch.launch.serve --env financebench --n 16 --full
+    python -m repro_torch.launch.serve --env aime --method cascade --n 8
 
-Runs the paper's pipeline end-to-end: keyword extraction -> plan-cache
+``--env`` takes any of the five workloads (``ALL_ENVS``) and ``--method``
+any registered method. Runs the paper's pipeline end-to-end: keyword extraction -> plan-cache
 routing -> small/large planner tier -> actor, with REAL torch engines
 (smoke configs by default, the published configs with --full) on the GPU
 (``--device cpu`` runs the plain PyTorch path on the CPU), and prints the
@@ -22,8 +24,9 @@ from repro_torch.configs import registry
 from repro_torch.configs.apc_minion import DEFAULT
 from repro_torch.core.agent_loop import AgentConfig, PlanActAgent
 from repro_torch.core.cost_model import CostLedger
+from repro_torch.core.methods import method_names
 from repro_torch.data.tokenizer import HashTokenizer
-from repro_torch.envs.finance import get_env
+from repro_torch.envs.workloads import ALL_ENVS, get_env
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
 from repro_torch.serving.engine import Engine
@@ -79,9 +82,9 @@ def build_engines(deployment, *, full: bool = False, max_len: int = 192, device=
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--env", default="financebench")
+    ap.add_argument("--env", default="financebench", choices=ALL_ENVS)
     ap.add_argument("--n", type=int, default=40)
-    ap.add_argument("--method", default="apc")
+    ap.add_argument("--method", default="apc", choices=method_names())
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--cache-capacity", type=int, default=100)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -95,7 +98,8 @@ def main():
     ledger = CostLedger(pricing_map=dict(deployment.pricing))
     agent = PlanActAgent(
         backend, ledger,
-        AgentConfig(method=args.method, cache_capacity=args.cache_capacity),
+        AgentConfig(method=args.method, cache_capacity=args.cache_capacity,
+                    index_device=args.device),
     )
 
     env = get_env(args.env)

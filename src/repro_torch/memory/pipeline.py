@@ -72,7 +72,7 @@ class FuzzyStage(MatchStage):
 
     name = "fuzzy"
 
-    def __init__(self, threshold: float = 0.8, backend: str = "brute", **index_kw):
+    def __init__(self, threshold: float = 0.8, backend: str = "auto", **index_kw):
         from repro_torch.index import SimilarityIndex
 
         self.threshold = threshold
@@ -107,7 +107,7 @@ class SemanticStage(MatchStage):
 
     name = "semantic"
 
-    def __init__(self, threshold: float = 0.85, backend: str = "brute", **index_kw):
+    def __init__(self, threshold: float = 0.85, backend: str = "auto", **index_kw):
         from repro_torch.index import SimilarityIndex
 
         self.threshold = threshold

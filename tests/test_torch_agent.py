@@ -23,7 +23,7 @@ from repro_torch.core.agent_loop import AgentConfig, PlanActAgent  # noqa: E402
 from repro_torch.core.backends import SimulatedBackend  # noqa: E402
 from repro_torch.core.cache import PlanCache  # noqa: E402
 from repro_torch.core.cost_model import CostLedger  # noqa: E402
-from repro_torch.envs.finance import get_env  # noqa: E402
+from repro_torch.envs.workloads import get_env  # noqa: E402
 from repro_torch.serving.torch_backend import TorchBackend  # noqa: E402
 
 N_TASKS = 16
@@ -200,3 +200,172 @@ def test_recurrent_deployment_run_records_match_reference():
     assert got == chip_smoke.RECURRENT_EXPECT == (2, 0.875, 0.2987)
     for role in ("small_planner", "actor"):  # the recurrent engines served real tokens
         assert teng[role].stats.decode_tokens > 0
+
+
+# -- the paper's baselines, its five workloads and its second agent ----------
+
+ENVS = ["financebench", "tabmwp", "qasper", "aime", "gaia"]
+MATRIX_METHODS = ["apc", "accuracy_optimal", "cost_optimal", "semantic", "full_history",
+                  "cascade"]
+MATRIX_TASKS = 24
+
+
+@pytest.mark.parametrize("method", MATRIX_METHODS)
+@pytest.mark.parametrize("env", ENVS)
+def test_workload_matrix_matches_reference(env, method):
+    """``harness.run_workload`` of every (env x method) at default
+    AgentConfig (so the ``auto`` index backend, on the host): the port's
+    RunRecords, ledger breakdown and ``row()`` equal the reference's, the
+    row's wall-clock latency aside (checked through the records)."""
+    from repro.core.harness import run_workload as jrun_workload
+    from repro_torch.core.harness import run_workload
+
+    got = run_workload(env, method, MATRIX_TASKS, keep_records=True)
+    want = jrun_workload(env, method, MATRIX_TASKS, keep_records=True)
+    _assert_same_records(got.records, want.records)
+    row, jrow = got.row(), want.row()
+    assert row.pop("latency_s") == pytest.approx(jrow.pop("latency_s"), abs=0.11)
+    assert row == jrow
+    assert got.breakdown == want.breakdown
+    if method in ("accuracy_optimal", "cost_optimal"):
+        assert row["hit_rate"] == 0 and row["cache_entries"] == 0
+    elif env in ("qasper", "aime") and method in ("semantic", "cascade"):
+        assert row["hit_rate"] > 0  # the semantic stage served hits
+
+
+def test_harness_methods_match_reference():
+    from repro.core import harness as jharness
+    from repro_torch.core import harness
+
+    assert harness.METHODS == [m for m in jharness.METHODS if m != "speculative"]
+    assert set(MATRIX_METHODS) == set(harness.METHODS)
+
+
+@pytest.mark.parametrize("use_apc", [True, False])
+@pytest.mark.parametrize("env", ["gaia", "financebench"])
+def test_deep_research_matches_reference(env, use_apc):
+    """``run_deep_research`` with and without APC (the no-cache arm is a
+    capacity-0 PlanCache), and the agent's RunRecords on the same tasks."""
+    from repro.core.deep_research import DeepResearchAgent as JDeep
+    from repro.core.deep_research import DeepResearchConfig as JDeepCfg
+    from repro.core.deep_research import run_deep_research as jrun
+    from repro_torch.core.deep_research import (
+        DeepResearchAgent,
+        DeepResearchConfig,
+        run_deep_research,
+    )
+
+    got, want = run_deep_research(env, 16, use_apc=use_apc), jrun(env, 16, use_apc=use_apc)
+    assert got.pop("latency_s") == pytest.approx(want.pop("latency_s"), abs=1e-2)
+    assert got == want
+    assert (got["hit_rate"] > 0) == use_apc
+    recs = []
+    for agent_cls, cfg_cls, sim, ledger_cls, cache_cls, pricing, envs in (
+            (DeepResearchAgent, DeepResearchConfig, SimulatedBackend, CostLedger, PlanCache,
+             DEFAULT.pricing, get_env),
+            (JDeep, JDeepCfg, JSim, JLedger, JPlanCache, JDEFAULT.pricing, jget_env)):
+        agent = agent_cls(sim(seed=0), ledger_cls(pricing_map=dict(pricing)), cfg_cls(),
+                          cache_cls(100 if use_apc else 0))
+        recs.append([agent.run_task(t) for t in envs(env).generate(16, seed=0)])
+    _assert_same_records(*recs)
+
+
+def test_prewarm_matches_reference():
+    """``prewarm`` on offline samples (another seed) fills the same
+    templates at the same offline cost, and the warmed agent then serves
+    the reference's records."""
+    offline_t = get_env("aime").generate(12, seed=3)
+    offline_j = jget_env("aime").generate(12, seed=3)
+    led_t, led_j = CostLedger(pricing_map=dict(DEFAULT.pricing)), JLedger(
+        pricing_map=dict(JDEFAULT.pricing))
+    ag_t = PlanActAgent(SimulatedBackend(seed=0), led_t, AgentConfig())
+    ag_j = JAgent(JSim(seed=0), led_j, JAgentConfig())
+    n = ag_t.prewarm(offline_t)
+    assert n == ag_j.prewarm(offline_j) and 0 < n < 12  # repeated intents are skipped
+    assert sorted(ag_t.cache.keys()) == sorted(ag_j.cache.keys())
+    assert led_t.breakdown() == led_j.breakdown()
+    recs_t = [ag_t.run_task(t) for t in get_env("aime").generate(8, seed=0)]
+    recs_j = [ag_j.run_task(t) for t in jget_env("aime").generate(8, seed=0)]
+    _assert_same_records(recs_t, recs_j)
+    assert sum(r.hit for r in recs_t) > 1  # the warmed cache served hits
+
+
+SMOKE_BASELINES = {  # method -> (env, tasks); the third AIME task hits
+    "accuracy_optimal": ("financebench", 3),
+    "full_history": ("aime", 3),
+    "cascade": ("aime", 3),
+}
+
+
+@pytest.fixture(scope="module")
+def smoke_engines():
+    """The DEFAULT deployment's smoke engines in both packages (CPU)."""
+    from repro.launch.serve import build_engines as jbuild_engines
+    from repro_torch.launch.serve import build_engines
+
+    return (build_engines(DEFAULT, full=False, max_len=192, device="cpu"),
+            jbuild_engines(JDEFAULT, full=False, max_len=192))
+
+
+@pytest.mark.parametrize("method", list(SMOKE_BASELINES))
+def test_baselines_on_smoke_engines_match_reference(method, smoke_engines):
+    """TorchBackend on the port's smoke engines against JaxBackend on the
+    reference's, for the baselines and cascade: equal RunRecords and
+    ledgers, and the port's engines served tokens."""
+    env, n = SMOKE_BASELINES[method]
+    teng, jeng = smoke_engines
+    recs_j, led_j, _ = _run(JAgent, JAgentConfig, JLedger, JaxBackend(jeng, seed=0),
+                            JDEFAULT.pricing, jget_env(env).generate(n, seed=0), method=method)
+    before = {id(e): e.stats.decode_tokens for e in teng.values()}
+    recs_t, led_t, _ = _run(PlanActAgent, AgentConfig, CostLedger, TorchBackend(teng, seed=0),
+                            DEFAULT.pricing, get_env(env).generate(n, seed=0), method=method)
+    _assert_same_records(recs_t, recs_j)
+    assert led_t.breakdown() == led_j.breakdown()
+    assert any(e.stats.decode_tokens > before[id(e)] for e in teng.values())
+    assert [r.hit for r in recs_t] == [False, False, method != "accuracy_optimal"]
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize(
+    "run", [r[0] for r in _chip_smoke().SERVE_RUNS + _chip_smoke().BASELINE_RUNS])
+def test_chip_smoke_baseline_pins_match_reference(run):
+    """chip_smoke.py pins each serving run's (hits, accuracy, cost) on the
+    card: the reference gives those on the same tasks (its SimulatedBackend;
+    the deep-research run is run_deep_research's APC arm), and so does the
+    port on the CPU."""
+    from repro.core.deep_research import run_deep_research as jrun
+    from repro_torch.core.deep_research import run_deep_research
+
+    chip_smoke = _chip_smoke()
+    _, env, n, make, expect, path = next(
+        r for r in chip_smoke.SERVE_RUNS + chip_smoke.BASELINE_RUNS if r[0] == run)
+    assert {"flash_attention", "decode_attention"} <= set(path)
+    if make is chip_smoke.deep_research:
+        got = []
+        for fn in (jrun, run_deep_research):
+            r = fn(env, n)
+            got.append((round(r["hit_rate"] * n), r["accuracy"], round(r["cost"], 4)))
+    else:
+        cfg = make.cfg
+        tcfg = dict(cfg)
+        if cfg.get("index_backend") == "device":
+            tcfg["index_device"] = "cpu"
+            assert "topk_cosine" in path
+        got = []
+        for args in ((JAgent, JAgentConfig, JLedger, JSim(seed=0), JDEFAULT.pricing,
+                      jget_env(env).generate(n, seed=0), cfg),
+                     (PlanActAgent, AgentConfig, CostLedger, SimulatedBackend(seed=0),
+                      DEFAULT.pricing, get_env(env).generate(n, seed=0), tcfg)):
+            recs, led, _ = _run(*args[:6], **args[6])
+            got.append((sum(r.hit for r in recs), sum(r.correct for r in recs) / n,
+                        round(led.total_cost(), 4)))
+    assert got[0] == got[1] == tuple(expect)

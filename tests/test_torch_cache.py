@@ -120,8 +120,13 @@ def test_overwrite_is_delete_then_insert():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        PlanCache(fuzzy=True)  # index_backend defaults to "auto", as in repro
+    """The cold tier is not ported: its stage name and its arguments are
+    refused. The default index backend, ``auto``, is ported (a host index,
+    as in repro)."""
     with pytest.raises(ValueError, match="unknown pipeline stage"):
         build_pipeline(["cold"])
+    with pytest.raises(TypeError, match="cold_dir"):
+        PlanCache(cold_dir="plans")
     assert PlanCache().pipeline.stage("fuzzy") is None  # exact-only builds no index
+    index = PlanCache(fuzzy=True).pipeline.stage("fuzzy").index
+    assert index.backend == "auto" and index.device is None

@@ -48,5 +48,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.serving.router", "repro_torch.serving.engine",
               "repro_torch.index.device", "repro_torch.launch.serve",
               "repro_torch.models.rwkv", "repro_torch.models.mamba",
-              "repro_torch.kernels.rwkv6", "repro_torch.kernels.ssd"):
+              "repro_torch.kernels.rwkv6", "repro_torch.kernels.ssd",
+              "repro_torch.envs.workloads", "repro_torch.core.deep_research",
+              "repro_torch.core.harness", "repro_torch.memory.registry",
+              "repro_torch.index.bucketed"):
         assert m in mods

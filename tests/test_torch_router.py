@@ -375,7 +375,7 @@ def test_chip_smoke_router_stream_matches_reference():
     it pins, are the reference router's on the same keyword stream."""
     import chip_smoke
     from repro.envs.workloads import get_env as jget_env
-    from repro_torch.envs.finance import get_env
+    from repro_torch.envs.workloads import get_env
 
     jtasks = jget_env("financebench").generate(chip_smoke.N_TASKS, seed=0)
     ttasks = get_env("financebench").generate(chip_smoke.N_TASKS, seed=0)

@@ -170,3 +170,35 @@ def test_build_engines_takes_the_recurrent_archs():
         assert e.cfg.vocab_size == 50_304 and e.kv_prefix is None
         out = e.generate(toks, max_new=4)
         assert out.shape == (1, 4) and e.stats.decode_tokens == 3
+
+
+def test_serve_entry_point_runs_other_workloads_and_methods(monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --env aime --method cascade --n 4
+    --device cpu`` on the smoke configs prints the accuracy and hit rate the
+    reference harness gives on the same tasks; ``--env`` and ``--method``
+    take every workload and every registered method."""
+    import sys
+
+    from repro.core.harness import run_workload as jrun_workload
+    from repro_torch.core.methods import method_names
+    from repro_torch.envs.workloads import ALL_ENVS
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--env", "aime", "--method", "cascade",
+                                      "--n", "4", "--device", "cpu"])
+    serve.main()
+    out = capsys.readouterr().out
+    want = jrun_workload("aime", "cascade", 4)
+    assert want.hit_rate > 0
+    assert f"accuracy      {want.accuracy:.3f}" in out
+    assert f"hit rate      {want.hit_rate:.3f}" in out
+    assert f"cost          ${want.cost:.4f}" in out
+    assert "method=cascade n=4 device=cpu" in out
+    for flag, value in (("--env", "webshop"), ("--method", "speculative")):
+        monkeypatch.setattr(sys, "argv", ["serve", flag, value, "--device", "cpu"])
+        with pytest.raises(SystemExit):
+            serve.main()
+        assert "invalid choice" in capsys.readouterr().err
+    assert ALL_ENVS == ["financebench", "tabmwp", "qasper", "aime", "gaia"]
+    assert {"apc", "accuracy_optimal", "cost_optimal", "semantic", "full_history",
+            "cascade"} == set(method_names())
