@@ -71,11 +71,27 @@ printing the ok line):
    accuracy and cost must equal the reference's, and each must launch
    flash and decode attention (``cascade`` also top-k). Then the paper's
    headline comparison: the exact run against ``accuracy_optimal``, the
-   run served directly after it.
+   run served directly after it;
+7. the rest of the plan store, on the same engines: (a) the ``speculative``
+   method (fuzzy 0.6 on the ``device`` index; a near hit executes the
+   adapted template at once while the large planner verifies it, and the
+   step journal commits, patches or rolls back) on 8 AIME and 16
+   FinanceBench tasks (``SPEC_RUNS``), each pinned to the reference's hits,
+   accuracy, cost and census of outcomes, each launching flash, decode and
+   top-k; (b) ``serve_dcache``: the router over a 2-node replicated
+   ``DistributedPlanCache`` whose shards each keep a bank on the card,
+   with near-hit speculation, traced by ``repro_torch.obs``, through a
+   mark-down and a restart with read-repair; its counters pinned to the
+   reference router's, its top-k launches to the index calls of the same
+   stream on the CPU, its span forest checked, and the restart must not
+   grow the memory allocated on the card.
 
 Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
-one ``{"baselines": {...}}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+one ``{"baselines": {...}}`` line, one ``{"obs": {...}}`` line (phase 7(b):
+counters, span counts, ``engine.generate`` p50/p99 per arch, the per-shard
+``cache.*`` series), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
+``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -194,6 +210,17 @@ BASELINE_RUNS = (
     ("apc_aime", "aime", 8, PlanAct({"method": "apc"}), (1, 1.0, 0.1416), ATTN),
     ("deep_research", "gaia", 16, deep_research, (1, 0.9375, 0.4195), ATTN),
 )
+# phase 7(a)'s runs, on the same engines: the `speculative` method (fuzzy
+# 0.6 on the `device` index: near hits execute at once while the large
+# planner verifies); each row also pins the reference's census of
+# speculation outcomes (tests/test_torch_speculative.py)
+SPEC = PlanAct({"method": "speculative", "fuzzy_threshold": 0.6, "index_backend": "device"})
+SPEC_RUNS = (
+    ("speculative_aime", "aime", 8, SPEC, (2, 1.0, 0.1351), ATTN_TOPK,
+     {"commit": 1, "patch": 0, "rollback": 0}),
+    ("speculative_financebench", "financebench", 16, SPEC, (2, 0.875, 0.3108), ATTN_TOPK,
+     {"commit": 0, "patch": 0, "rollback": 1}),
+)
 # the recurrent run: these roles on the ssm and hybrid archs (the large
 # planner stays the deployment's nemotron-4-15b engine), exact `apc`; the
 # reference's (hits, accuracy, cost) on that deployment
@@ -222,6 +249,113 @@ def router_waves(tasks):
     for i in range(0, len(tasks), ROUTER_WAVE):
         waves += [tasks[i:i + ROUTER_WAVE]] * ROUTER_REPEATS
     return waves
+
+
+# phase 7(b): the traced router over a DistributedPlanCache of 2 nodes,
+# replication 2, fuzzy at 0.6 on the `device` index (a bank on the card per
+# shard) with ROUTER_CAPACITY entries a node. It routes the 16 tasks in
+# `dcache_waves`; cache-1 is marked down after the sixth wave and restarted
+# (recover=True) after the eighth. The reference router's counters on that
+# stream, and the index calls (one top-k launch each) the port's CPU run of
+# it makes (tests/test_torch_distributed_cache.py)
+DCACHE_NODES = 2
+DCACHE_DOWN_AFTER = 6
+DCACHE_RESTART_AFTER = 8
+DCACHE_EXPECT = {"requests": 48, "hits": 31, "misses": 17, "speculations": 18,
+                 "spec_commits": 16, "spec_rollbacks": 2, "spec_sync_verifies": 0,
+                 "tokens_saved": 371}
+DCACHE_TOPK_CALLS = 22
+# the span chain every traced route_batch must show (tools/check_trace.py's)
+SERVING_CHAIN = ("router.route_batch", "dcache.lookup_batch", "dcache.tier",
+                 "cache.lookup_batch", "match.stage")
+
+
+def dcache_waves(tasks):
+    """router_waves with each request a (task, arrival) pair: the r-th
+    arrival of a wave asks under its intent's r-th keyword (the canonical
+    one, then the paraphrases, the last repeated), so the second arrival is
+    a near hit."""
+    waves = []
+    for i in range(0, len(tasks), ROUTER_WAVE):
+        waves += [[(t, r) for t in tasks[i:i + ROUTER_WAVE]] for r in range(ROUTER_REPEATS)]
+    return waves
+
+
+def dcache_keyword(request):
+    task, r = request
+    kws = (task.intent.keyword, *task.intent.paraphrase_keywords)
+    return kws[min(r, len(kws) - 1)]
+
+
+def dcache_verdict(tasks):
+    """The speculation verifier's verdict, a pure function of (request
+    keyword, matched key): agree iff the near hit matched its intent's
+    canonical keyword (a template admitted under a paraphrase is itself a
+    speculative copy)."""
+    canonical = {k: t.intent.keyword for t in tasks
+                 for k in (t.intent.keyword, *t.intent.paraphrase_keywords)}
+    return lambda kw, matched_key: matched_key == canonical.get(kw)
+
+
+def drive_dcache(router, cache, waves, probe=lambda: None):
+    """Route ``waves``, with cache-1 marked down after wave
+    DCACHE_DOWN_AFTER and restarted after DCACHE_RESTART_AFTER. Returns the
+    entries the restart repaired, and ``probe()`` read just before and just
+    after the restart."""
+    out = None
+    for w, wave in enumerate(waves, 1):
+        router.route_batch(wave)
+        if w == DCACHE_DOWN_AFTER:
+            cache.mark_down("cache-1")
+        if w == DCACHE_RESTART_AFTER:
+            before = probe()
+            repaired = cache.restart_node("cache-1", recover=True)
+            out = (repaired, before, probe())
+    return out
+
+
+def check_span_forest(spans, span_names, event_names):
+    """The traced router's span forest: every name catalogued, every parent
+    present, at least one SERVING_CHAIN, ``engine.generate`` spans under
+    route spans, and a ``cache.attribution`` hit carrying ``tokens_saved``.
+    Returns the span counts by name, the number of serving chains and the
+    number of ``engine.generate`` spans under route spans."""
+    by_id = {s["span_id"]: s for s in spans}
+
+    def ancestors(s):
+        pid = s["parent_id"]
+        while pid is not None:
+            yield by_id[pid]
+            pid = by_id[pid]["parent_id"]
+
+    for s in spans:
+        if s["name"] not in span_names:
+            raise AssertionError(f"span {s['name']!r} is not in the catalog")
+        if s["parent_id"] is not None and s["parent_id"] not in by_id:
+            raise AssertionError(f"span {s['span_id']} has no parent {s['parent_id']}")
+        for ev in s["events"]:
+            if ev["name"] not in event_names:
+                raise AssertionError(f"event {ev['name']!r} is not in the catalog")
+    chains = 0
+    for s in spans:
+        if s["name"] == SERVING_CHAIN[-1]:
+            names = [a["name"] for a in ancestors(s)][::-1]
+            it = iter(names)
+            chains += all(n in it for n in SERVING_CHAIN[:-1])
+    if not chains:
+        raise AssertionError("no span chain " + " -> ".join(SERVING_CHAIN))
+    routed = [s for s in spans if s["name"] == "engine.generate"
+              and any(a["name"] == "router.route_batch" for a in ancestors(s))]
+    if not routed:
+        raise AssertionError("no engine.generate span under a router.route_batch span")
+    if not any(ev["name"] == "cache.attribution" and ev["attrs"].get("hit")
+               and isinstance(ev["attrs"].get("tokens_saved"), (int, float))
+               for s in spans for ev in s["events"]):
+        raise AssertionError("no cache.attribution hit carrying tokens_saved")
+    counts = {}
+    for s in spans:
+        counts[s["name"]] = counts.get(s["name"], 0) + 1
+    return dict(sorted(counts.items())), chains, len(routed)
 
 
 def log(*a):
@@ -1101,12 +1235,13 @@ def build_deployment(torch):
     return engines, init_s
 
 
-def serve(torch, engines, name, env, n, make_agent, expect, path_kernels):
+def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census=None):
     """One serving run: ``n`` tasks of ``env`` (seed 0) through a fresh agent
     from ``make_agent(backend, ledger)`` on the shared engines. The kernels'
     launch counters are set to 0 just before the run and read just after;
-    hits, accuracy and cost must equal the reference's (``expect``), and
-    every kernel of ``path_kernels`` must have been launched."""
+    hits, accuracy and cost must equal the reference's (``expect``), every
+    kernel of ``path_kernels`` must have been launched, and with ``census``
+    the speculation outcomes (commits, patches, rollbacks) must equal it."""
     from repro_torch.configs.apc_minion import DEFAULT
     from repro_torch.core.cost_model import CostLedger
     from repro_torch.envs.workloads import get_env
@@ -1141,6 +1276,10 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels):
     for kernel in path_kernels:
         if launches[kernel] <= 0:
             raise AssertionError(f"serve {name}: kernel {kernel} was not launched")
+    outcomes = {k: sum(r.speculated and r.spec_outcome == k for r in recs)
+                for k in ("commit", "patch", "rollback")}
+    if census is not None and outcomes != census:
+        raise AssertionError(f"serve {name}: speculation outcomes {outcomes}, reference {census}")
     store = getattr(getattr(agent, "_method", None), "store", agent.cache)
     lookups = store.stats.hits + store.stats.misses
     deltas = {}
@@ -1160,6 +1299,7 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels):
         "wall_s": wall, "wall_per_task_s": wall / len(recs), "engine_s": engine_s,
         "launches": launches, "launches_by_hd": launches_by_hd,
         "launches_per_task": {n: v / len(recs) for n, v in launches.items()},
+        "spec_outcomes": outcomes,
         "lookups": lookups, "lookup_s_per_lookup": store.stats.lookup_time_s / max(1, lookups),
         "calls": {role: u.calls for role, u in sorted(ledger.usage.items())},
         "engines": deltas,
@@ -1438,6 +1578,121 @@ def serve_prefix(torch, engines):
     return out
 
 
+def serve_dcache(torch, engines):
+    """Phase 7(b): the port's TwoTierRouter over a DistributedPlanCache on the
+    card (DCACHE_NODES nodes, replication 2, fuzzy at 0.6 on the `device`
+    index: a bank on the card per shard, one top-k launch per probed shard),
+    routing the 16 FinanceBench tasks in ``dcache_waves`` under a Tracer with
+    an in-memory and a JSONL exporter. Misses run nemotron-4-15b, hits
+    olmo-1b, and each near hit's verification runs nemotron and then
+    ``dcache_verdict``; cache generation is synchronous (the engines are not
+    thread-safe). cache-1 is marked down after the sixth wave and restarted
+    with read-repair after the eighth: the restart must not grow the memory
+    allocated on the card. The counters must equal the reference router's
+    (DCACHE_EXPECT), the top-k launches the index calls of the CPU run
+    (DCACHE_TOPK_CALLS) and this run's ``index.topk`` spans, and the span
+    forest must pass ``check_span_forest``."""
+    import numpy as np
+
+    from repro_torch.core.distributed_cache import DistributedPlanCache
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.envs.workloads import get_env
+    from repro_torch.obs import (InMemoryExporter, JsonlExporter, Tracer, use_tracer,
+                                 write_chrome_trace)
+    from repro_torch.obs.names import EVENT_NAMES, SPAN_NAMES
+    from repro_torch.serving.router import TwoTierRouter
+
+    kernels = _kernel_launchers()
+    tok = HashTokenizer()
+    nemo, olmo = engines["large_planner"], engines["small_planner"]
+    tasks = get_env("financebench").generate(N_TASKS, seed=0)
+    verdict = dcache_verdict(tasks)
+
+    def run(eng, request):
+        eng.generate(np.asarray([tok.encode(request[0].query)], np.int32), max_new=ROUTER_NEW)
+
+    def plan_large(request):
+        run(nemo, request)
+        return {"plan": "fresh"}
+
+    def plan_small(request, tpl):
+        run(olmo, request)
+        return {"plan": "adapted", "from": tpl["id"]}
+
+    def spec_verify(request, matched_key):
+        run(nemo, request)
+        return verdict(dcache_keyword(request), matched_key)
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    cache = DistributedPlanCache(n_nodes=DCACHE_NODES, replication=2, fuzzy=True,
+                                 fuzzy_threshold=0.6, index_backend="device", device="cuda",
+                                 capacity_per_node=ROUTER_CAPACITY)
+    router = TwoTierRouter(cache, extract_keyword=dcache_keyword, plan_large=plan_large,
+                           plan_small_with_template=plan_small,
+                           make_template=lambda req, res: {"id": req[0].intent.keyword,
+                                                           "plan": "fresh"},
+                           async_cachegen=False, spec_verify=spec_verify)
+    out_dir = os.path.join(ROOT, "trace-out", "dcache")
+    os.makedirs(out_dir, exist_ok=True)
+    mem = InMemoryExporter()
+    tracer = Tracer(exporters=[mem, JsonlExporter(os.path.join(out_dir, "trace.jsonl"))])
+    waves = dcache_waves(tasks)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with use_tracer(tracer):
+        repaired, mem_before, mem_after = drive_dcache(router, cache, waves, probe=allocated)
+    router.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    tracer.close()
+    write_chrome_trace(os.path.join(out_dir, "trace_chrome.json"), mem.spans)
+
+    m = router.metrics
+    got = {k: getattr(m, k) for k in DCACHE_EXPECT}
+    if got != DCACHE_EXPECT:
+        raise AssertionError(f"dcache router: counters {got}, reference {DCACHE_EXPECT}")
+    for n in ATTN_TOPK:
+        if launches[n] <= 0:
+            raise AssertionError(f"dcache: kernel {n} was not launched")
+    topk_spans = sum(s["name"] == "index.topk" for s in mem.spans)
+    if not launches["topk_cosine"] == topk_spans == DCACHE_TOPK_CALLS:
+        raise AssertionError(f"dcache: {launches['topk_cosine']} top-k launches, {topk_spans} "
+                             f"index.topk spans, {DCACHE_TOPK_CALLS} index calls on the CPU")
+    if not repaired > 0:
+        raise AssertionError("dcache: the restart repaired no entry")
+    if mem_after > mem_before:
+        raise AssertionError(f"dcache: memory allocated on the card grew across the restart "
+                             f"({mem_before} -> {mem_after} bytes): the old bank was not freed")
+    counts, chains, routed = check_span_forest(mem.spans, SPAN_NAMES, EVENT_NAMES)
+    by_arch = {}
+    for s in mem.spans:
+        if s["name"] == "engine.generate":
+            by_arch.setdefault(s["attrs"]["arch"], []).append(s["end"] - s["start"])
+    generate_s = {a: {"n": len(d), "p50": float(np.percentile(d, 50)),
+                      "p99": float(np.percentile(d, 99))} for a, d in sorted(by_arch.items())}
+    snap = cache.obs.snapshot()
+    out = {
+        "run": "dcache", "waves": len(waves), "wall_s": wall, "repaired": repaired,
+        "memory_allocated_around_restart": [mem_before, mem_after],
+        "counters": {k: v for k, v in m.snapshot().items() if k != "lookup_latency"},
+        "lookup_latency_s": m.lookup_latency.snapshot(), "launches": launches,
+        "launches_per_request": {n: v / m.requests for n, v in launches.items()},
+        "span_counts": counts, "serving_chains": chains, "routed_generates": routed,
+        "engine_generate_s": generate_s,
+        "cache_series": {k: v for k, v in snap.items() if k.startswith("cache.")},
+        "load_by_node": cache.load_by_node(),
+    }
+    log(f"[dcache] {m.requests} requests in {len(waves)} waves, wall {wall:.1f}s: counters "
+        f"{got}; launches {launches}; repaired {repaired}; allocated around the restart "
+        f"{mem_before} -> {mem_after} bytes; generate {generate_s}")
+    return out
+
+
 def build_recurrent(torch, engines):
     """Phase 5d: the recurrent run's engines: rwkv6-3b and zamba2-2.7b at
     full width (``build_engines`` on a deployment of those two archs), the
@@ -1625,6 +1880,12 @@ def main() -> int:
     for row in BASELINE_RUNS:
         runs[row[0]] = serve(torch, engines, *row)
     baselines = compare_baselines(runs)
+
+    # phase 7: the rest of the plan store on the DEFAULT engines: the
+    # speculative method, then the traced router over the distributed cache
+    for row in SPEC_RUNS:
+        runs[row[0]] = serve(torch, engines, *row)
+    obs = serve_dcache(torch, engines)
     srv = {"init_s": init_s,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "runs": runs}
@@ -1670,6 +1931,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))
     print(json.dumps({"baselines": baselines}))
+    print(json.dumps({"obs": obs}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,8 +41,8 @@ class RunRecord:
     latency_s: float
     cache_lookup_s: float = 0.0
     cache_gen_s: float = 0.0
-    speculated: bool = False  # the port has no speculative method
-    spec_outcome: str = ""
+    speculated: bool = False
+    spec_outcome: str = ""  # "" | commit | patch | rollback
 
 
 @dataclass
@@ -131,7 +131,9 @@ class PlanActAgent:
         self, task: Task, journal: StepJournal, round_idx: int,
         resp: Dict[str, Any],
     ) -> None:
-        """Journal one actor round's env writes (reversible workspace puts)."""
+        """Journal one actor round's env writes (reversible workspace puts).
+        With a caller's journal the step stays open until the verifier
+        commits, patches or rolls back; the plain loops commit each step."""
         step = journal.begin_step(f"round-{round_idx}")
         ws = task.workspace
         for name in sorted(resp.get("values", {})):
@@ -139,16 +141,22 @@ class PlanActAgent:
 
     def _loop_scratch(
         self, task: Task, *, large: bool,
+        journal: Optional[StepJournal] = None,
+        responses: Optional[List[Dict[str, Any]]] = None,
+        start_round: int = 0,
     ) -> Tuple[Optional[float], int, ExecutionLog, float]:
-        """Plan from scratch."""
+        """Plan from scratch. ``responses``/``start_round`` let the
+        speculative patch path re-enter mid-task: the verified planner goes
+        on from the committed prefix's retrievals instead of round 0."""
         role = "large_planner" if large else "small_planner"
         log = ExecutionLog(task_query=task.query)
-        responses: List[Dict[str, Any]] = []
-        journal = StepJournal()
+        responses = list(responses or [])
+        own_journal = journal is None
+        journal = journal if journal is not None else StepJournal()
         lat = 0.0
         answer = None
         iters = 0
-        for it in range(self.cfg.max_iterations):
+        for it in range(start_round, self.cfg.max_iterations):
             iters += 1
             msg, pi, po = self.be.plan(task, responses, large=large, round_idx=it)
             lat += self.ledger.record(role, pi, po)
@@ -161,15 +169,18 @@ class PlanActAgent:
             responses.append(resp)
             log.append({"message": msg.text, "op": msg.op}, resp)
             self._record_act_effects(task, journal, it, resp)
-            journal.commit()  # non-speculative: finalize per step
+            if own_journal:
+                journal.commit()  # non-speculative: finalize per step
         return answer, iters or self.cfg.max_iterations, log, lat
 
     def _loop_adapt(
         self, task: Task, template: PlanTemplate, *, full_history: bool,
+        journal: Optional[StepJournal] = None,
     ) -> Tuple[Optional[float], int, float]:
         responses: List[Dict[str, Any]] = []
         lat = 0.0
-        journal = StepJournal()
+        own_journal = journal is None
+        journal = journal if journal is not None else StepJournal()
         for it in range(self.cfg.max_iterations):
             msg, pi, po = self.be.adapt(
                 task, template, responses, round_idx=it, full_history=full_history
@@ -181,5 +192,6 @@ class PlanActAgent:
             lat += self.ledger.record("actor", ai, ao)
             responses.append(resp)
             self._record_act_effects(task, journal, it, resp)
-            journal.commit()
+            if own_journal:
+                journal.commit()
         return None, self.cfg.max_iterations, lat

@@ -1,6 +1,6 @@
 """The plan cache: a batch-native plan store with composable eviction
 policies and a pluggable match pipeline (the twin of
-``repro.core.cache.PlanCache``, without the cold tier and metrics registry).
+``repro.core.cache.PlanCache``, without the cold tier).
 
 ``lookup_batch``/``insert_batch`` are the primitives (one lock acquisition,
 one batched fuzzy/semantic resolution, one device write per admission wave
@@ -18,6 +18,14 @@ insert, eviction and TTL expiry.
 Eviction is an :class:`~repro_torch.memory.policies.EvictionPolicy`
 (``eviction="lru" | "lfu" | "cost"`` or an instance); ``ttl_s`` wraps the
 chosen policy in TTL expiry, applied on the lookup path.
+
+Accounting lands in a :class:`repro_torch.obs.MetricsRegistry` (``obs``,
+labelled ``obs_labels``: the shards of a ``DistributedPlanCache`` share the
+facade's registry with a ``shard=<name>`` label). Under a tracer a lookup
+opens ``cache.lookup_batch`` with one ``match.stage`` span a stage, an
+insert ``cache.insert_batch``, and every resolved query deposits its stage
+and matched key into the open attribution collector
+(:mod:`repro_torch.obs.attribution`).
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple
 from repro_torch.memory.pipeline import build_pipeline
 from repro_torch.memory.policies import CacheEntry, EvictionPolicy, make_policy
 from repro_torch.memory.protocol import CacheStats, PlanStoreBase, V
+from repro_torch.obs import MetricsRegistry, deposit, trace_span
+from repro_torch.obs.names import SPAN_CACHE_INSERT, SPAN_CACHE_LOOKUP, SPAN_MATCH_STAGE
 
 
 class PlanCache(PlanStoreBase, Generic[V]):
@@ -52,12 +62,16 @@ class PlanCache(PlanStoreBase, Generic[V]):
         pipeline: Optional[Sequence[str]] = None,
         clock: Optional[Callable[[], float]] = None,
         device=None,
+        obs: Optional[MetricsRegistry] = None,
+        obs_labels: Optional[Dict[str, str]] = None,
     ):
         self.capacity = capacity
         # injectable time source: TTL expiry, entry timestamps and `now()`
         # read this, never the wall clock directly
         self._clock = clock if clock is not None else time.time
         self.policy = make_policy(eviction, ttl_s=ttl_s)
+        self.obs = obs if obs is not None else MetricsRegistry()
+        self.obs_labels = dict(obs_labels or {})
         if pipeline is None:
             pipeline = ("exact", "fuzzy") if fuzzy else ("exact",)
         self.pipeline = build_pipeline(
@@ -66,6 +80,8 @@ class PlanCache(PlanStoreBase, Generic[V]):
             semantic_threshold=semantic_threshold,
             index_backend=index_backend,
             device=device,
+            obs=self.obs,
+            obs_labels=self.obs_labels,
         )
         self._store: Dict[str, CacheEntry] = {}
         # delete hooks, called with the keyword for every removal (eviction,
@@ -73,7 +89,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
         # must not call back into this cache
         self._evict_listeners: List[Callable[[str], None]] = []
         self._lock = threading.RLock()
-        self.stats = CacheStats()
+        self.stats = CacheStats(self.obs, **self.obs_labels)
 
     def now(self) -> float:
         """The store's clock: capture this before a read whose derived wave
@@ -96,35 +112,46 @@ class PlanCache(PlanStoreBase, Generic[V]):
         if contexts is None:
             contexts = [None] * len(keywords)
         try:
-            with self._lock:
+            with trace_span(SPAN_CACHE_LOOKUP, n=len(keywords),
+                            **self.obs_labels) as lsp, self._lock:
                 now = self._clock()
                 out: List[Optional[V]] = [None] * len(keywords)
                 pending = list(range(len(keywords)))
+                hits = 0
                 for stage in self.pipeline.stages:
                     if not pending:
                         break
-                    alts = stage.resolve(
-                        [keywords[i] for i in pending],
-                        [contexts[i] for i in pending],
-                        self._store.__contains__,
-                    )
-                    still: List[int] = []
-                    for i, alt in zip(pending, alts):
-                        v = None if alt is None else self._get_live(alt, now)
-                        if v is None:
-                            still.append(i)
-                        else:
-                            out[i] = v
-                    pending = still
+                    with trace_span(SPAN_MATCH_STAGE, stage=stage.name,
+                                    pending=len(pending)) as ssp:
+                        alts = stage.resolve(
+                            [keywords[i] for i in pending],
+                            [contexts[i] for i in pending],
+                            self._store.__contains__,
+                        )
+                        still: List[int] = []
+                        for i, alt in zip(pending, alts):
+                            v = None if alt is None else self._get_live(alt, now)
+                            if v is None:
+                                still.append(i)
+                            else:
+                                out[i] = v
+                                # attribution: the stage that resolved batch
+                                # index i, and the stored key it matched
+                                deposit(i, stage=stage.name, matched_key=alt)
+                        ssp.set(resolved=len(pending) - len(still))
+                        pending = still
                 for v in out:
                     if v is None:
                         self.stats.misses += 1
                     else:
                         self.stats.hits += 1
+                        hits += 1
+                lsp.set(hits=hits)
                 return out
         finally:
-            with self._lock:
-                self.stats.lookup_time_s += time.perf_counter() - t0
+            # lock-safe increment outside the lock: concurrent waves may
+            # share one registry
+            self.stats.add("lookup_time_s", time.perf_counter() - t0)
 
     def _get_live(self, keyword: str, now: float) -> Optional[V]:
         """Serve one exact key: TTL-expire, count the hit, touch the policy."""
@@ -168,14 +195,14 @@ class PlanCache(PlanStoreBase, Generic[V]):
         items = list(items)
         if contexts is None:
             contexts = [None] * len(items)
-        with self._lock:
+        with trace_span(SPAN_CACHE_INSERT, n=len(items), **self.obs_labels), self._lock:
             now = self._clock()
             kept: List[int] = []
             for idx, (kw, v) in enumerate(items):
                 if unless_written_since is not None:
                     existing = self._store.get(kw)
                     if existing is not None and existing.inserted_at >= unless_written_since:
-                        self.stats.stale_insert_skips += 1
+                        self.stats.add("stale_insert_skips")
                         continue
                 kept.append(idx)
                 if kw in self._store:
@@ -196,6 +223,25 @@ class PlanCache(PlanStoreBase, Generic[V]):
                 self._delete(self.policy.victim(self._store))
                 self.stats.evictions += 1
 
+    def peek(self, keyword: str) -> Optional[V]:
+        """The value of an exact key without hit accounting or policy
+        touches (an expired entry reads None): read-repair must not perturb
+        recency or frequency."""
+        with self._lock:
+            entry = self._store.get(keyword)
+            if entry is None or self.policy.expired(keyword, entry, self._clock()):
+                return None
+            return entry.value
+
+    def snapshot_items(self) -> List[Tuple[str, V]]:
+        """Every live (keyword, value) pair under one lock acquisition, with
+        ``peek`` semantics: the scan behind re-homing and read-repair in the
+        distributed cache."""
+        with self._lock:
+            now = self._clock()
+            return [(k, e.value) for k, e in self._store.items()
+                    if not self.policy.expired(k, e, now)]
+
     def remove(self, keyword: str) -> bool:
         """Delete one entry, keeping stage indexes in sync; True if present."""
         with self._lock:
@@ -203,6 +249,20 @@ class PlanCache(PlanStoreBase, Generic[V]):
                 return False
             self._delete(keyword)
             return True
+
+    def autotune(self, **thresholds) -> List[str]:
+        """One auto-tuning step for every stage index that supports it (LSH
+        ``n_bits``/``probe_hamming`` from live telemetry); returns the
+        actions taken, e.g. ``["fuzzy:n_bits->14"]``."""
+        with self._lock:
+            actions: List[str] = []
+            for stage in self.pipeline.stages:
+                tune = getattr(stage, "autotune", None)
+                if tune is not None:
+                    act = tune(**thresholds)
+                    if act:
+                        actions.append(f"{stage.name}:{act}")
+            return actions
 
     def __contains__(self, keyword: str) -> bool:
         with self._lock:
@@ -223,9 +283,20 @@ class PlanCache(PlanStoreBase, Generic[V]):
             for kw in dropped:
                 for fn in self._evict_listeners:
                     fn(kw)
+            # reset, not rebuild: the stats are a view over a registry that
+            # may be shared
             self.stats.reset()
             self.policy.reset()
             self.pipeline.clear()
+
+    # -- serialization (checkpoint/restore of the test-time memory) --------
+
+    def to_state(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "capacity": self.capacity,
+                "entries": [(k, e.value) for k, e in self._store.items()],
+            }
 
 
 __all__ = ["CacheStats", "PlanCache"]

@@ -1,5 +1,5 @@
 """Agent run-strategies: every evaluation method as a registered class (the
-twin of ``repro.core.methods``, without ``speculative``).
+twin of ``repro.core.methods``).
 
 Method map (paper §4.1, plus the beyond-paper ``cascade`` hybrid):
 
@@ -16,6 +16,10 @@ Method map (paper §4.1, plus the beyond-paper ``cascade`` hybrid):
                     store: keyword matching first, then query-text
                     similarity against each template's source task; a hit
                     reuses the template (adapted by the small planner)
+  speculative       fuzzy near hits execute the adapted template at once
+                    while the large planner verifies it round by round;
+                    the journal commits, patches the divergent suffix, or
+                    rolls back to Algorithm 3 (§4.3 latency hiding)
 
 Importing this module populates the :mod:`repro_torch.memory.registry`.
 Every strategy accounts its result through the one :func:`record` helper.
@@ -27,6 +31,7 @@ import time
 from typing import Optional
 
 from repro_torch.core.cache import PlanCache
+from repro_torch.core.journal import StepJournal
 from repro_torch.core.template import ExecutionLog, PlanTemplate, make_template, rule_filter
 from repro_torch.envs.base import Task, judge
 from repro_torch.memory.registry import (
@@ -37,6 +42,7 @@ from repro_torch.memory.registry import (
     method_names,
     register_method,
 )
+from repro_torch.obs import collect
 
 
 def record(
@@ -204,6 +210,11 @@ class ApcMethod(AgentMethod):
             )
 
         # ---- Algorithm 3: cache miss
+        return self._run_miss(task, kw, lat, lookup_s)
+
+    def _run_miss(self, task: Task, kw: str, lat: float, lookup_s: float, **extra):
+        """Algorithm 3 (shared with the speculative rollback path)."""
+        agent = self.agent
         answer, iters, log, l3 = agent._loop_scratch(task, large=True)
         lat += l3
         gen_s = 0.0
@@ -219,7 +230,7 @@ class ApcMethod(AgentMethod):
             agent, task, self.name,
             correct=judge(answer, task.gt_answer), hit=False, keyword=kw,
             iterations=iters, answer=answer, latency_s=lat,
-            lookup_s=lookup_s, gen_s=gen_s,
+            lookup_s=lookup_s, gen_s=gen_s, **extra,
         )
 
 
@@ -256,6 +267,147 @@ class CascadeMethod(ApcMethod):
         self.agent.cache.insert(kw, tpl, context=task.query)
 
 
+@register_method("speculative")
+class SpeculativeMethod(ApcMethod):
+    """Speculative plan execution on fuzzy near hits (§4.3 latency hiding).
+
+    An exact hit runs Algorithm 2 unchanged. A *near* hit (resolved by the
+    fuzzy stage) starts executing the adapted template immediately — every
+    actor round journaled as a reversible step — while the large planner
+    re-derives the plan round-by-round in the background. When the plans
+    agree the journal **commits** (env writes finalized, the adapted
+    template promoted under the exact keyword with the
+    ``unless_written_since`` token captured at lookup); when they diverge
+    at round ``d > 0`` the journal **patches** (the matching executed
+    prefix commits, the divergent suffix rolls back and is re-executed by
+    the verified planner); divergence at round 0 **rolls back** every
+    step and falls back to Algorithm 3. Serving latency on agreement is
+    ``max(execute, verify)`` instead of ``verify + execute``.
+    """
+
+    def setup(self) -> None:
+        agent = self.agent
+        if not agent.cache_external:
+            cfg = agent.cfg
+            agent.cache = PlanCache(
+                capacity=cfg.cache_capacity,
+                fuzzy=True,
+                fuzzy_threshold=cfg.fuzzy_threshold,
+                index_backend=cfg.index_backend,
+                eviction=cfg.eviction,
+                device=cfg.index_device,
+            )
+
+    def run(self, task: Task):
+        agent = self.agent
+        lat = 0.0
+        kw, ki, ko = agent.be.extract_keyword(task)
+        lat += agent.ledger.record("keyword_extractor", ki, ko)
+
+        t0 = time.perf_counter()
+        with collect() as attrib:
+            template = self._lookup(kw, task)
+        lookup_s = time.perf_counter() - t0
+        lat += lookup_s
+        if template is None:
+            return self._run_miss(task, kw, lat, lookup_s)
+
+        template.uses += 1
+        stage = (attrib.get(0) or {}).get("stage", "exact")
+        if stage == "exact":  # nothing to verify: plain Algorithm 2
+            answer, iters, l2 = agent._loop_adapt(task, template,
+                                                  full_history=False)
+            lat += l2
+            return record(
+                agent, task, self.name,
+                correct=judge(answer, task.gt_answer), hit=True, keyword=kw,
+                iterations=iters, answer=answer, latency_s=lat,
+                lookup_s=lookup_s,
+            )
+        return self._run_speculative(task, kw, template, lat, lookup_s)
+
+    # -- the race ------------------------------------------------------
+
+    def _round_responses(self, task: Task, n_rounds: int):
+        """Reconstruct per-round actor responses from the journaled
+        workspace writes (the speculative execution's real effects)."""
+        ws = task.workspace
+        out = []
+        for r in range(n_rounds):
+            prefix = f"r{r}/"
+            vals = {k[len(prefix):]: ws.read(k)
+                    for k in ws.keys() if k.startswith(prefix)}
+            out.append({"values": vals})
+        return out
+
+    def _run_speculative(self, task: Task, kw: str, template, lat: float,
+                         lookup_s: float):
+        agent = self.agent
+        journal = StepJournal()
+        token = agent.cache.now()
+
+        # 1) execute the adapted plan now; steps stay open in the journal
+        answer, iters, exec_lat = agent._loop_adapt(
+            task, template, full_history=False, journal=journal)
+        executed = journal.open_steps()  # actor rounds speculatively run
+        responses = self._round_responses(task, executed)
+
+        # promotion of the near-hit under the exact keyword is deferred:
+        # it lands only if the verifier agrees end-to-end, and the token
+        # captured at lookup keeps a late commit from clobbering a newer
+        # template (insert-if-newer, §4.3 admission race)
+        admit = journal.begin_step("spec-admit")
+        admit.on_commit(lambda: agent.cache.insert_batch(
+            [(kw, template)], unless_written_since=token))
+
+        # 2) verify in the background: the large planner re-derives the
+        #    plan round-by-round against the speculative retrievals
+        verify_lat = 0.0
+        divergence = executed  # rounds 0..divergence-1 match
+        for r in range(executed):
+            msg, pi, po = agent.be.plan(task, responses[:r], large=True,
+                                        round_idx=r)
+            verify_lat += agent.ledger.record("large_planner", pi, po)
+            planned = sorted(f for f in msg.op.get("retrieve", [])
+                             if f in task.context)
+            ran = sorted(responses[r]["values"])
+            if msg.kind != "message" or planned != ran:
+                divergence = r
+                break
+
+        if divergence >= executed:  # ---- plans agree: COMMIT
+            journal.commit()
+            lat += max(exec_lat, verify_lat)
+            return record(
+                agent, task, self.name,
+                correct=judge(answer, task.gt_answer), hit=True, keyword=kw,
+                iterations=iters, answer=answer, latency_s=lat,
+                lookup_s=lookup_s, speculated=True, spec_outcome="commit",
+            )
+
+        if divergence > 0:  # ---- PATCH: keep the matching prefix
+            journal.patch(keep=divergence)
+            prefix_lat = exec_lat * divergence / max(1, iters)
+            answer, suffix_iters, _log, suffix_lat = agent._loop_scratch(
+                task, large=True, journal=journal,
+                responses=responses[:divergence], start_round=divergence)
+            journal.commit()  # the re-executed suffix is verified work
+            lat += max(prefix_lat, verify_lat) + suffix_lat
+            return record(
+                agent, task, self.name,
+                correct=judge(answer, task.gt_answer), hit=True, keyword=kw,
+                iterations=divergence + suffix_iters, answer=answer,
+                latency_s=lat, lookup_s=lookup_s,
+                speculated=True, spec_outcome="patch",
+            )
+
+        # ---- ROLLBACK: divergence at round 0, nothing reusable
+        journal.rollback()
+        lat += verify_lat  # the loss: verification time was spent
+        return self._run_miss(task, kw, lat, lookup_s,
+                              speculated=True, spec_outcome="rollback")
+
+
 __all__ = [
     "METHOD_REGISTRY",
     "AccuracyOptimalMethod",
@@ -265,6 +417,7 @@ __all__ = [
     "CostOptimalMethod",
     "FullHistoryMethod",
     "SemanticMethod",
+    "SpeculativeMethod",
     "get_method_class",
     "make_method",
     "method_names",

@@ -26,8 +26,9 @@ class Workspace:
 
     Every write returns the compensation closure that restores the prior
     state (previous value, or absence), which callers hand to a
-    :class:`repro_torch.core.journal.StepJournal` step. Single-owner (one
-    workspace per task, driven from one thread), so it takes no lock.
+    :class:`repro_torch.core.journal.StepJournal` step: what makes
+    speculative plan execution reversible. Single-owner (one workspace per
+    task, driven from one thread), so it takes no lock.
     """
 
     _ABSENT = object()
@@ -49,6 +50,12 @@ class Workspace:
         prior = self._data.get(key, Workspace._ABSENT)
         self._data[key] = value
         return self._restore(key, prior)
+
+    def read(self, key: str, default: Any = None) -> Any:
+        return self._data.get(key, default)
+
+    def keys(self) -> List[str]:
+        return sorted(self._data)
 
 
 @dataclass(frozen=True)

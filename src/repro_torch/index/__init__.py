@@ -29,7 +29,7 @@ every index call in its own lock).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +37,8 @@ import torch
 from repro_torch.index.bank import DIM, EmbeddingBank, embed, embed_batch
 from repro_torch.index.bucketed import NEG_INF, BucketedIndex, _brute_topk
 from repro_torch.index.device import DeviceBank
+from repro_torch.obs import MetricsRegistry, trace_span
+from repro_torch.obs.names import SPAN_INDEX_TOPK
 
 BACKENDS = ("auto", "brute", "pallas", "bucketed", "device")
 
@@ -47,7 +49,10 @@ class SimilarityIndex:
     ``device`` is where the ``pallas`` and ``device`` backends search:
     CUDA unless the caller asks for another (the tests pass ``"cpu"``,
     which runs the plain version). ``brute``, ``bucketed`` and ``auto``
-    always search on the host and ignore ``device``.
+    always search on the host and ignore ``device``. ``obs`` is the
+    registry where the backend's telemetry (LSH counters, the device bank's
+    upload counters) registers, labelled ``obs_labels``; a private one
+    otherwise.
     """
 
     def __init__(
@@ -57,11 +62,14 @@ class SimilarityIndex:
         initial_capacity: int = 64,
         auto_bucketed_min: int = 4096,
         device=None,
+        obs: Optional[MetricsRegistry] = None,
+        obs_labels: Optional[Dict[str, str]] = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.backend = backend
         self.bank = EmbeddingBank(initial_capacity)
+        self.obs_labels = dict(obs_labels or {})
         self.device: Optional[torch.device] = None
         self._bucketed: Optional[BucketedIndex] = None
         self._device: Optional[DeviceBank] = None
@@ -69,13 +77,16 @@ class SimilarityIndex:
             self._bucketed = BucketedIndex(
                 self.bank,
                 scan_threshold=auto_bucketed_min if backend == "auto" else 2048,
+                obs=obs,
+                obs_labels=self.obs_labels,
             )
         if backend in ("pallas", "device"):
             from repro_torch.models.common import resolve_device
 
             self.device = resolve_device(device)
         if backend == "device":
-            self._device = DeviceBank(self.bank.arena().shape[0], device=self.device)
+            self._device = DeviceBank(self.bank.arena().shape[0], device=self.device,
+                                      obs=obs, obs_labels=self.obs_labels)
 
     # -- mutation ---------------------------------------------------------
 
@@ -149,6 +160,16 @@ class SimilarityIndex:
         with self.bank.lock:
             return self._bucketed.autotune(**thresholds)
 
+    def telemetry(self) -> dict:
+        """Live counters: the device bank's upload accounting and, on the
+        LSH backends, the recall/candidate statistics."""
+        out: dict = {"backend": self.backend, "size": len(self.bank)}
+        if self._device is not None:
+            out["device"] = self._device.telemetry()
+        if self._bucketed is not None:
+            out["bucketed"] = self._bucketed.telemetry.snapshot()
+        return out
+
     # -- search -----------------------------------------------------------
 
     def _as_queries(self, queries: Union[Sequence[str], np.ndarray]) -> np.ndarray:
@@ -168,28 +189,35 @@ class SimilarityIndex:
         tombstones present fewer than k live entries may come back.
         """
         q = self._as_queries(queries)
-        if self.backend in ("pallas", "device"):
-            from repro_torch.kernels import ops
+        # the span closes after the results are on the host, so it covers
+        # the device's time as well as the launch
+        with trace_span(SPAN_INDEX_TOPK, backend=self.backend,
+                        q=int(q.shape[0]), k=k, **self.obs_labels) as sp:
+            if self.backend in ("pallas", "device"):
+                from repro_torch.kernels import ops
 
-            # the full arena is searched, and Q padded to a power of two
-            # >= 8, as in the reference (whose jit'd kernel needs few shapes)
-            nq = q.shape[0]
-            qp = max(8, 1 << max(0, nq - 1).bit_length())
-            if qp != nq:
-                q = np.pad(q, ((0, qp - nq), (0, 0)))
-            with self.bank.lock:
-                qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-                if self._device is not None:
-                    # resident bank: only the query batch crosses to the card
-                    self._device.note_h2d(q.nbytes)
-                    s, i = ops.resident_topk(qt, self._device.arena, k=k)
-                else:
-                    s, i = ops.batch_topk(qt, self.bank.arena(), k=k)
-                scores, slots = s[:nq].cpu().numpy(), i[:nq].cpu().numpy()
-        elif self._bucketed is not None:  # bucketed | auto
-            scores, slots = self._bucketed.topk(q, k)
-        else:
-            scores, slots = _brute_topk(self.bank.matrix(), q, k)
+                # the full arena is searched, and Q padded to a power of two
+                # >= 8, as in the reference (whose jit'd kernel needs few shapes)
+                nq = q.shape[0]
+                qp = max(8, 1 << max(0, nq - 1).bit_length())
+                if qp != nq:
+                    q = np.pad(q, ((0, qp - nq), (0, 0)))
+                with self.bank.lock:
+                    qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+                    if self._device is not None:
+                        # resident bank: only the query batch crosses to the card
+                        self._device.note_h2d(q.nbytes)
+                        sp.set(h2d_bytes=int(q.nbytes))
+                        s, i = ops.resident_topk(qt, self._device.arena, k=k)
+                    else:
+                        s, i = ops.batch_topk(qt, self.bank.arena(), k=k)
+                    scores, slots = s[:nq].cpu().numpy(), i[:nq].cpu().numpy()
+            elif self._bucketed is not None:  # bucketed | auto
+                cand0 = self._bucketed.telemetry.candidates_total
+                scores, slots = self._bucketed.topk(q, k)
+                sp.set(lsh_candidates=self._bucketed.telemetry.candidates_total - cand0)
+            else:
+                scores, slots = _brute_topk(self.bank.matrix(), q, k)
         # mask tombstoned / beyond-high-water slots: slot >= 0 => live key
         for r in range(slots.shape[0]):
             for c in range(slots.shape[1]):

@@ -22,23 +22,29 @@ Thread-safety: no lock of its own. Mutation (``on_add`` / ``on_remove`` /
 
 from __future__ import annotations
 
-import bisect
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
 from repro_torch.index.bank import DIM, EmbeddingBank
+from repro_torch.obs import MetricsRegistry, pow2_buckets
+from repro_torch.obs import names as _names
 
 NEG_INF = np.float32(-1e30)
-# per-query candidate-count histogram bounds 1, 2, 4, ... 2^31 (the
-# reference's pow2_buckets(32)); an overflow bucket sits past the last
-_CANDIDATE_BOUNDS = tuple(float(1 << i) for i in range(32))
+
+
+def _tele_prop(field: str):
+    def get(self):
+        return int(self._counters[field].value)
+
+    return property(get)
 
 
 class LSHTelemetry:
-    """Live quality/cost counters for one BucketedIndex, with the
-    reference's field names and ``snapshot()``: plain counters written by
-    the index (a metrics registry behind them is not ported).
+    """Live quality/cost counters for one BucketedIndex: a view over
+    counters and a pow-2 histogram of per-query candidate counts in a
+    :class:`repro_torch.obs.MetricsRegistry`, with the reference's field
+    reads and ``snapshot()``.
 
     Rising ``avg_candidates`` means the tables are under-sized (grow
     ``n_bits``); a falling ``top1_agreement`` or rising
@@ -47,38 +53,61 @@ class LSHTelemetry:
     ``recall_sample_every``-th probed query with the exact scan.
     """
 
-    _FIELDS = ("queries", "brute_fallback_queries", "probed_queries",
-               "candidates_total", "empty_candidate_queries", "recall_checks",
-               "recall_agreements")
+    _FIELDS = {
+        "queries": _names.LSH_QUERIES,
+        "brute_fallback_queries": _names.LSH_BRUTE_FALLBACK_QUERIES,
+        "probed_queries": _names.LSH_PROBED_QUERIES,
+        "candidates_total": _names.LSH_CANDIDATES_TOTAL,
+        "empty_candidate_queries": _names.LSH_EMPTY_CANDIDATE_QUERIES,
+        "recall_checks": _names.LSH_RECALL_CHECKS,
+        "recall_agreements": _names.LSH_RECALL_AGREEMENTS,
+    }
 
-    def __init__(self) -> None:
-        self.reset()
+    def __init__(self, registry: Optional[MetricsRegistry] = None, **labels: str):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._counters = {
+            field: self.registry.counter(name, **labels)
+            for field, name in self._FIELDS.items()
+        }
+        # bucket ``le_2^b`` counts queries that scanned (2^(b-1), 2^b]
+        # candidates (the first also holds 0)
+        self._candidates = self.registry.histogram(
+            _names.LSH_CANDIDATES, bounds=pow2_buckets(32), **labels)
+
+    queries = _tele_prop("queries")
+    brute_fallback_queries = _tele_prop("brute_fallback_queries")
+    probed_queries = _tele_prop("probed_queries")
+    candidates_total = _tele_prop("candidates_total")
+    empty_candidate_queries = _tele_prop("empty_candidate_queries")
+    recall_checks = _tele_prop("recall_checks")
+    recall_agreements = _tele_prop("recall_agreements")
 
     def observe_brute(self) -> None:
-        self.queries += 1
-        self.brute_fallback_queries += 1
+        self._counters["queries"].inc()
+        self._counters["brute_fallback_queries"].inc()
 
     def observe_probe(self, n_candidates: int) -> None:
-        self.queries += 1
-        self.probed_queries += 1
-        self.candidates_total += n_candidates
+        self._counters["queries"].inc()
+        self._counters["probed_queries"].inc()
+        self._counters["candidates_total"].inc(n_candidates)
         if n_candidates == 0:
-            self.empty_candidate_queries += 1
-        # bucket b counts queries that scanned (2^(b-1), 2^b] candidates
-        self._candidate_hist[bisect.bisect_left(_CANDIDATE_BOUNDS, n_candidates)] += 1
+            self._counters["empty_candidate_queries"].inc()
+        self._candidates.observe(n_candidates)
 
     def observe_recall(self, agreed: bool) -> None:
-        self.recall_checks += 1
-        self.recall_agreements += int(agreed)
+        self._counters["recall_checks"].inc()
+        self._counters["recall_agreements"].inc(int(agreed))
 
     def reset(self) -> None:
-        """A fresh telemetry window (autotune calls this after acting)."""
-        for f in self._FIELDS:
-            setattr(self, f, 0)
-        self._candidate_hist = [0] * (len(_CANDIDATE_BOUNDS) + 1)
+        """A fresh telemetry window (autotune calls this after acting);
+        zeros only this view's series, never the whole registry."""
+        for c in self._counters.values():
+            c.reset()
+        self._candidates.reset()
 
     def snapshot(self) -> Dict[str, Any]:
         probed = max(1, self.probed_queries)
+        hist = self._candidates.snapshot()["buckets"]
         return {
             "queries": self.queries,
             "probed_queries": self.probed_queries,
@@ -86,9 +115,9 @@ class LSHTelemetry:
             "avg_candidates": round(self.candidates_total / probed, 2),
             "empty_candidate_rate": round(self.empty_candidate_queries / probed, 4),
             "candidate_hist": {
-                f"2^{b}": c
-                for b, c in enumerate(self._candidate_hist[: len(_CANDIDATE_BOUNDS)])
-                if c
+                f"2^{b}": hist[k]
+                for b, k in enumerate(f"le_{bound:g}" for bound in self._candidates.bounds)
+                if k in hist
             },
             "top1_agreement": (
                 round(self.recall_agreements / self.recall_checks, 4)
@@ -138,6 +167,8 @@ class BucketedIndex:
         probe_hamming: int = 1,
         scan_threshold: int = 2048,
         recall_sample_every: int = 64,
+        obs: Optional[MetricsRegistry] = None,
+        obs_labels: Optional[Dict[str, str]] = None,
     ):
         """``n_bits=None`` (default) adapts: start at 12 bits and rebuild
         with +2 bits whenever average bucket occupancy exceeds
@@ -154,7 +185,9 @@ class BucketedIndex:
         self.n_tables = n_tables
         self.probe_hamming = probe_hamming
         self.scan_threshold = scan_threshold
-        self.telemetry = LSHTelemetry()
+        # live counters; every recall_sample_every-th probed query is
+        # re-answered exactly to measure recall (0: off)
+        self.telemetry = LSHTelemetry(obs, **(obs_labels or {}))
         self._recall_every = recall_sample_every
         self._seed = seed
         self._set_geometry(n_bits)

@@ -28,33 +28,78 @@ rows a search returns resolve through ``EmbeddingBank.key_of`` unchanged.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.index.bank import DIM
+from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import names as _names
 
 
 class DeviceBank:
     """``(capacity, dim)`` float32 arena on ``device``; capacity only ever
-    doubles, mirroring ``EmbeddingBank._grow``."""
+    doubles, mirroring ``EmbeddingBank._grow``. Its upload and write
+    counters are registry-backed (``obs``, labelled ``obs_labels``), read
+    through the reference's attribute names."""
 
-    def __init__(self, capacity: int = 64, dim: int = DIM, *, device: torch.device):
+    _COUNTERS = {
+        "h2d_bytes_total": _names.DEVICE_H2D_BYTES,
+        "row_updates": _names.DEVICE_ROW_UPDATES,
+        "batched_updates": _names.DEVICE_BATCHED_UPDATES,
+        "clears": _names.DEVICE_CLEARS,
+        "grows": _names.DEVICE_GROWS,
+    }
+
+    def __init__(self, capacity: int = 64, dim: int = DIM, *, device: torch.device,
+                 obs: Optional[MetricsRegistry] = None,
+                 obs_labels: Optional[Dict[str, str]] = None):
         cap = max(1, int(capacity))
         self.dim = dim
         self.device = torch.device(device)
         self._arena = torch.zeros((cap, dim), dtype=torch.float32, device=self.device)
         # every host-to-device byte this bank moves, and the writes by kind
-        self.h2d_bytes_total = 0
-        self.row_updates = 0
-        self.batched_updates = 0
-        self.clears = 0
-        self.grows = 0
+        reg = obs if obs is not None else MetricsRegistry()
+        labels = obs_labels or {}
+        self._c = {field: reg.counter(name, **labels)
+                   for field, name in self._COUNTERS.items()}
+        self._cap_gauge = reg.gauge(_names.DEVICE_CAPACITY, **labels)
+        self._cap_gauge.set(cap)
 
     @property
     def capacity(self) -> int:
         return self._arena.shape[0]
+
+    @property
+    def h2d_bytes_total(self) -> int:
+        return int(self._c["h2d_bytes_total"].value)
+
+    @property
+    def row_updates(self) -> int:
+        return int(self._c["row_updates"].value)
+
+    @property
+    def batched_updates(self) -> int:
+        return int(self._c["batched_updates"].value)
+
+    @property
+    def clears(self) -> int:
+        return int(self._c["clears"].value)
+
+    @property
+    def grows(self) -> int:
+        return int(self._c["grows"].value)
+
+    def telemetry(self) -> Dict[str, Any]:
+        return {
+            "capacity": self.capacity,
+            "h2d_bytes_total": self.h2d_bytes_total,
+            "row_updates": self.row_updates,
+            "batched_updates": self.batched_updates,
+            "clears": self.clears,
+            "grows": self.grows,
+        }
 
     @property
     def arena(self) -> torch.Tensor:
@@ -63,7 +108,7 @@ class DeviceBank:
 
     def note_h2d(self, nbytes: int) -> None:
         """Count a transfer made on this bank's behalf (queries)."""
-        self.h2d_bytes_total += int(nbytes)
+        self._c["h2d_bytes_total"].inc(int(nbytes))
 
     # -- mutation (caller holds the host bank's lock) ---------------------
 
@@ -76,14 +121,15 @@ class DeviceBank:
             arena = torch.zeros((new_cap, self.dim), dtype=torch.float32, device=self.device)
             arena[: self.capacity].copy_(self._arena)
             self._arena = arena
-            self.grows += 1
+            self._c["grows"].inc()
+            self._cap_gauge.set(new_cap)
 
     def set_row(self, slot: int, vec: np.ndarray) -> None:
         self.ensure_capacity(slot + 1)
         v = np.asarray(vec, np.float32)
         self._arena[slot].copy_(torch.from_numpy(v))
-        self.h2d_bytes_total += v.nbytes
-        self.row_updates += 1
+        self._c["h2d_bytes_total"].inc(v.nbytes)
+        self._c["row_updates"].inc()
 
     def set_rows(self, slots: Sequence[int], vecs: np.ndarray) -> None:
         """One ``index_copy_`` for a whole admission wave (distinct slots)."""
@@ -94,8 +140,8 @@ class DeviceBank:
         v = np.ascontiguousarray(vecs, np.float32)
         idx = torch.from_numpy(s).to(self.device).long()
         self._arena.index_copy_(0, idx, torch.from_numpy(v).to(self.device))
-        self.h2d_bytes_total += v.nbytes + s.nbytes
-        self.batched_updates += 1
+        self._c["h2d_bytes_total"].inc(v.nbytes + s.nbytes)
+        self._c["batched_updates"].inc()
 
     def clear_row(self, slot: int) -> None:
         """Tombstone a slot with zeros made on the card (no upload)."""
@@ -104,4 +150,4 @@ class DeviceBank:
 
     def clear(self) -> None:
         self._arena.zero_()
-        self.clears += 1
+        self._c["clears"].inc()

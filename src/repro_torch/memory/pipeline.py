@@ -1,5 +1,5 @@
 """MatchPipeline: the exact -> fuzzy -> semantic lookup cascade as data (the
-twin of ``repro.memory.pipeline``, without the metrics arguments).
+twin of ``repro.memory.pipeline``).
 
 A :class:`MatchPipeline` is an ordered list of stages; each tries to
 RESOLVE a query string to a stored key, and the store then serves the
@@ -94,6 +94,9 @@ class FuzzyStage(MatchStage):
         # ``pallas``/``device`` backends) for the whole batch
         return self.index.best_match_batch(list(queries), self.threshold)
 
+    def autotune(self, **thresholds) -> Optional[str]:
+        return self.index.autotune(**thresholds)
+
 
 class SemanticStage(MatchStage):
     """Similarity over each entry's insertion *context* text.
@@ -134,6 +137,9 @@ class SemanticStage(MatchStage):
         texts = [c if c is not None else q for q, c in zip(queries, contexts)]
         return self.index.best_match_batch(embed_batch(texts), self.threshold)
 
+    def autotune(self, **thresholds) -> Optional[str]:
+        return self.index.autotune(**thresholds)
+
 
 class MatchPipeline:
     """Ordered stages; the store broadcasts maintenance to all of them and
@@ -171,19 +177,33 @@ def build_pipeline(
     semantic_threshold: float = 0.85,
     index_backend: str = "auto",
     device=None,
+    obs: Optional[Any] = None,
+    obs_labels: Optional[dict] = None,
 ) -> MatchPipeline:
     """Build a pipeline from stage names (``exact`` | ``fuzzy`` |
     ``semantic``), in cascade order.
     ``device`` is where a ``pallas``/``device`` index searches (CUDA unless
-    the caller asks for another)."""
+    the caller asks for another). ``obs`` (a
+    :class:`repro_torch.obs.MetricsRegistry`) and ``obs_labels`` ride down
+    to each stage's index, whose telemetry registers there with an added
+    ``stage=<name>`` label."""
+    base = dict(obs_labels or {})
+
+    def stage_kw(name: str) -> dict:
+        kw = {"device": device}
+        if obs is not None or base:
+            kw.update(obs=obs, obs_labels=dict(base, stage=name))
+        return kw
+
     stages: List[MatchStage] = []
     for item in spec:
         if item == "exact":
             stages.append(ExactStage())
         elif item == "fuzzy":
-            stages.append(FuzzyStage(fuzzy_threshold, index_backend, device=device))
+            stages.append(FuzzyStage(fuzzy_threshold, index_backend, **stage_kw("fuzzy")))
         elif item == "semantic":
-            stages.append(SemanticStage(semantic_threshold, index_backend, device=device))
+            stages.append(SemanticStage(semantic_threshold, index_backend,
+                                        **stage_kw("semantic")))
         else:
             raise ValueError(
                 f"unknown pipeline stage {item!r} "

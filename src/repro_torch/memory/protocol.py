@@ -1,5 +1,4 @@
-"""The plan-store contract (the twin of ``repro.memory.protocol``, without
-the metrics registry).
+"""The plan-store contract (the twin of ``repro.memory.protocol``).
 
 * ``lookup_batch`` / ``insert_batch`` are the primitive operations: one
   lock acquisition, one batched fuzzy/semantic resolution, one device write
@@ -16,24 +15,91 @@ the metrics registry).
 
 from __future__ import annotations
 
-from typing import Any, Optional, TypeVar
+from typing import Any, Dict, Optional, TypeVar
+
+from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import names as _names
 
 V = TypeVar("V")
 
 
+def _stat_prop(field: str):
+    def get(self):
+        v = self._counters[field].value
+        return v if field == "lookup_time_s" else int(v)
+
+    def set_(self, v):
+        # the ``stats.hits += 1`` shim: get-then-set, safe only under the
+        # owning store's lock; lock-free callers use ``add()``
+        self._counters[field].set(v)
+
+    return property(get, set_)
+
+
 class CacheStats:
-    """Hit/miss/insert/evict accounting for one plan store: plain counters,
-    written under the owning store's lock."""
+    """Hit/miss/insert/evict accounting for one plan store: a view over
+    lock-safe counters of a :class:`repro_torch.obs.MetricsRegistry`, with
+    the reference's field reads and ``snapshot()``. Stores that share a
+    registry (the shards of a ``DistributedPlanCache``) are label-keyed
+    series of one set; a bare ``CacheStats()`` has a private registry.
+    The cold-tier fields stay 0 (the port has no cold tier yet) and out of
+    ``snapshot()``, as in the reference."""
 
-    _FIELDS = ("hits", "misses", "inserts", "evictions", "lookup_time_s",
-               "stale_insert_skips")
+    _FIELDS = {
+        "hits": _names.CACHE_HITS,
+        "misses": _names.CACHE_MISSES,
+        "inserts": _names.CACHE_INSERTS,
+        "evictions": _names.CACHE_EVICTIONS,
+        "lookup_time_s": _names.CACHE_LOOKUP_TIME_S,
+        "cold_hits": _names.CACHE_COLD_HITS,
+        "spills": _names.CACHE_SPILLS,
+        "promotes": _names.CACHE_PROMOTES,
+        "compaction_saved_tokens": _names.CACHE_COMPACTION_SAVED_TOKENS,
+        "stale_insert_skips": _names.CACHE_STALE_INSERT_SKIPS,
+    }
 
-    def __init__(self) -> None:
-        self.reset()
+    def __init__(self, registry: Optional[MetricsRegistry] = None, **labels: str):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.labels = labels
+        self._counters = {
+            field: self.registry.counter(name, **labels)
+            for field, name in self._FIELDS.items()
+        }
+
+    hits = _stat_prop("hits")
+    misses = _stat_prop("misses")
+    inserts = _stat_prop("inserts")
+    evictions = _stat_prop("evictions")
+    lookup_time_s = _stat_prop("lookup_time_s")
+    cold_hits = _stat_prop("cold_hits")
+    spills = _stat_prop("spills")
+    promotes = _stat_prop("promotes")
+    compaction_saved_tokens = _stat_prop("compaction_saved_tokens")
+    stale_insert_skips = _stat_prop("stale_insert_skips")
+
+    def add(self, field: str, n: float = 1) -> None:
+        """Lock-safe increment (the contract for unlocked callers)."""
+        self._counters[field].inc(n)
 
     def reset(self) -> None:
-        for f in self._FIELDS:
-            setattr(self, f, 0.0 if f == "lookup_time_s" else 0)
+        """Zero this view's own series, not the whole registry."""
+        for c in self._counters.values():
+            c.reset()
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": round(self.hit_rate, 4),
+            "inserts": self.inserts,
+            "evictions": self.evictions,
+            "lookup_time_s": round(self.lookup_time_s, 6),
+        }
 
 
 class PlanStoreBase:

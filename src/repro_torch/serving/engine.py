@@ -17,7 +17,10 @@ kernel reads the same pool through a page table beside it.
 
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
-measure device work, not kernel-launch time.
+measure device work, not kernel-launch time. Under a tracer
+(``repro_torch.obs``) every ``generate`` call is one ``engine.generate``
+span, with the reference's attributes and the arch's name; the span closes
+after the tokens are on the host, so it covers the device's time.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
+from repro_torch.obs import trace_span
+from repro_torch.obs.names import SPAN_ENGINE_GENERATE
 from repro_torch.serving.kv_cache import CachePoint, KVPrefixCache, PagePoolExhausted
 from repro_torch.serving.sampler import sample_token
 
@@ -180,39 +185,42 @@ class Engine:
                 f"past the cache"
             )
         n_valid = None if prompt_lengths is None else int(np.sum(prompt_lengths))
-        res = None
-        use_prefix = cache_point is not None and self.kv_prefix is not None
-        if use_prefix:
-            n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
-            res = self.prefill_with_prefix(
-                cache_point.template_id, tokens[:, cache_point.prefix_len:],
-                n_valid=n_suf, expected_len=cache_point.prefix_len)
-        if res is None:
-            res = self.prefill(tokens, n_valid=n_valid)
+        with trace_span(SPAN_ENGINE_GENERATE, batch=B, prompt_len=S, max_new=max_new,
+                        arch=self.cfg.name) as sp:
+            res = None
+            use_prefix = cache_point is not None and self.kv_prefix is not None
             if use_prefix:
-                self.register_prefix(cache_point.template_id, res[1], cache_point.prefix_len)
-        logits, cache = res
-        gen = None
-        if temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-        out = []
-        tok = sample_token(logits, temperature, gen).cpu().numpy()
-        done = np.zeros((B,), bool)
-        for i in range(max_new):
-            if eos_id is not None and done.any():
-                # finished rows keep a slot in the dense batch but must
-                # emit padding, not whatever the sampler drew for them
-                tok = np.where(done[:, None], pad_id, tok).astype(tok.dtype)
-            out.append(tok)
-            if eos_id is not None:
-                done |= tok[:, 0] == eos_id
-                if done.all():
-                    break
-            if i + 1 == max_new:
-                break  # the last token is emitted; skip the wasted decode
-            logits, cache = self.decode(cache, tok, active=int(B - done.sum()))
+                n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
+                res = self.prefill_with_prefix(
+                    cache_point.template_id, tokens[:, cache_point.prefix_len:],
+                    n_valid=n_suf, expected_len=cache_point.prefix_len)
+            if res is None:
+                res = self.prefill(tokens, n_valid=n_valid)
+                if use_prefix:
+                    self.register_prefix(cache_point.template_id, res[1], cache_point.prefix_len)
+            logits, cache = res
+            gen = None
+            if temperature > 0.0:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+            out = []
             tok = sample_token(logits, temperature, gen).cpu().numpy()
-        return np.concatenate(out, axis=1)
+            done = np.zeros((B,), bool)
+            for i in range(max_new):
+                if eos_id is not None and done.any():
+                    # finished rows keep a slot in the dense batch but must
+                    # emit padding, not whatever the sampler drew for them
+                    tok = np.where(done[:, None], pad_id, tok).astype(tok.dtype)
+                out.append(tok)
+                if eos_id is not None:
+                    done |= tok[:, 0] == eos_id
+                    if done.all():
+                        break
+                if i + 1 == max_new:
+                    break  # the last token is emitted; skip the wasted decode
+                logits, cache = self.decode(cache, tok, active=int(B - done.sum()))
+                tok = sample_token(logits, temperature, gen).cpu().numpy()
+            sp.set(new_tokens=len(out))
+            return np.concatenate(out, axis=1)
 
     def measured_rates(self) -> Dict[str, float]:
         r = self.stats.rates()

@@ -206,7 +206,7 @@ def test_recurrent_deployment_run_records_match_reference():
 
 ENVS = ["financebench", "tabmwp", "qasper", "aime", "gaia"]
 MATRIX_METHODS = ["apc", "accuracy_optimal", "cost_optimal", "semantic", "full_history",
-                  "cascade"]
+                  "cascade", "speculative"]
 MATRIX_TASKS = 24
 
 
@@ -237,7 +237,7 @@ def test_harness_methods_match_reference():
     from repro.core import harness as jharness
     from repro_torch.core import harness
 
-    assert harness.METHODS == [m for m in jharness.METHODS if m != "speculative"]
+    assert harness.METHODS == jharness.METHODS
     assert set(MATRIX_METHODS) == set(harness.METHODS)
 
 

@@ -51,5 +51,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.kernels.rwkv6", "repro_torch.kernels.ssd",
               "repro_torch.envs.workloads", "repro_torch.core.deep_research",
               "repro_torch.core.harness", "repro_torch.memory.registry",
-              "repro_torch.index.bucketed"):
+              "repro_torch.index.bucketed", "repro_torch.obs", "repro_torch.obs.__main__",
+              "repro_torch.obs.names", "repro_torch.obs.registry", "repro_torch.obs.spans",
+              "repro_torch.obs.attribution", "repro_torch.obs.exporters",
+              "repro_torch.core.journal", "repro_torch.core.speculative",
+              "repro_torch.core.distributed_cache", "repro_torch.serving.scheduler"):
         assert m in mods

@@ -194,11 +194,11 @@ def test_serve_entry_point_runs_other_workloads_and_methods(monkeypatch, capsys)
     assert f"hit rate      {want.hit_rate:.3f}" in out
     assert f"cost          ${want.cost:.4f}" in out
     assert "method=cascade n=4 device=cpu" in out
-    for flag, value in (("--env", "webshop"), ("--method", "speculative")):
+    for flag, value in (("--env", "webshop"), ("--method", "no_such_method")):
         monkeypatch.setattr(sys, "argv", ["serve", flag, value, "--device", "cpu"])
         with pytest.raises(SystemExit):
             serve.main()
         assert "invalid choice" in capsys.readouterr().err
     assert ALL_ENVS == ["financebench", "tabmwp", "qasper", "aime", "gaia"]
     assert {"apc", "accuracy_optimal", "cost_optimal", "semantic", "full_history",
-            "cascade"} == set(method_names())
+            "cascade", "speculative"} == set(method_names())
