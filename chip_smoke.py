@@ -115,8 +115,17 @@ PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sh
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 LAYOUTS = {"olmo-1b": (16, 16, 128), "qwen2.5-3b": (16, 2, 128),
            "nemotron-4-15b": (48, 8, 128)}
+# the other families' attention layouts (Hq, Hkv, hd): GQA groups of 2
+# (granite, hd 64), 4 (qwen3), 7 (qwen2-vl) and 8 (kimi-k2)
+FAMILY_LAYOUTS = {"granite-moe-1b-a400m": (16, 8, 64), "qwen3-4b": (32, 8, 128),
+                  "qwen2-vl-7b": (28, 4, 128), "kimi-k2-1t-a32b": (64, 8, 128)}
 # zamba2-2.7b's shared attention block: the attention kernels' hd-80 case
-ATTN_LAYOUTS = {**LAYOUTS, "zamba2-2.7b": (32, 32, 80)}
+ATTN_LAYOUTS = {**LAYOUTS, "zamba2-2.7b": (32, 32, 80), **FAMILY_LAYOUTS}
+# the prefix families' paged layouts beside the DEFAULT ones
+PAGED_FAMILY_LAYOUTS = {a: FAMILY_LAYOUTS[a] for a in ("granite-moe-1b-a400m", "qwen2-vl-7b")}
+# whisper-tiny's encoder: bidirectional flash over the stub frontend's
+# frames (B, S, Hq, Hkv, hd)
+WHISPER_ENC = (1, 1500, 6, 6, 64)
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain: sums in another order
 # the attention checks' prefill lengths (63/64/65 straddle one 64-row tile)
 # and decode batches of lengths; the last batch puts 0, 1, the edges of the
@@ -229,6 +238,20 @@ RECURRENT_ROLES = {"small_planner": "rwkv6-3b", "keyword_extractor": "rwkv6-3b",
                    "actor": "zamba2-2.7b"}
 RECURRENT_EXPECT = (2, 0.875, 0.2987)
 RECURRENT_KERNELS = ("wkv6", "ssd", "flash_attention", "decode_attention")
+# phase 8's two runs, exact `apc` on the apc_qasper run's 8 QASPER tasks (2
+# hits; 8 FinanceBench tasks give none, so the small planner would never
+# serve): `families` puts the moe, dense-qk-norm and vlm archs in these roles
+# (the large planner stays the nemotron-4-15b engine), `flagship` is the
+# FLAGSHIP deployment with kimi-k2 cut to one layer. The reference's (hits,
+# accuracy, cost) on each (tests/test_torch_families.py)
+FAMILIES_ROLES = {"small_planner": "granite-moe-1b-a400m", "keyword_extractor": "qwen3-4b",
+                  "actor": "qwen2-vl-7b"}
+PHASE8_ENV, PHASE8_TASKS = "qasper", 8
+PHASE8_EXPECT = {"families": (2, 0.75, 0.1127), "flagship": (2, 0.75, 0.1127)}
+FLAGSHIP_DEPTH = 1  # kimi-k2's 61 layers are ~2 TB in bf16; one card holds 80 GB
+# phase 4 checks kimi-k2 at its attention width with this many experts: 2
+# layers of all 384 are 135 GB in fp32
+MODEL_KIMI_EXPERTS = 16
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
 # a 4-entry plan cache; each wave arrives three times in a row (the first
@@ -454,11 +477,12 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def check_kernels(torch):
-    """Phase 3: the attention kernels against their plain versions, flash at
-    S in FLASH_SEQS, decode at the batches of DECODE_LENGTHS (also against
-    the split-K plain version; a row of length 0 must be zeros, and each row
-    bitwise equal to that row decoded alone). Returns the max abs error and
-    the number of checks per kernel."""
+    """Phase 3: the attention kernels against their plain versions at every
+    layout of ATTN_LAYOUTS, flash at S in FLASH_SEQS, decode at the batches
+    of DECODE_LENGTHS (also against the split-K plain version; a row of
+    length 0 must be zeros, and each row bitwise equal to that row decoded
+    alone); and flash bidirectional at whisper-tiny's encoder (WHISPER_ENC).
+    Returns the max abs error and the number of checks per kernel."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import CHUNK, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -520,6 +544,20 @@ def check_kernels(torch):
                         raise AssertionError(
                             f"decode_attention {dname} {arch} lengths={lens}: row {b} "
                             "of the batch differs from the row decoded alone")
+        # whisper-tiny's encoder: bidirectional over its 1,500 frames
+        B, S, hq, hkv, hd = WHISPER_ENC
+        q, k, v = rnd(B, S, hq, hd), rnd(B, S, hkv, hd), rnd(B, S, hkv, hd)
+        o = flash_attention(q, k, v, causal=False)
+        r = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    causal=False).transpose(1, 2)
+        torch.cuda.synchronize()
+        e = (o.float() - r.float()).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"flash_attention {dname} whisper-tiny encoder S={S} "
+                                 f"causal=False: max abs err {e} > {tol}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        by_dtype[("flash", dname)] = max(by_dtype.get(("flash", dname), 0.0), e)
+        n["flash_attention"] += 1
     log(f"[kernels] {n} checks passed; max abs err {err}, by type "
         f"{ {f'{k} {d}': v for (k, d), v in by_dtype.items()} } "
         f"(tolerance bf16 {TOL['bfloat16']}, fp32 {TOL['float32']}; decode also against "
@@ -786,9 +824,10 @@ def _timed(torch, kernel, arch, shape, fn, plain, library, bound_ms, bound_by):
 def time_kernels(torch):
     """Phase 3b: kernel, plain version and library call at the serving
     path's shapes (B=1, bf16; prefill S=152 — the longest prompt the
-    backend sends — and decode M=192 at length 168), at the deployment's
-    head layouts and zamba2's hd 80; plus one flash row off the path, at
-    nemotron's layout and S = LONG_S, marked ``off_path``."""
+    backend sends — and decode M=192 at length 168), at every layout of
+    ATTN_LAYOUTS (the deployment's, zamba2's hd 80, the other families'),
+    flash bidirectional at whisper-tiny's encoder; plus one flash row off
+    the path, at nemotron's layout and S = LONG_S, marked ``off_path``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -835,6 +874,22 @@ def time_kernels(torch):
             lambda: F.scaled_dot_product_attention(q1t, ckt, cvt, attn_mask=mask,
                                                    enable_gqa=True),
             bms, by))
+    # whisper-tiny's encoder: bidirectional, every (query, key) pair
+    B, S, hq, hkv, hd = WHISPER_ENC
+    q = torch.randn(B, S, hq, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dt)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bms, by = bound(esz * B * S * hd * (2 * hq + 2 * hkv), 4 * B * hq * hd * S * S,
+                    PEAK_BF16_FLOPS)
+    rows.append(_timed(
+        torch, "flash_attention", "whisper-tiny",
+        f"B={B} S={S} Hq={hq} Hkv={hkv} hd={hd} bf16 causal=False (encoder)",
+        lambda: flash_attention(q, k, v, causal=False),
+        lambda: ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+        bms, by))
     # off the path: one prefill at nemotron's layout long enough that the
     # tensor-core work, not latency, bounds it (the ground for or against a
     # wgmma/TMA flash kernel)
@@ -884,7 +939,8 @@ def _gather_pages(torch, pages, table):
 
 def check_paged(torch):
     """Phase 3 (paged): the paged decode kernel against its plain version
-    at the three head layouts (hd 128; B = 4; ps in {8, 16, 32, 64}; lengths
+    at the three head layouts (hd 128) and the prefix families' (granite
+    hd 64, qwen2-vl G = 7; B = 4; ps in {8, 16, 32, 64}; lengths
     1, a partial page, two full pages and the full table) and at the
     hd 64 / hd 32 shapes of tests/test_kernels.py, in bf16 and fp32, on
     permuted pool rows with -1 past the end. Each result is also bitwise
@@ -896,7 +952,7 @@ def check_paged(torch):
     from repro_torch.kernels.paged_attention import paged_decode_attention
 
     cases = []  # (label, B, Hq, Hkv, hd, ps, npages, P, lengths)
-    for arch, (hq, hkv, hd) in LAYOUTS.items():
+    for arch, (hq, hkv, hd) in {**LAYOUTS, **PAGED_FAMILY_LAYOUTS}.items():
         for ps in (8, 16, 32, 64):
             P = -(-192 // ps)
             cases.append((arch, 4, hq, hkv, hd, ps, 4 * P + 3, P, (1, ps + 3, 2 * ps, P * ps)))
@@ -952,50 +1008,55 @@ def check_paged(torch):
 
 def time_paged(torch):
     """Phase 3b (paged): kernel, plain version and a library yardstick at
-    the prefix path's shape with nemotron's layout: B = 4, length 168,
-    page size 32, bf16, a 64-page pool. No single PyTorch call computes
-    paged attention; the yardstick is two calls, an ``index_select`` gather
-    of the pages and ``F.scaled_dot_product_attention``."""
+    the prefix path's shape: B = 4, length 168, page size 32, bf16, a
+    64-page pool, at nemotron's layout (the kernel line's row) and at the
+    prefix families' (granite hd 64, qwen2-vl G = 7). No single PyTorch call
+    computes paged attention; the yardstick is two calls, an
+    ``index_select`` gather of the pages and
+    ``F.scaled_dot_product_attention``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
 
-    hq, hkv, hd = LAYOUTS["nemotron-4-15b"]
     B, ln, ps, npages = 4, 168, 32, 64
     P = -(-ln // ps)
     g = torch.Generator(device="cuda").manual_seed(5)
     dt, esz = torch.bfloat16, 2
-    q = torch.randn(B, 1, hq, hd, generator=g, device="cuda").to(dt)
-    kp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
-    vp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
-    table = _page_table(torch, B, P, npages, ps, (ln,) * B, seed=99)
-    L = torch.full((B,), ln, dtype=torch.int32, device="cuda")
-    rows = table.clamp(min=0).long().reshape(-1)
-    qt = q.transpose(1, 2)
-    mask = (torch.arange(P * ps, device="cuda")[None, :] < L[:, None])[:, None, None, :]
+    out = []
+    layouts = {"nemotron-4-15b": LAYOUTS["nemotron-4-15b"], **PAGED_FAMILY_LAYOUTS}
+    for arch, (hq, hkv, hd) in layouts.items():
+        q = torch.randn(B, 1, hq, hd, generator=g, device="cuda").to(dt)
+        kp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+        vp = torch.randn(npages, ps, hkv, hd, generator=g, device="cuda").to(dt)
+        table = _page_table(torch, B, P, npages, ps, (ln,) * B, seed=99)
+        L = torch.full((B,), ln, dtype=torch.int32, device="cuda")
+        rows = table.clamp(min=0).long().reshape(-1)
+        qt = q.transpose(1, 2)
+        mask = (torch.arange(P * ps, device="cuda")[None, :] < L[:, None])[:, None, None, :]
 
-    def library():
-        k = kp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
-        v = vp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
-        return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True)
+        def library():  # timed within this iteration, so its free names are this layout's
+            k = kp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
+            v = vp.index_select(0, rows).view(B, P * ps, hkv, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True)
 
-    nbytes = esz * B * hd * (2 * hq + 2 * hkv * ln) + 4 * B * (P + 1)
-    bms, by = bound(nbytes, 4 * B * hq * hd * ln, PEAK_BF16_FLOPS)
-    row = _timed(
-        torch, "paged_decode_attention", "nemotron-4-15b",
-        f"B={B} len={ln} ps={ps} P={P} pool={npages} Hq={hq} Hkv={hkv} hd={hd} bf16",
-        lambda: paged_decode_attention(q, kp, vp, table, L),
-        lambda: ref.paged_attention_ref(q[:, 0], kp, vp, table, L),
-        library, bms, by)
-    row["library"] = "index_select gather + F.scaled_dot_product_attention (two calls)"
-    # the dense decode kernel on the same pages gathered, at the same B
-    kd, vd = _gather_pages(torch, kp, table), _gather_pages(torch, vp, table)
-    row["dense_kernel_ms"], row["dense_kernel_call_ms"] = time_ms(
-        torch, lambda: decode_attention(q, kd, vd, L))
-    log("[timing] " + json.dumps(row))
-    return [row]
+        nbytes = esz * B * hd * (2 * hq + 2 * hkv * ln) + 4 * B * (P + 1)
+        bms, by = bound(nbytes, 4 * B * hq * hd * ln, PEAK_BF16_FLOPS)
+        row = _timed(
+            torch, "paged_decode_attention", arch,
+            f"B={B} len={ln} ps={ps} P={P} pool={npages} Hq={hq} Hkv={hkv} hd={hd} bf16",
+            lambda: paged_decode_attention(q, kp, vp, table, L),
+            lambda: ref.paged_attention_ref(q[:, 0], kp, vp, table, L),
+            library, bms, by)
+        row["library"] = "index_select gather + F.scaled_dot_product_attention (two calls)"
+        # the dense decode kernel on the same pages gathered, at the same B
+        kd, vd = _gather_pages(torch, kp, table), _gather_pages(torch, vp, table)
+        row["dense_kernel_ms"], row["dense_kernel_call_ms"] = time_ms(
+            torch, lambda: decode_attention(q, kd, vd, L))
+        log("[timing] " + json.dumps(row))
+        out.append(row)
+    return out
 
 
 def _scan_close(name, got, want, label):
@@ -1181,37 +1242,69 @@ def time_scans(torch):
     return rows
 
 
+def _model_check_config(full):
+    """The config phase 4 checks for a published one: 2 layers (the hybrid:
+    one group of ``attn_every``; whisper-tiny: full depth), vocabulary
+    50,304, fp32; kimi-k2 with MODEL_KIMI_EXPERTS experts."""
+    kw = dict(num_layers=2, vocab_size=50_304, dtype="float32", param_dtype="float32")
+    if full.family == "hybrid":
+        kw["num_layers"] = full.attn_every
+    if full.family == "audio":
+        kw["num_layers"] = full.num_layers
+    if full.name == "kimi-k2-1t-a32b":
+        kw["moe"] = dataclasses.replace(full.moe, num_experts=MODEL_KIMI_EXPERTS)
+    return dataclasses.replace(full, **kw)
+
+
 def check_model(torch):
     """Phase 4: the model on the card (kernels) against the same model on
-    the CPU (plain versions): full width, 2 layers (the hybrid: one group
-    of ``attn_every`` mamba layers and the shared block), fp32, prefill of
-    37 tokens then 3 decode steps; logits within atol 2e-3."""
+    the CPU (plain versions), for every arch of the registry: full width,
+    ``_model_check_config``'s depth and cuts, fp32, a prefill of 37 tokens
+    (whisper-tiny: over its 1,500 stub frames, drawn from a seed; qwen2-vl:
+    also from stub embeds with distinct (3, B, S) M-RoPE positions) then 3
+    decode steps; logits within atol 2e-3."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
 
     for arch in registry.ARCH_NAMES:
         full = registry.get(arch)
-        depth = full.attn_every if full.family == "hybrid" else 2
-        cfg = dataclasses.replace(full, num_layers=depth, vocab_size=50_304,
-                                  dtype="float32", param_dtype="float32")
+        cfg = _model_check_config(full)
         gen = torch.Generator(device="cuda").manual_seed(7)
         p_gpu = lm.init_params(cfg, gen, "cuda")
         p_cpu = lm.params_to(p_gpu, "cpu")
-        toks = torch.randint(3, cfg.vocab_size, (1, 37), generator=torch.Generator().manual_seed(3))
-        logits = {}
-        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
-            lg, c = lm.prefill(cfg, p, toks.to(dev), cache_len=48)
-            outs = [lg[:, -1]]
-            for t in (5, 11, 17):
-                lg, c = lm.decode_step(cfg, p, c, torch.full((1, 1), t, device=dev))
-                outs.append(lg[:, -1])
-            logits[dev] = torch.cat(outs).cpu()
-        if not torch.isfinite(logits["cuda"]).all():
-            raise AssertionError(f"model {arch}: non-finite logits on the card")
-        worst = (logits["cuda"] - logits["cpu"]).abs().max().item()
-        if not worst <= 2e-3:
-            raise AssertionError(f"model {arch}: card vs CPU logits differ by {worst}")
-        log(f"[model] {arch} ({depth} layers, fp32): card vs CPU max |dlogit| {worst:.3e}")
+        cpu_gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(3, cfg.vocab_size, (1, 37), generator=cpu_gen)
+        inputs = {"tokens": {"tokens": toks}}
+        if cfg.family == "audio":
+            frames = torch.randn(1, cfg.encoder.num_frames, cfg.d_model, generator=cpu_gen)
+            inputs = {"tokens": {"tokens": toks, "frames": frames}}
+        if cfg.family == "vlm":
+            t = torch.arange(37, dtype=torch.int32)[None]
+            inputs["embeds"] = {
+                "embeds": torch.randn(1, 37, cfg.d_model, generator=cpu_gen),
+                "positions": torch.stack([t, t // 4, (t * 5) % 7])}
+        worst = {}
+        for how, inp in inputs.items():
+            logits = {}
+            for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+                lg, c = lm.prefill(cfg, p, cache_len=48, **{k: v.to(dev) for k, v in inp.items()})
+                outs = [lg[:, -1]]
+                for t in (5, 11, 17):
+                    lg, c = lm.decode_step(cfg, p, c, torch.full((1, 1), t, device=dev))
+                    outs.append(lg[:, -1])
+                logits[dev] = torch.cat(outs).cpu()
+            if not torch.isfinite(logits["cuda"]).all():
+                raise AssertionError(f"model {arch} ({how}): non-finite logits on the card")
+            worst[how] = (logits["cuda"] - logits["cpu"]).abs().max().item()
+            if not worst[how] <= 2e-3:
+                raise AssertionError(f"model {arch} ({how}): card vs CPU logits differ by "
+                                     f"{worst[how]}")
+        cut = (f", experts cut from {full.moe.num_experts} to {cfg.moe.num_experts} (2 layers "
+               f"of all {full.moe.num_experts} are "
+               f"{2 * 3 * full.moe.num_experts * full.d_model * full.moe.d_ff_expert * 4 / 1e9:.0f}"
+               " GB in fp32)") if cfg.moe is not None and cfg.moe != full.moe else ""
+        log(f"[model] {arch} ({cfg.num_layers} layers, fp32{cut}): card vs CPU max |dlogit| "
+            + ", ".join(f"{how} {w:.3e}" for how, w in worst.items()))
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
 
@@ -1255,10 +1348,7 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census
     uniq = {id(e): e for e in engines.values()}.values()
     before = {id(e): dataclasses.replace(e.stats) for e in uniq}
 
-    for fn in kernels.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_hd"):
-            fn.launches_by_hd.clear()
+    _reset_counts(kernels)
     t0 = time.perf_counter()
     recs = [agent.run_task(t) for t in tasks]
     torch.cuda.synchronize()
@@ -1409,6 +1499,35 @@ def _prefix_parity(torch, eng, cfg_name, B, Sp, Ss, max_new, seed):
     }
 
 
+def paged_over_pool(torch, kv, cfg, template_ids, seed):
+    """The paged decode kernel over a live pool, t8-style: for each template,
+    4 leases, a page table, and every layer's slabs, bitwise against the
+    dense decode kernel on the pages gathered in table order. Returns the
+    number of layer checks."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+    for tid in template_ids:
+        leases = [kv.acquire(tid) for _ in range(4)]
+        table, lengths = kv.page_table(leases)
+        q = torch.randn(4, 1, cfg.num_heads, cfg.head_dim, generator=g,
+                        device="cuda").to(kv.pool.kernel_view(0)[0].dtype)
+        for layer in range(cfg.num_layers):
+            kp, vp = kv.pool.kernel_view(layer)
+            o = ops.paged_decode_attention_op(q, kp, vp, table, lengths)
+            od = ops.decode_attention_op(q, _gather_pages(torch, kp, table),
+                                         _gather_pages(torch, vp, table), lengths)
+            if not torch.equal(o, od):
+                raise AssertionError(f"{cfg.name} paged decode {tid!r} layer {layer}: not "
+                                     "bitwise equal to decode_attention on the gathered cache")
+            n += 1
+        for lease in leases:
+            kv.release_lease(lease)
+    torch.cuda.synchronize()
+    return n
+
+
 def serve_prefix(torch, engines):
     """Phase 5c, the paged KV prefix path: (1) prefix parity of a second
     olmo-1b engine (the small planner, on the same parameter tensors) with a
@@ -1428,15 +1547,13 @@ def serve_prefix(torch, engines):
     from repro_torch.core.cache import PlanCache
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.envs.workloads import get_env
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import KVPrefixCache, plan_cache_point, pool_for_config
     from repro_torch.serving.router import TwoTierRouter
 
     kernels = _kernel_launchers()
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset_counts(kernels)
     t_phase = time.perf_counter()
     olmo, nemo = engines["small_planner"], engines["large_planner"]
     kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"))
@@ -1544,26 +1661,7 @@ def serve_prefix(torch, engines):
     log(f"[prefix] router: {router_out}")
 
     # (3) the paged decode kernel over the live pool, t8-style
-    g = torch.Generator(device="cuda").manual_seed(13)
-    cfg = olmo.cfg
-    n_paged = 0
-    for tid in held:
-        leases = [kv.acquire(tid) for _ in range(4)]
-        table, lengths = kv.page_table(leases)
-        q = torch.randn(4, 1, cfg.num_heads, cfg.head_dim, generator=g,
-                        device="cuda").to(kv.pool.kernel_view(0)[0].dtype)
-        for layer in range(cfg.num_layers):
-            kp, vp = kv.pool.kernel_view(layer)
-            o = ops.paged_decode_attention_op(q, kp, vp, table, lengths)
-            od = ops.decode_attention_op(q, _gather_pages(torch, kp, table),
-                                         _gather_pages(torch, vp, table), lengths)
-            if not torch.equal(o, od):
-                raise AssertionError(f"prefix paged decode {tid!r} layer {layer}: not bitwise "
-                                     "equal to decode_attention on the gathered cache")
-            n_paged += 1
-        for lease in leases:
-            kv.release_lease(lease)
-    torch.cuda.synchronize()
+    n_paged = paged_over_pool(torch, kv, olmo.cfg, held, seed=13)
     launches = {n: fn.launches for n, fn in kernels.items()}
     for n in ("flash_attention", "decode_attention", "paged_decode_attention"):
         if launches[n] <= 0:
@@ -1640,8 +1738,7 @@ def serve_dcache(torch, engines):
     mem = InMemoryExporter()
     tracer = Tracer(exporters=[mem, JsonlExporter(os.path.join(out_dir, "trace.jsonl"))])
     waves = dcache_waves(tasks)
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset_counts(kernels)
     t0 = time.perf_counter()
     with use_tracer(tracer):
         repaired, mem_before, mem_after = drive_dcache(router, cache, waves, probe=allocated)
@@ -1782,6 +1879,227 @@ class ChunkDecayProbe:
         return {n: (None if m is None else m.item()) for n, m in self.max.items()}
 
 
+def build_families(torch, engines):
+    """Phase 8a: the families run's engines: granite-moe-1b-a400m, qwen3-4b
+    and qwen2-vl-7b at full published width and depth in bf16
+    (``build_engines`` on a deployment of those archs; granite's 49,155-entry
+    vocabulary widened to the tokenizer's 50,304, as ``engine_config``
+    does), the large planner the deployment phase's nemotron-4-15b engine."""
+    from repro_torch.configs.apc_minion import APCDeployment
+    from repro_torch.launch.serve import build_engines
+
+    t0 = time.perf_counter()
+    own = build_engines(APCDeployment(large_planner=FAMILIES_ROLES["small_planner"],
+                                      **FAMILIES_ROLES), full=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fam = {**own, "large_planner": engines["large_planner"]}
+    n_params = {e.cfg.name: sum(t.numel() for t in _leaves(e.params))
+                for e in {id(e): e for e in own.values()}.values()}
+    log(f"[families] engines built in {init_s:.1f}s; params {n_params}; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return fam, init_s, n_params
+
+
+def check_served(name, run, roles):
+    """Each role of ``roles`` decoded tokens in the run ``run``."""
+    idle = [r for r in roles if run["engines"][r]["decode_tokens"] <= 0]
+    if idle:
+        raise AssertionError(f"serve {name}: the engines of {idle} decoded no token")
+
+
+def _prefix_fp32(torch, arch, seed):
+    """The prefix path of ``arch`` at full width, 2 layers, vocabulary
+    50,304 (as phase 4), fp32, B = 4, a 96-token prefix and a 32-token
+    suffix: ``prefill_extend`` over a full
+    prefill's prefix K/V, then 3 decode steps, on the card and on the CPU.
+    Returns (max |dlogit| card vs CPU, max |dlogit| on the card of the
+    prefix path's last suffix position against a full prefill of the whole
+    prompt)."""
+    from repro_torch.launch.serve import engine_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(engine_config(arch, full=True), num_layers=2, vocab_size=50_304,
+                              dtype="float32", param_dtype="float32")
+    p_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    p_cpu = lm.params_to(p_gpu, "cpu")
+    toks = torch.randint(16, cfg.vocab_size, (4, 129), generator=torch.Generator().manual_seed(seed))
+    logits = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t = toks.to(dev)
+        _, c = lm.prefill(cfg, p, t[:, :96], cache_len=96)
+        lg, c = lm.prefill_extend(cfg, p, t[:, 96:128], c["kv_k"], c["kv_v"], 96, cache_len=160)
+        outs = [lg[:, -1]]
+        for i in range(3):
+            lg, c = lm.decode_step(cfg, p, c, (t[:, 128:129] + i) % cfg.vocab_size)
+            outs.append(lg[:, -1])
+        logits[dev] = torch.cat(outs).cpu()
+    full, _ = lm.prefill(cfg, p_gpu, toks[:, :128].cuda())
+    vs_full = (full[:, -1].cpu() - logits["cuda"][:4]).abs().max().item()
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return (logits["cuda"] - logits["cpu"]).abs().max().item(), vs_full
+
+
+def serve_prefix_families(torch, fam):
+    """Phase 8b, the paged KV prefix path on the prefix families' engines
+    (granite-moe-1b-a400m, hd 64; qwen2-vl-7b, G = 7), each with its own
+    64-page pool of 32-token pages on the served parameter tensors:
+    ``_prefix_parity`` at t8's shape (B = 4, 96 + 32 tokens, bf16, full
+    depth), the cached prefix K/V bitwise equal to the full prefill's, and
+    the paged kernel over the pool (``paged_over_pool``), whose launches are
+    counted by head dim. Logits are held in fp32 at 2 layers
+    (``_prefix_fp32``): the prefix path on the card within 2e-3 of the same
+    path on the CPU, and for qwen2-vl within 2e-3 of a full prefill.
+    granite's GShard dispatch gives each call its own capacity (the full
+    prefill's group is the 128-token row, the suffix prefill's the 32-token
+    suffix), so its two paths drop different (token, expert) pairs, in the
+    reference as here. The bf16 full-depth logits differences are reported:
+    over 28 layers (qwen2-vl) the two paths' bf16 roundings part by more
+    than the olmo run's 2^-5 of the largest logit."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
+
+    kernels = _kernel_launchers()
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    out = {}
+    for i, role in enumerate(("small_planner", "actor")):  # granite, qwen2-vl
+        eng = fam[role]
+        cfg = eng.cfg
+        kv = KVPrefixCache(pool_for_config(cfg, num_pages=64, page_size=32, device="cuda"))
+        peng = Engine(cfg, eng.params, max_len=eng.max_len, device="cuda", kv_prefix=kv)
+        par = _prefix_parity(torch, peng, cfg.name, B=4, Sp=96, Ss=32, max_new=16,
+                             seed=21 + i)
+        if not par["prefix_kv_bitwise"]:
+            raise AssertionError(f"prefix {cfg.name}: the cached prefix K/V is not the full "
+                                 "prefill's")
+        par["logits_rel_diff"] = par["logits_max_abs_diff"] / par["logits_max_abs"]
+        par["paged_checks"] = paged_over_pool(torch, kv, cfg, kv.keys(), seed=31 + i)
+        vs_cpu, vs_full = _prefix_fp32(torch, FAMILIES_ROLES[role], seed=41 + i)
+        par["fp32_2_layers"] = {"card_vs_cpu": vs_cpu, "prefix_vs_full_prefill": vs_full}
+        if not vs_cpu <= 2e-3:
+            raise AssertionError(f"prefix {cfg.name} fp32: card vs CPU logits differ by "
+                                 f"{vs_cpu}")
+        if cfg.moe is None and not vs_full <= 2e-3:
+            raise AssertionError(f"prefix {cfg.name} fp32: the prefix path's logits differ "
+                                 f"from a full prefill's by {vs_full}")
+        out[cfg.name] = par
+        kv.clear()
+        del peng, kv
+    torch.cuda.synchronize()
+    by_hd = dict(kernels["paged_decode_attention"].launches_by_hd)
+    for hd in {fam[role].cfg.head_dim for role in ("small_planner", "actor")}:  # 64, 128
+        if by_hd.get(hd, 0) <= 0:
+            raise AssertionError(f"prefix families: paged decode not launched at hd {hd}: "
+                                 f"{by_hd}")
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    res = {"run": "prefix_families", "parity": out, "launches": launches,
+           "paged_launches_by_hd": by_hd, "wall_s": time.perf_counter() - t0}
+    log(f"[families] prefix path: {res}")
+    return res
+
+
+def build_flagship(torch, engines):
+    """Phase 8c: the FLAGSHIP deployment's engines: kimi-k2-1t-a32b at its
+    published width with depth cut to FLAGSHIP_DEPTH (61 layers are ~2 TB in
+    bf16; one card holds 80 GB), its other roles the DEFAULT engines of the
+    same archs (olmo-1b, qwen2.5-3b)."""
+    from repro_torch.configs.apc_minion import DEFAULT, FLAGSHIP
+    from repro_torch.launch.serve import arch_seed, engine_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    arch = FLAGSHIP.large_planner
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(engine_config(arch, full=True), num_layers=FLAGSHIP_DEPTH)
+    gen = torch.Generator(device="cuda").manual_seed(arch_seed(arch))
+    kimi = Engine(cfg, lm.init_params(cfg, gen, "cuda"), max_len=192, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flag = {"large_planner": kimi}
+    for role in ("small_planner", "actor", "keyword_extractor"):
+        if getattr(FLAGSHIP, role) != getattr(DEFAULT, role):
+            raise AssertionError(f"flagship: its {role} is not the DEFAULT engine's arch")
+        flag[role] = engines[role]
+    n_params = sum(t.numel() for t in _leaves(kimi.params))
+    log(f"[flagship] {arch} built in {init_s:.1f}s at published width, depth cut from "
+        f"{engine_config(arch, full=True).num_layers} to {FLAGSHIP_DEPTH} (61 layers are "
+        f"~2 TB in bf16; one card holds 80 GB): {n_params} params; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return flag, init_s, n_params
+
+
+def check_whisper(torch):
+    """Phase 8d: whisper-tiny at published width and depth: 1,500 stub
+    frames drawn from a seed, a 32-token prompt, then 16 greedy decode
+    steps, in fp32 and bf16 on the card. fp32: every step's logits against
+    the CPU's (teacher-forced with the card's tokens) within 2e-3; bf16:
+    finite. Each prefill launches flash bidirectional once per encoder
+    layer and causal once per decoder layer, each step decode once per
+    decoder layer."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    kernels = _kernel_launchers()
+    flash, decode = kernels["flash_attention"], kernels["decode_attention"]
+    full = registry.get("whisper-tiny")
+    cpu_gen = torch.Generator().manual_seed(51)
+    frames = torch.randn(1, full.encoder.num_frames, full.d_model, generator=cpu_gen)
+    prompt = torch.randint(3, full.vocab_size, (1, 32), generator=cpu_gen)
+    steps = 16
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
+        p_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(52), "cuda")
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        lg, c = lm.prefill(cfg, p_gpu, prompt.cuda(), cache_len=64, frames=frames.cuda())
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got = {"noncausal": flash.launches_by_causal[False],
+               "causal": flash.launches_by_causal[True]}
+        want = {"noncausal": cfg.encoder.num_layers, "causal": cfg.num_layers}
+        if got != want:
+            raise AssertionError(f"whisper {dname}: flash launches {got}, want {want}")
+        logits, toks = [lg[:, -1]], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = logits[-1].argmax(-1, keepdim=True)
+            toks.append(tok)
+            lg, c = lm.decode_step(cfg, p_gpu, c, tok)
+            logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if decode.launches != steps * cfg.num_layers:
+            raise AssertionError(f"whisper {dname}: decode launched {decode.launches} times, "
+                                 f"want {steps * cfg.num_layers}")
+        card = torch.cat(logits).float().cpu()
+        if not torch.isfinite(card).all():
+            raise AssertionError(f"whisper {dname}: non-finite logits on the card")
+        res = {"prefill_s": prefill_s, "decode_s": decode_s,
+               "decode_tok_s": steps / decode_s, "flash_launches": got,
+               "decode_launches": decode.launches}
+        if dname == "float32":
+            p_cpu = lm.params_to(p_gpu, "cpu")
+            lc, cc = lm.prefill(cfg, p_cpu, prompt, cache_len=64, frames=frames)
+            cpu = [lc[:, -1]]
+            for tok in toks:
+                lc, cc = lm.decode_step(cfg, p_cpu, cc, tok.cpu())
+                cpu.append(lc[:, -1])
+            res["card_vs_cpu_max_abs"] = (card - torch.cat(cpu)).abs().max().item()
+            if not res["card_vs_cpu_max_abs"] <= 2e-3:
+                raise AssertionError(f"whisper fp32: card vs CPU logits differ by "
+                                     f"{res['card_vs_cpu_max_abs']}")
+            del p_cpu
+        out[dname] = res
+        del p_gpu
+        torch.cuda.empty_cache()
+    log(f"[whisper] {full.name} ({full.encoder.num_layers} + {full.num_layers} layers, "
+        f"{full.encoder.num_frames} frames, {steps} greedy steps): {out}")
+    return out
+
+
 def check_outputs(torch, engines):
     """What comes out is right: finite logits of the expected shape on
     every engine."""
@@ -1796,6 +2114,26 @@ def check_outputs(torch, engines):
         logits, _ = e.prefill(tok)
         if tuple(logits.shape) != (1, e.cfg.vocab_size) or not torch.isfinite(logits).all():
             raise AssertionError(f"serve: {e.cfg.name} logits {tuple(logits.shape)} not finite")
+
+
+def free_memory(torch):
+    """Return the card memory of objects the caller dropped: the engines sit
+    in reference cycles (agent, backend, caches), which only the garbage
+    collector frees, then the allocator's cache."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _reset_counts(kernels):
+    """Every launch counter of ``kernels`` to 0 (the totals and the
+    ``launches_by_*`` breakdowns)."""
+    for fn in kernels.values():
+        fn.launches = 0
+        for name in ("launches_by_hd", "launches_by_causal"):
+            if hasattr(fn, name):
+                getattr(fn, name).clear()
 
 
 def _kernel_launchers():
@@ -1874,6 +2212,8 @@ def main() -> int:
     check_shared_block(rec_engines["actor"].cfg, runs["recurrent"]["launches_by_hd"])
     log(f"[recurrent] largest |la| of a chunk of {MODEL_CHUNK}: {probe.result()}")
     check_outputs(torch, rec_engines)
+    del rec_engines  # phase 8 needs their memory
+    free_memory(torch)
 
     # phase 6: the paper's baselines, its other workloads and the
     # deep-research agent, on the DEFAULT engines
@@ -1886,9 +2226,42 @@ def main() -> int:
     for row in SPEC_RUNS:
         runs[row[0]] = serve(torch, engines, *row)
     obs = serve_dcache(torch, engines)
-    srv = {"init_s": init_s,
-           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "runs": runs}
+    peak = {"phases_5_7_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # phase 8: the other families. (a) the families run on the moe, qk-norm
+    # and vlm archs beside the nemotron engine; (b) their prefix path; (c)
+    # the FLAGSHIP deployment, kimi-k2 at one layer, once nemotron and the
+    # families' engines are freed; (d) whisper-tiny's encoder-decoder
+    torch.cuda.reset_peak_memory_stats()
+    fam, fam_init_s, fam_params = build_families(torch, engines)
+    runs["families"] = serve(torch, fam, "families", PHASE8_ENV, PHASE8_TASKS,
+                             PlanAct({"method": "apc"}), PHASE8_EXPECT["families"], ATTN)
+    check_served("families", runs["families"], FAMILIES_ROLES)
+    check_outputs(torch, fam)
+    prefix_families = serve_prefix_families(torch, fam)
+    runs["families"].update(init_s=fam_init_s, params=fam_params)
+    peak["families_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[families] peak memory {peak['families_gib']:.2f} GiB")
+    del fam
+    engines.pop("large_planner")  # nemotron: no later phase runs it
+    free_memory(torch)
+    log(f"[flagship] nemotron and the families' engines freed: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    flag, flag_init_s, flag_params = build_flagship(torch, engines)
+    runs["flagship"] = serve(torch, flag, "flagship", PHASE8_ENV, PHASE8_TASKS,
+                             PlanAct({"method": "apc"}), PHASE8_EXPECT["flagship"], ATTN)
+    check_served("flagship", runs["flagship"], ("large_planner",))
+    check_outputs(torch, flag)
+    runs["flagship"].update(init_s=flag_init_s, params=flag_params, depth=FLAGSHIP_DEPTH)
+    peak["flagship_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[flagship] peak memory {peak['flagship_gib']:.2f} GiB")
+    del flag
+    free_memory(torch)
+    whisper = check_whisper(torch)
+    srv = {"init_s": init_s, "max_memory_allocated_gib": max(peak.values()),
+           "peak_memory_gib": peak, "prefix_families": prefix_families,
+           "whisper": whisper, "runs": runs}
 
     # per kernel: the representative shape of its path (the attention
     # kernels: nemotron's layout; top-k: the agent's 8 padded queries against
@@ -1926,7 +2299,7 @@ def main() -> int:
             **({"library": row["library"]} if "library" in row else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
-        f"{srv['max_memory_allocated_gib']:.2f} GiB")
+        f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))

@@ -1,1 +1,2 @@
-"""Config package: the dense model configs of the serving path + registry."""
+"""Config package: the model configs of every family the port serves, the
+APC deployments and the registry."""

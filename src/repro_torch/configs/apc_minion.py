@@ -5,7 +5,7 @@ small planner and the actor, and GPT-4o-mini for keyword extraction / cache
 generation. Here the tiers are drawn from the open model zoo, preserving
 the size ordering:
 
-    large planner   : nemotron-4-15b
+    large planner   : nemotron-4-15b (largest dense) or kimi-k2 (MoE flagship)
     small planner   : olmo-1b
     actor           : qwen2.5-3b
     keyword/cachegen: olmo-1b
@@ -60,3 +60,6 @@ class APCDeployment:
 
 
 DEFAULT = APCDeployment()
+
+# Flagship-scale variant: trillion-param MoE as the large planner.
+FLAGSHIP = APCDeployment(large_planner="kimi-k2-1t-a32b")

@@ -1,5 +1,6 @@
-"""Model configuration for the port: the dense, ssm and hybrid fields of
-``repro.configs.base.ModelConfig`` and its smoke reduction.
+"""Model configuration for the port: the fields of
+``repro.configs.base.ModelConfig`` that the port's families read (dense,
+moe, ssm, hybrid, vlm and audio), its sub-configs and its smoke reduction.
 
 Frozen dataclasses, as in the reference, so configs hash and compare.
 """
@@ -9,6 +10,26 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts layer configuration (GShard/Megablox-style)."""
+
+    num_experts: int
+    experts_per_token: int  # top-k
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # "dense": GShard one-hot dispatch einsums. "ep": expert parallelism in
+    # the reference; without a mesh (the port's only case) the exact
+    # dropless grouped path.
+    mode: str = "dense"
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+    # the reference's EP-path knobs, kept so configs compare equal; the port
+    # has no EP path yet
+    a2a_dtype: str = "auto"
+    dispatch_chunks: int = 1
 
 
 @dataclass(frozen=True)
@@ -23,9 +44,18 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower for enc-dec models (whisper)."""
+
+    num_layers: int
+    num_frames: int = 1500  # stub frontend emits this many frames
+    frame_dim: int = 384
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm | hybrid in this port
+    family: str  # dense | moe | ssm | vlm | hybrid | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,21 +65,28 @@ class ModelConfig:
     vocab_size: int
 
     # --- attention features ---
+    qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    rope_type: str = "rope"  # rope | mrope | none
     attn_logit_softcap: float = 0.0
 
     # --- mlp / norm features ---
-    mlp_act: str = "swiglu"  # swiglu | squared_relu
+    mlp_act: str = "swiglu"  # swiglu | squared_relu | gelu
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm | layernorm_np
     tie_embeddings: bool = False
 
-    # --- recurrent families ---
+    # --- optional subsystems ---
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
     # attn_every = 0: attention-free (ssm); 1: attention in every layer
     # (dense); k > 1: one shared attention block after every k SSM layers
     # (hybrid)
     attn_every: int = 1
+
+    # --- frontend stub (modality models) ---
+    frontend: str = "none"  # none | patch_embed | audio_frames
 
     # --- numerics ---
     dtype: str = "bfloat16"
@@ -78,8 +115,14 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         d_ff=256,
         vocab_size=512,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4, experts_per_token=2,
+                                        d_ff_expert=64)
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=16, head_dim=32, chunk_size=16)
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, num_layers=2, num_frames=16,
+                                            frame_dim=128)
     if cfg.attn_every > 1:
         kw["num_layers"] = 4
         kw["attn_every"] = 2

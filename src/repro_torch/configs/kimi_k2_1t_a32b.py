@@ -1,0 +1,36 @@
+"""kimi-k2-1t-a32b: trillion-parameter MoE (Kimi K2 paper-table config).
+
+[arXiv:2501.kimi2; unverified] — 61L d_model=7168 64H (GQA kv=8) d_ff=2048
+vocab=163840, MoE 384 experts top-8. ~1T total / ~32B active params.
+
+Mode "ep": expert parallelism in the reference; the port has no
+multi-device path yet, so it runs the exact grouped (dropless) path, as the
+reference does without a mesh. One H100 holds one layer at published width
+(about 38.8 GB in bf16), not 61.
+"""
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="kimi-k2-1t-a32b",
+    family="moe",
+    num_layers=61,
+    d_model=7168,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=2048,  # per-expert FFN width
+    vocab_size=163_840,
+    qk_norm=True,
+    mlp_act="swiglu",
+    norm_type="rmsnorm",
+    rope_theta=50_000.0,
+    moe=MoEConfig(
+        num_experts=384,
+        experts_per_token=8,
+        d_ff_expert=2048,
+        capacity_factor=1.25,
+        mode="ep",
+    ),
+    source="arXiv:2501.kimi2 (paper-table)",
+)

@@ -1,13 +1,26 @@
-"""Architecture registry for the port: the three dense archs of the APC
-deployment, the ssm arch (rwkv6-3b) and the hybrid arch (zamba2-2.7b).
-``get(name)`` returns the full-size config, ``get_smoke(name)`` the reduced
-CPU-smoke variant."""
+"""Architecture registry for the port: every arch of ``repro.configs.registry``
+— the three dense archs of the APC deployment, the ssm arch (rwkv6-3b), the
+hybrid arch (zamba2-2.7b), qwen3-4b (dense, qk-norm), the moe archs
+(granite-moe-1b-a400m, kimi-k2-1t-a32b), the vlm arch (qwen2-vl-7b) and the
+audio arch (whisper-tiny). ``get(name)`` returns the full-size config,
+``get_smoke(name)`` the reduced CPU-smoke variant."""
 
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import nemotron_4_15b, olmo_1b, qwen2_5_3b, rwkv6_3b, zamba2_2_7b
+from repro_torch.configs import (
+    granite_moe_1b_a400m,
+    kimi_k2_1t_a32b,
+    nemotron_4_15b,
+    olmo_1b,
+    qwen2_5_3b,
+    qwen2_vl_7b,
+    qwen3_4b,
+    rwkv6_3b,
+    whisper_tiny,
+    zamba2_2_7b,
+)
 from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 
 _MODULES = {
@@ -16,6 +29,11 @@ _MODULES = {
     "qwen2.5-3b": qwen2_5_3b,
     "rwkv6-3b": rwkv6_3b,
     "zamba2-2.7b": zamba2_2_7b,
+    "qwen3-4b": qwen3_4b,
+    "granite-moe-1b-a400m": granite_moe_1b_a400m,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
+    "qwen2-vl-7b": qwen2_vl_7b,
+    "whisper-tiny": whisper_tiny,
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     d_ff=8960,
     vocab_size=65_536,
     attn_every=0,  # attention-free
+    rope_type="none",
     mlp_act="squared_relu",  # rwkv channel-mix uses relu^2
     norm_type="layernorm",
     ssm=SSMConfig(state_dim=64, head_dim=64, chunk_size=128),

@@ -72,8 +72,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check("flash_attention", code)
     flash_attention.launches += 1
     flash_attention.launches_by_hd[hd] += 1
+    flash_attention.launches_by_causal[bool(causal)] += 1
     return o
 
 
 flash_attention.launches = 0  # launches since the last reset
 flash_attention.launches_by_hd = collections.Counter()  # the same, by head dim
+flash_attention.launches_by_causal = collections.Counter()  # the same, by causal

@@ -12,6 +12,8 @@ the cache gathered in table order. Its plain version is
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _build
@@ -77,7 +79,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         )
     _build.check("paged_decode_attention", code)
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_hd[hd] += 1
     return o
 
 
 paged_decode_attention.launches = 0  # launches since the last reset
+paged_decode_attention.launches_by_hd = collections.Counter()  # the same, by head dim

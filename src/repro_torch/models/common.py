@@ -1,6 +1,5 @@
 """Shared layers: norms, activations, the MLP block, token shift, dtype and
-device helpers (the parts of ``repro.models.common`` the port's families
-use)."""
+device helpers (the port of ``repro.models.common``)."""
 
 from __future__ import annotations
 
@@ -111,6 +110,18 @@ def squared_relu(x):
     return r * r
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation, not torch's exact
+    erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_act_fn(name: str):
+    """The activation of a non-gated MLP (swiglu is gate * up, built by the
+    caller)."""
+    return {"squared_relu": squared_relu, "gelu": gelu}[name]
+
+
 def mlp_init(cfg, generator, device, d_model: int, d_ff: int) -> Params:
     dt = dtype_of(cfg.param_dtype)
     p: Params = {}
@@ -124,8 +135,6 @@ def mlp_init(cfg, generator, device, d_model: int, d_ff: int) -> Params:
 def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    elif cfg.mlp_act == "squared_relu":
-        h = squared_relu(x @ p["w_up"])
     else:
-        raise ValueError(cfg.mlp_act)
+        h = mlp_act_fn(cfg.mlp_act)(x @ p["w_up"])
     return h @ p["w_down"]

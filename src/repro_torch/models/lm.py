@@ -1,18 +1,25 @@
-"""Language model: init, forward/prefill and decode for the dense, ssm
-(rwkv6) and hybrid (zamba2) families of ``repro.models.lm``.
+"""Language model: init, forward/prefill and decode for every family of
+``repro.models.lm``: dense (with qk-norm: qwen3-4b), moe (granite-moe,
+kimi-k2), ssm (rwkv6), hybrid (zamba2), vlm (qwen2-vl: M-RoPE and the
+``embeds`` input of its stub frontend) and audio (whisper: encoder-decoder
+with cross-attention over the stub frontend's ``frames``).
 
 Parameters are a plain dict, as in the reference, with weights in the
 reference's (in, out) orientation (used as ``x @ W``). The reference stacks
 the layers on a leading L axis (hybrid: (G, attn_every)) and runs them
 under ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts
-(hybrid: a list of G groups, each a list of ``attn_every`` layer dicts),
-looped in Python. The hybrid family's one shared attention block is
-``params["shared_attn"]``, a dense layer applied after every group.
+(hybrid: a list of G groups, each a list of ``attn_every`` layer dicts;
+audio: ``enc_blocks`` and ``dec_blocks``), looped in Python. The hybrid
+family's one shared attention block is ``params["shared_attn"]``, a dense
+layer applied after every group. A moe layer holds ``moe`` (router and
+(E, D, F) experts, ``models/moe.py``) where a dense layer holds ``mlp``.
 
 Caches are dicts with a Python int ``length``:
 
-* dense: ``kv_k``/``kv_v`` (L, B, M, Hkv, hd), bf16 when ``cfg.dtype ==
-  "bfloat16"``;
+* dense, moe, vlm: ``kv_k``/``kv_v`` (L, B, M, Hkv, hd), bf16 when
+  ``cfg.dtype == "bfloat16"``;
+* audio: the decoder's ``kv_k``/``kv_v`` as above and the cross-attention
+  K/V of the encoder output, ``cross_k``/``cross_v`` (L, B, T, Hkv, hd);
 * ssm: ``ssm_state`` (L, B, H, N, N) fp32 and the token-shift carries
   ``shift_tm``/``shift_cm`` (L, B, D) in ``cfg.dtype``;
 * hybrid: ``ssm_state`` (G, per, B, heads, P, Ns) fp32, ``conv``
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (
     Params,
@@ -43,10 +51,11 @@ from repro_torch.models.common import (
     mlp_init,
     norm_param_init,
 )
-from repro_torch.models.rope import rope_angles
+from repro_torch.models.rope import positions_for_rope
 
 Cache = Dict[str, Any]
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+DEC_POS_ROWS = 32_776  # whisper's learned decoder positions (the reference's table)
 
 
 # ===========================================================================
@@ -76,6 +85,17 @@ def _norms(cfg, names, device) -> Params:
 def _dense_layer_init(cfg, generator, device) -> Params:
     p = _norms(cfg, ("ln1", "ln2"), device)
     p["attn"] = attn.attn_init(cfg, generator, device)
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_init(cfg, generator, device)
+    else:
+        p["mlp"] = mlp_init(cfg, generator, device, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _whisper_dec_layer_init(cfg, generator, device) -> Params:
+    p = _norms(cfg, ("ln1", "ln2", "ln3"), device)
+    p["attn"] = attn.attn_init(cfg, generator, device)
+    p["cross"] = attn.cross_attn_init(cfg, generator, device)
     p["mlp"] = mlp_init(cfg, generator, device, cfg.d_model, cfg.d_ff)
     return p
 
@@ -96,15 +116,23 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
     """Random parameters on ``device``: ``0.02 * N(0, 1)`` drawn in fp32 and
     cast to ``param_dtype``, one tensor at a time; norm scales 1 and biases
     0 in fp32 (the reference's distribution; the rwkv and mamba mixers
-    draw theirs, see ``rwkv_init`` and ``mamba_init``). ``generator`` must
-    live on ``device``."""
+    draw theirs, see ``rwkv_init`` and ``mamba_init``; whisper's ``dec_pos``
+    is drawn at 0.01). ``generator`` must live on ``device``."""
     _check_family(cfg)
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device)}
     p.update(_norms(cfg, ("final",), device))
     if not cfg.tie_embeddings:
         p["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), dt, device)
-    if cfg.family == "ssm":  # rwkv6
+    if cfg.family == "audio":  # whisper
+        p["enc_blocks"] = [_dense_layer_init(cfg, generator, device)  # attention + MLP
+                           for _ in range(cfg.encoder.num_layers)]
+        p["dec_blocks"] = [_whisper_dec_layer_init(cfg, generator, device)
+                           for _ in range(cfg.num_layers)]
+        p.update(_norms(cfg, ("enc_final",), device))
+        p["dec_pos"] = dense_init(generator, (DEC_POS_ROWS, cfg.d_model), dt, device,
+                                  scale=0.01)
+    elif cfg.family == "ssm":  # rwkv6
         p["blocks"] = [_rwkv_layer_init(cfg, generator, device)
                        for _ in range(cfg.num_layers)]
         p.update(_norms(cfg, ("ln0",), device))
@@ -136,18 +164,25 @@ def _tree_map(fn, tree):
 def params_from_jax(cfg, params_np: Params) -> Params:
     """The port's (CPU) parameters from a ``repro.models.lm.init_params``
     pytree given as numpy arrays. Unstacks the leading layer axis of
-    ``params_np["blocks"]`` into per-layer dicts (hybrid: the two leading
-    axes (G, attn_every) into groups of layer dicts); keeps the (in, out)
-    orientation, the dtypes (bf16 via a uint16 view) and the names."""
+    ``params_np["blocks"]`` (audio: ``enc_blocks`` and ``dec_blocks``) into
+    per-layer dicts (hybrid: the two leading axes (G, attn_every) into
+    groups of layer dicts); keeps the (in, out) orientation, the dtypes
+    (bf16 via a uint16 view) and the names."""
     _check_family(cfg)
-    out = {k: _tree_map(_from_numpy, v) for k, v in params_np.items() if k != "blocks"}
-    stacked = _tree_map(_from_numpy, params_np["blocks"])
-    if cfg.family == "hybrid":
-        out["blocks"] = [[_tree_map(lambda t: t[g, i].clone(), stacked)
-                          for i in range(cfg.attn_every)] for g in range(_groups(cfg))]
-    else:
-        out["blocks"] = [_tree_map(lambda t: t[i].clone(), stacked)
-                         for i in range(cfg.num_layers)]
+    stacks = ("enc_blocks", "dec_blocks") if cfg.family == "audio" else ("blocks",)
+    out = {k: _tree_map(_from_numpy, v) for k, v in params_np.items() if k not in stacks}
+
+    def unstack(tree, n):
+        return [_tree_map(lambda t: t[i].clone(), tree) for i in range(n)]
+
+    for name in stacks:
+        stacked = _tree_map(_from_numpy, params_np[name])
+        if cfg.family == "hybrid":
+            out[name] = [unstack(_tree_map(lambda t: t[g], stacked), cfg.attn_every)
+                         for g in range(_groups(cfg))]
+        else:
+            n = cfg.encoder.num_layers if name == "enc_blocks" else cfg.num_layers
+            out[name] = unstack(stacked, n)
     return out
 
 
@@ -161,9 +196,10 @@ def params_to(params: Params, device) -> Params:
 # ===========================================================================
 
 
-def init_cache(cfg, batch: int, max_len: int, device) -> Cache:
+def init_cache(cfg, batch: int, max_len: int, device, *, enc_len: int = 0) -> Cache:
     """Zeroed cache for ``batch`` sequences of up to ``max_len`` tokens
-    (the layouts are in the module's docstring)."""
+    (the layouts are in the module's docstring); audio's cross K/V hold
+    ``enc_len`` encoder positions (default ``encoder.num_frames``)."""
     _check_family(cfg)
     dt = dtype_of(cfg.dtype)
     f32 = torch.float32
@@ -189,6 +225,11 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Cache:
     shape = (n_kv, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     c["kv_k"] = torch.zeros(shape, dtype=dt, device=device)
     c["kv_v"] = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.family == "audio":
+        shape = (n_kv, batch, enc_len or cfg.encoder.num_frames, cfg.num_kv_heads,
+                 cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return c
 
 
@@ -210,6 +251,29 @@ def _embed(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(dtype_of(cfg.dtype))
 
 
+def _embed_inputs(cfg, params: Params, tokens, embeds, positions):
+    """(x (B, S, D), positions) from token ids, or from the vlm stub
+    frontend's precomputed ``embeds`` (B, S, D) with optional ``positions``
+    ((B, S), or (3, B, S) for M-RoPE); positions default to 0..S-1."""
+    if embeds is not None:
+        x = embeds.to(dtype_of(cfg.dtype))
+    else:
+        _check_ids(cfg, tokens)
+        x = _embed(cfg, params, tokens)
+    if positions is None:
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def _ffn_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The layer's MLP, or its MoE where it has one (the aux loss, which
+    only training reads, is dropped)."""
+    if "moe" in p:
+        return moe_mod.moe_forward(cfg, p["moe"], x)[0]
+    return mlp_forward(cfg, p["mlp"], x)
+
+
 def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params, "final", x)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
@@ -222,28 +286,36 @@ def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin):
-    """One dense layer (attention + MLP) over a sequence. Returns (x, k, v)."""
+    """One dense or moe layer (attention + MLP/MoE) over a sequence.
+    Returns (x, k, v)."""
     h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin)
     x = x + h
-    x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+    x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
     return x, k, v
 
 
 def forward(
     cfg,
     params: Params,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
     *,
+    embeds: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    frames: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence forward. Returns (logits (B, S, V), cache-or-None);
-    the cache covers ``cache_len`` positions (default S) with S filled. The
+    """Full-sequence forward of ``tokens`` (B, S), or of the vlm stub
+    frontend's ``embeds`` (B, S, D) with ``positions`` ((3, B, S) for
+    M-RoPE); audio takes the decoder's ``tokens`` and the stub frontend's
+    ``frames`` (B, T, D). Returns (logits (B, S, V), cache-or-None); the
+    cache covers ``cache_len`` positions (default S) with S filled. The
     recurrent families start from a zero state (``lm.py:315-318`` and
     ``:387`` of the reference)."""
     _check_family(cfg)
-    _check_ids(cfg, tokens)
-    x = _embed(cfg, params, tokens)
+    if cfg.family == "audio":
+        return _whisper_forward(cfg, params, tokens, frames, want_cache, cache_len)
+    x, pos = _embed_inputs(cfg, params, tokens, embeds, positions)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, cache_len or S, x.device) if want_cache else None
     if cfg.family == "ssm":
@@ -260,8 +332,7 @@ def forward(
                 cache["shift_tm"][i] = sh_tm
                 cache["shift_cm"][i] = sh_cm
     else:
-        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+        cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
         if cfg.family == "hybrid":
             shared = params["shared_attn"]
             for g, group in enumerate(params["blocks"]):
@@ -287,9 +358,54 @@ def forward(
     return _logits(cfg, params, x), cache
 
 
-def prefill(cfg, params: Params, tokens: torch.Tensor,
-            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    return forward(cfg, params, tokens, want_cache=True, cache_len=cache_len)
+def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len):
+    """Encoder over the stub frames (sinusoidal positions, bidirectional
+    attention), then the decoder over ``tokens`` (learned positions,
+    causal self-attention, cross-attention to the encoder output)."""
+    if frames is None or tokens is None:
+        raise ValueError(f"{cfg.name}: the audio family takes frames (B, T, D) and tokens")
+    _check_ids(cfg, tokens)
+    dt = dtype_of(cfg.dtype)
+    frames = frames.to(dt)
+    B, T, _ = frames.shape
+    S = tokens.shape[1]
+    # sinusoidal encoder positions, in fp32 as the reference forms them
+    half = cfg.d_model // 2
+    step = torch.log(torch.tensor(10_000.0)) / (half - 1)
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(frames.device)
+    ang = torch.arange(T, dtype=torch.float32, device=frames.device)[:, None] * freq
+    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1)[None].to(dt)
+    for p in params["enc_blocks"]:
+        h, _ = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None, None,
+                                  causal=False)
+        x = x + h
+        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+    enc_out = apply_norm(cfg, params, "enc_final", x)
+
+    x = _embed(cfg, params, tokens) + params["dec_pos"][:S][None].to(dt)
+    cache = init_cache(cfg, B, cache_len or S, x.device, enc_len=T) if want_cache else None
+    for i, p in enumerate(params["dec_blocks"]):
+        h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None,
+                                       None)
+        x = x + h
+        ck, cv = attn.cross_attention_kv(cfg, p["cross"], enc_out)
+        x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x), ck, cv)
+        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x))
+        if cache is not None:
+            cache["kv_k"][i, :, :S] = k
+            cache["kv_v"][i, :, :S] = v
+            cache["cross_k"][i] = ck
+            cache["cross_v"][i] = cv
+    if cache is not None:
+        cache["length"] = S
+    return _logits(cfg, params, x), cache
+
+
+def prefill(cfg, params: Params, tokens: Optional[torch.Tensor] = None,
+            cache_len: Optional[int] = None, **inputs) -> Tuple[torch.Tensor, Cache]:
+    """``forward`` with the cache; ``inputs`` are its ``embeds``,
+    ``positions`` and ``frames``."""
+    return forward(cfg, params, tokens, want_cache=True, cache_len=cache_len, **inputs)
 
 
 def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Tensor,
@@ -305,8 +421,8 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
 
     prefix_k/v: (L, B, Sp, Hkv, hd) post-RoPE (Sp >= prefix_len; the
     overhang is page padding). Families that carry recurrent state can't
-    re-enter a stored prefix mid-stream: dense only here (the reference
-    also takes moe and vlm, which the port does not have yet).
+    re-enter a stored prefix mid-stream: dense, moe and vlm only (vlm with
+    text positions, replicated over M-RoPE's three streams).
     """
     if cfg.family in ("audio", "ssm", "hybrid"):
         raise NotImplementedError(
@@ -322,7 +438,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     if M < total:
         raise ValueError(f"cache_len {M} < prefix_len + suffix {total}")
     pos = prefix_len + torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
     cache = init_cache(cfg, B, M, x.device)
     cache["kv_k"][:, :, :prefix_len] = prefix_k[:, :, :prefix_len]
     cache["kv_v"][:, :, :prefix_len] = prefix_v[:, :, :prefix_len]
@@ -330,7 +446,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
         h, (k, v) = attn.attention_extend(cfg, p["attn"], apply_norm(cfg, p, "ln1", x),
                                           cos, sin, prefix_k[i], prefix_v[i], prefix_len)
         x = x + h
-        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+        x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
         cache["kv_k"][i, :, prefix_len:total] = k
         cache["kv_v"][i, :, prefix_len:total] = v
     cache["length"] = total
@@ -344,9 +460,10 @@ def decode_step(cfg, params: Params, cache: Cache,
     lm.py:601-604): its K/V goes to slot ``min(length, M - 1)`` (the
     reference's clamp, attention.py:256) and every row attends over the
     slots up to it. The recurrent families step their state with plain
-    PyTorch (``wkv6_step``, ``ssd_step``), as the reference does. Returns
-    (logits (B, 1, V), cache) — the cache tensors are updated in place and
-    returned with ``length + 1``."""
+    PyTorch (``wkv6_step``, ``ssd_step``), as the reference does; audio
+    adds the learned position of ``length`` and attends over the cached
+    cross K/V. Returns (logits (B, 1, V), cache) — the cache tensors are
+    updated in place and returned with ``length + 1``."""
     _check_family(cfg)
     length = int(cache["length"])
     x = _embed(cfg, params, tokens)
@@ -366,17 +483,28 @@ def decode_step(cfg, params: Params, cache: Cache,
             x = x + y
         return _logits(cfg, params, x[:, None]), dict(cache, length=length + 1)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
-    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
     slot = min(length, cache["kv_k"].shape[2] - 1)
     lengths = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
 
-    def dense_layer(p, x, i):
-        h = attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin,
-                                  cache["kv_k"][i], cache["kv_v"][i], slot, lengths)
-        x = x + h
-        return x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
+    def self_attn(p, x, i):
+        return x + attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos,
+                                         sin, cache["kv_k"][i], cache["kv_v"][i], slot,
+                                         lengths)
 
-    if cfg.family == "hybrid":
+    def dense_layer(p, x, i):
+        x = self_attn(p, x, i)
+        return x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
+
+    if cfg.family == "audio":
+        rows = params["dec_pos"].shape[0]
+        x = x + params["dec_pos"][min(length, rows - 1)].to(x.dtype)
+        for i, p in enumerate(params["dec_blocks"]):
+            x = self_attn(p, x, i)
+            x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x),
+                                         cache["cross_k"][i], cache["cross_v"][i])
+            x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x))
+    elif cfg.family == "hybrid":
         x = x[:, 0]
         for g, group in enumerate(params["blocks"]):
             for i, p in enumerate(group):

@@ -15,6 +15,10 @@ The prefix path gathers the pooled pages into a dense cache and decodes
 with the dense decode kernel, as the reference does; the paged decode
 kernel reads the same pool through a page table beside it.
 
+An engine serves token prompts, so it takes every family but audio:
+whisper's decoder needs the stub frontend's frames, and its entry points
+are ``lm.prefill(..., frames=)`` and ``lm.decode_step``.
+
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
 measure device work, not kernel-launch time. Under a tracer
@@ -63,6 +67,11 @@ class EngineStats:
 class Engine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int = 512,
                  device=None, kv_prefix: Optional[KVPrefixCache] = None):
+        if cfg.family == "audio":
+            raise ValueError(
+                f"{cfg.name}: an Engine serves token prompts; the audio family also "
+                "needs the frontend's frames: call lm.prefill(cfg, params, tokens, "
+                "frames=...) and lm.decode_step instead")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = lm.params_to(params, self.device)

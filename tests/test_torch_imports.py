@@ -55,5 +55,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.obs.names", "repro_torch.obs.registry", "repro_torch.obs.spans",
               "repro_torch.obs.attribution", "repro_torch.obs.exporters",
               "repro_torch.core.journal", "repro_torch.core.speculative",
-              "repro_torch.core.distributed_cache", "repro_torch.serving.scheduler"):
+              "repro_torch.core.distributed_cache", "repro_torch.serving.scheduler",
+              "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
+              "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.qwen3_4b",
+              "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.whisper_tiny"):
         assert m in mods

@@ -1,6 +1,8 @@
-"""The port's models (``repro_torch.models``: the dense family, rwkv6-3b's
-ssm family and zamba2-2.7b's hybrid family) against ``repro.models`` on the
-CPU, at smoke size, on the same weights and inputs.
+"""The port's models (``repro_torch.models``: the dense family with and
+without qk-norm, rwkv6-3b's ssm family, zamba2-2.7b's hybrid family, the moe
+family (granite-moe, kimi-k2), qwen2-vl's vlm family with M-RoPE and the
+``embeds`` input, and whisper's audio encoder-decoder) against
+``repro.models`` on the CPU, at smoke size, on the same weights and inputs.
 
 Weights are drawn by ``repro.models.lm.init_params`` and carried across
 with ``params_from_jax``; inputs come from numpy with a fixed seed. The
@@ -32,6 +34,11 @@ torch.set_num_threads(2)
 
 ARCHS = ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b"]
 RECURRENT = ["rwkv6-3b", "zamba2-2.7b"]
+# the token archs of the other families: qk-norm (qwen3-4b, kimi-k2), moe in
+# GShard dense mode (granite) and in ep mode without a mesh (kimi-k2: the
+# grouped path), M-RoPE (qwen2-vl)
+FAMILY_ARCHS = ["qwen3-4b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "qwen2-vl-7b"]
+AUDIO = "whisper-tiny"
 VOCAB = 50_304
 # f32: both sides compute in f32 and differ in summation order only.
 # bf16: activations round to bf16 after every op on both sides, at places
@@ -72,7 +79,7 @@ def _fields_equal(t, j):
             assert tv == jv, f.name
 
 
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT + FAMILY_ARCHS + [AUDIO])
 def test_configs_match_reference(arch):
     """The port's configs carry the reference's values on every field
     they share, at full size and smoke size."""
@@ -209,7 +216,7 @@ def test_params_from_jax_round_trips(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_prefill_and_decode_match_reference(arch, dtype):
     """Prefill logits and cache, then 8 teacher-forced decode steps, on the
     same weights: the port's lm against repro.models.lm."""
@@ -433,3 +440,200 @@ def test_hybrid_needs_one_whole_group():
     cfg = dataclasses.replace(tregistry.get_smoke("zamba2-2.7b"), num_layers=1)
     with pytest.raises(ValueError, match="no group"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+# -- the other families: qk-norm, moe, vlm (M-RoPE, embeds), audio ------------
+
+
+def test_registry_has_every_reference_arch():
+    assert sorted(tregistry.ARCH_NAMES) == sorted(jregistry.ARCH_NAMES)
+    assert set(tlm.FAMILIES) == {jregistry.get(a).family for a in jregistry.ARCH_NAMES}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS + [AUDIO])
+def test_params_from_jax_new_layouts(arch):
+    """Every leaf of the new layouts crosses exactly, bf16: the moe router
+    in f32 and its (E, D, F) / (E, F, D) experts per layer, the qk-norm
+    scales in f32, qwen2-vl's QKV biases, whisper's enc_blocks / dec_blocks
+    (with ``cross``), enc_final and dec_pos; the port's own init gives the
+    same names, shapes and dtypes."""
+    jcfg, tcfg = _cfgs(arch, "bfloat16")
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(4))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    assert set(pt) == set(pj)
+    stacks = [k for k in pj if k.endswith("blocks")]
+    for name in stacks:
+        for path, leaf in jax.tree_util.tree_flatten_with_path(pj[name])[0]:
+            keys = [p.key for p in path]
+            assert len(pt[name]) == leaf.shape[0]
+            for i in range(leaf.shape[0]):
+                got = pt[name][i]
+                for k in keys:
+                    got = got[k]
+                want = np.asarray(leaf[i])
+                assert str(got.dtype).endswith(want.dtype.name), (name, keys)
+                np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+    for k in set(pj) - set(stacks):
+        np.testing.assert_array_equal(pt[k].float().numpy(), np.asarray(pj[k], np.float32))
+    own = tlm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+
+    def layout(tree):
+        return {k: layout(v) if isinstance(v, dict) else
+                [layout(x) for x in v] if isinstance(v, list) else (tuple(v.shape), v.dtype)
+                for k, v in tree.items()}
+
+    assert layout(own) == layout(pt)
+    layer = pt["dec_blocks" if arch == AUDIO else "blocks"][1]
+    if tcfg.moe is not None:
+        assert layer["moe"]["router"].dtype == torch.float32
+        assert layer["moe"]["w_up"].shape == (tcfg.moe.num_experts, tcfg.d_model,
+                                              tcfg.moe.d_ff_expert)
+    if tcfg.qk_norm:
+        assert layer["attn"]["q_norm_scale"].dtype == torch.float32
+    if arch == AUDIO:
+        assert len(pt["enc_blocks"]) == tcfg.encoder.num_layers and "cross" in layer
+        assert pt["dec_pos"].shape == (tlm.DEC_POS_ROWS, tcfg.d_model)
+
+
+def test_mrope_and_gelu_match_reference():
+    """positions_for_rope: M-RoPE from distinct (3, B, S) streams and from
+    text (B, S) positions (replicated), standard RoPE, and "none"; the MLP's
+    gelu is jax's tanh form."""
+    jcfg, tcfg = _cfgs("qwen2-vl-7b")
+    rs = np.random.RandomState(3)
+    pos3 = rs.randint(0, 300, (3, 2, 9)).astype(np.int32)
+    for pos in (pos3, pos3[0]):
+        cj, sj = jrope.positions_for_rope(jcfg, jnp.asarray(pos), 128)
+        ct, st = trope.positions_for_rope(tcfg, torch.from_numpy(pos), 128)
+        _close(ct, cj, 1e-5)
+        _close(st, sj, 1e-5)
+    assert trope.mrope_sections(128) == jrope.mrope_sections(128) == (16, 24, 24)
+    none = dataclasses.replace(tcfg, rope_type="none")
+    assert trope.positions_for_rope(none, torch.from_numpy(pos3[0]), 128) == (None, None)
+    x = rs.standard_normal((4, 64)).astype(np.float32) * 3
+    _close(tcommon.gelu(torch.from_numpy(x)), jax.nn.gelu(jnp.asarray(x)), 1e-6)
+    assert (tcommon.gelu(torch.from_numpy(x)) - torch.nn.functional.gelu(
+        torch.from_numpy(x))).abs().max() > 1e-5  # not torch's exact-erf default
+
+
+def _vlm_inputs(cfg, B=2, S=10, seed=15):
+    """Stub-frontend embeds and distinct (temporal, height, width) streams."""
+    rs = np.random.RandomState(seed)
+    emb = rs.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    t = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    pos = np.stack([t, t // 3, (t * 7) % 5]).astype(np.int32)
+    return emb, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_embeds_with_mrope_positions_match_reference(dtype):
+    """qwen2-vl through the stub frontend's embeds with distinct (3, B, S)
+    positions: forward and prefill logits and the prefill cache, then 3
+    teacher-forced text decode steps, against repro.models.lm."""
+    jcfg, tcfg = _cfgs("qwen2-vl-7b", dtype)
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(16))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    emb, pos = _vlm_inputs(tcfg)
+    tol = TOL[dtype]
+    batch = {"embeds": jnp.asarray(emb), "positions": jnp.asarray(pos)}
+    lj, cj = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, cache_len=16))(pj, batch)
+    lt, ct = tlm.prefill(tcfg, pt, embeds=torch.from_numpy(emb),
+                         positions=torch.from_numpy(pos), cache_len=16)
+    _close(lt, lj, tol)
+    _close(ct["kv_k"], cj["kv_k"], tol)
+    toks = np.random.RandomState(17).randint(3, VOCAB, (2, 3)).astype(np.int32)
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jcfg, p, c, t))
+    for i in range(3):
+        lj, cj = step(pj, cj, jnp.asarray(toks[:, i:i + 1]))
+        lt, ct = tlm.decode_step(tcfg, pt, ct, torch.from_numpy(toks[:, i:i + 1]))
+        _close(lt, lj, tol)
+
+
+def test_mrope_positions_change_output():
+    """M-RoPE reads the 3D position streams: another height stream changes
+    the logits (tests/test_models.py's check, on the port's own init: at
+    0.02-scale weights the change is ~6e-5, far above the 0 that recomputing
+    the same positions gives)."""
+    _, cfg = _cfgs("qwen2-vl-7b")
+    p = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S = 1, 8
+    emb = torch.randn(B, S, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    pos1 = torch.arange(S, dtype=torch.int32)[None, None].expand(3, B, S)
+    pos2 = pos1.clone()
+    pos2[1] = pos1[1] * 3
+    l1, _ = tlm.forward(cfg, p, embeds=emb, positions=pos1)
+    l2, _ = tlm.forward(cfg, p, embeds=emb, positions=pos2)
+    assert (l1 - l2).abs().max().item() > 1e-5
+    l0, _ = tlm.forward(cfg, p, embeds=emb)  # default: 0..S-1 on every stream
+    assert torch.equal(l0, l1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_forward_prefill_decode_match_reference(dtype):
+    """whisper-tiny at smoke size (2 encoder and 2 decoder layers, 16
+    frames): forward logits, prefill logits and every cache tensor (self
+    and cross K/V), 3 teacher-forced decode steps and the final caches,
+    against repro.models.lm."""
+    jcfg, tcfg = _cfgs(AUDIO, dtype)
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(18))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    B, S, M = 2, 9, 16
+    rs = np.random.RandomState(19)
+    frames = rs.standard_normal((B, tcfg.encoder.num_frames, tcfg.d_model)).astype(np.float32)
+    toks = rs.randint(3, VOCAB, (B, S + 3)).astype(np.int32)
+    tol = TOL[dtype]
+    batch = {"frames": jnp.asarray(frames), "tokens": jnp.asarray(toks[:, :S])}
+    lj, _, _ = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(pj, batch)
+    lt, none = tlm.forward(tcfg, pt, torch.from_numpy(toks[:, :S]),
+                           frames=torch.from_numpy(frames))
+    assert none is None
+    _close(lt, lj, tol)
+    lj, cj = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, cache_len=M))(pj, batch)
+    lt, ct = tlm.prefill(tcfg, pt, torch.from_numpy(toks[:, :S]), cache_len=M,
+                         frames=torch.from_numpy(frames))
+    assert set(ct) == set(cj) and ct["length"] == int(cj["length"]) == S
+    for name in ct:
+        if name != "length":
+            assert tuple(ct[name].shape) == cj[name].shape, name
+            _close(ct[name], cj[name], tol)
+    _close(lt, lj, tol)
+    step = jax.jit(lambda p, c, t: jlm.decode_step(jcfg, p, c, t))
+    for i in range(3):
+        t_in = toks[:, S + i:S + i + 1]
+        lj, cj = step(pj, cj, jnp.asarray(t_in))
+        lt, ct = tlm.decode_step(tcfg, pt, ct, torch.from_numpy(t_in))
+        assert ct["length"] == int(cj["length"]) == S + i + 1
+        _close(lt, lj, tol)
+    for name in ("kv_k", "kv_v"):
+        _close(ct[name], cj[name], tol)
+    with pytest.raises(ValueError, match="frames"):
+        tlm.prefill(tcfg, pt, torch.from_numpy(toks[:, :S]))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b", "qwen2-vl-7b"])
+def test_prefill_extend_matches_reference(arch):
+    """The suffix-only prefill of the moe and vlm families against a
+    prefix's K/V: logits and the assembled cache against repro's
+    prefill_extend on the same prefix K/V (page padding past prefix_len
+    included), f32; then one decode step from the assembled cache."""
+    jcfg, tcfg = _cfgs(arch)
+    pj = jlm.init_params(jcfg, jax.random.PRNGKey(20))
+    pt = tlm.params_from_jax(tcfg, jax.tree.map(np.asarray, pj))
+    B, Sp, Ss, M = 2, 12, 5, 24
+    rs = np.random.RandomState(21)
+    toks = rs.randint(3, VOCAB, (B, Sp + Ss + 1)).astype(np.int32)
+    _, cj = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b, cache_len=16))(
+        pj, {"tokens": jnp.asarray(toks[:, :Sp])})
+    pk, pv = cj["kv_k"], cj["kv_v"]  # (L, B, 16, Hkv, hd): 4 positions of padding
+    lj, cej = jlm.prefill_extend(jcfg, pj, {"tokens": jnp.asarray(toks[:, Sp:Sp + Ss])},
+                                 pk, pv, Sp, cache_len=M)
+    lt, cet = tlm.prefill_extend(tcfg, pt, torch.from_numpy(toks[:, Sp:Sp + Ss]), _t(pk),
+                                 _t(pv), Sp, cache_len=M)
+    assert cet["length"] == int(cej["length"]) == Sp + Ss
+    _close(lt, lj, TOL["float32"])
+    _close(cet["kv_k"], cej["kv_k"], TOL["float32"])
+    _close(cet["kv_v"], cej["kv_v"], TOL["float32"])
+    t_in = toks[:, -1:]
+    lj, _ = jlm.decode_step(jcfg, pj, cej, jnp.asarray(t_in))
+    lt, _ = tlm.decode_step(tcfg, pt, cet, torch.from_numpy(t_in))
+    _close(lt, lj, TOL["float32"])

@@ -89,7 +89,8 @@ def test_engine_prefill_counts_only_valid_tokens():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b", "rwkv6-3b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "granite-moe-1b-a400m", "qwen3-4b",
+                                  "qwen2-vl-7b", "kimi-k2-1t-a32b"])
 def test_greedy_generate_token_identical_to_reference(arch):
     """f32, same weights (carried from the reference's init), same prompts:
     the port's greedy tokens equal the reference engine's."""
@@ -151,6 +152,20 @@ def test_engine_config_widens_narrow_vocabularies_only():
                                            vocab_size=max(50_304, registry.get(arch).vocab_size))
     assert engine_config("zamba2-2.7b", full=True).vocab_size == 50_304
     assert engine_config("rwkv6-3b", full=True).vocab_size == 65_536
+    # granite's published 49,155 widens too; it ties its embeddings, so the
+    # widened table is also its head
+    granite = engine_config("granite-moe-1b-a400m", full=True)
+    assert granite.vocab_size == 50_304 and granite.tie_embeddings
+    assert engine_config("kimi-k2-1t-a32b", full=True).vocab_size == 163_840
+
+
+def test_engine_refuses_the_audio_family():
+    """An Engine serves token prompts; whisper also needs the frontend's
+    frames, so an audio Engine raises and names lm.prefill instead."""
+    cfg = registry.get_smoke("whisper-tiny")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="frames"):
+        Engine(cfg, params, max_len=32, device="cpu")
 
 
 def test_build_engines_takes_the_recurrent_archs():
