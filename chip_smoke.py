@@ -43,9 +43,10 @@ printing the ok line):
    on those engines, each with a fresh agent (``SERVE_RUNS``): ``apc``
    with exact matching; directly after it the ``accuracy_optimal``
    baseline, so that the paper's headline comparison reads two walls taken
-   under the same host load; ``apc`` with fuzzy matching at 0.6 on the ``device`` index (a bank on
-   the card searched by the top-k kernel); and the ``semantic`` baseline on
-   the ``device`` index. Each run's hits, accuracy and cost must equal the
+   under the same host load; then, with the deployment's deep archs cut to
+   ``LATER_DEPTHS`` (widths and seeds published), ``apc`` with fuzzy
+   matching at 0.6 on the ``device`` index (a bank on the card searched by
+   the top-k kernel) and the ``semantic`` baseline on the ``device`` index. Each run's hits, accuracy and cost must equal the
    reference's on the CPU (tests/test_torch_agent.py). Then the ``prefix``
    run on the same engines (``serve_prefix``): the paged KV prefix path of
    a second olmo-1b engine held to a full prefill, the two-tier router
@@ -53,17 +54,18 @@ printing the ok line):
    router's), and the paged decode kernel over the pool's live pages.
    Last the ``recurrent`` run: the 16 tasks with exact ``apc`` on a
    deployment whose small planner and keyword extractor are rwkv6-3b and
-   whose actor is zamba2-2.7b (full width, bf16, weights from their arch
-   seeds; zamba2's published 32,000-entry vocabulary widened to the
-   tokenizer's 50,304, as ``engine_config`` does), the large planner still
-   the nemotron-4-15b engine built above; every prefill scan runs on the
+   whose actor is zamba2-2.7b (full width, depth cut to ``LATER_DEPTHS``,
+   bf16, weights from their arch seeds; zamba2's published 32,000-entry
+   vocabulary widened to the tokenizer's 50,304, as ``engine_config``
+   does), the large planner the cut nemotron-4-15b engine; every prefill scan runs on the
    wkv6 or SSD kernel, zamba2's shared block on the attention kernels at
    hd 80. Before each run the kernels' launch counters are set to 0, and
    they are read just after: every kernel of the run's path must have
    risen, and in the recurrent run the attention kernels' hd-80 counts
-   must be positive multiples of the shared block's 9 applications;
+   must be positive multiples of the shared block's applications;
 6. the paper's baselines, its other workloads and its second agent, on the
-   ``DEFAULT`` engines of phase 5 (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
+   ``DEFAULT`` engines of phase 5, their deep archs cut to ``LATER_DEPTHS``
+   (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
    (8), ``cascade`` on 8 AIME tasks at default thresholds on the
    ``device`` index (its fuzzy and semantic stages on the top-k kernel),
    ``apc`` on 8 tasks each of TabMWP, QASPER and AIME, and the
@@ -84,12 +86,25 @@ printing the ok line):
    mark-down and a restart with read-repair; its counters pinned to the
    reference router's, its top-k launches to the index calls of the same
    stream on the CPU, its span forest checked, and the restart must not
-   grow the memory allocated on the card.
+   grow the memory allocated on the card;
+8. the other families (the moe, qk-norm and vlm archs served, their
+   prefix path, the FLAGSHIP deployment with kimi-k2 at one layer,
+   whisper-tiny card against CPU);
+9. the trainer (constants ``TRAIN_*`` to ``COLD_*`` state each check and
+   tolerance): (a) olmo-1b at published size trained through the port's
+   ``FaultTolerantRunner`` with its checkpoints (a temporary directory)
+   and one rollback from an injected NaN; (b) one step card against CPU;
+   (c) the trained weights served through the flash and decode kernels,
+   and every CUDA kernel wrapper refusing an input that requires grad;
+   (d) the plan cache's cold tier on the ``device`` index.
 
-Output: one ``{"kernels": [...]}`` line, one ``{"serve": {...}}`` line,
-one ``{"baselines": {...}}`` line, one ``{"obs": {...}}`` line (phase 7(b):
-counters, span counts, ``engine.generate`` p50/p99 per arch, the per-shard
-``cache.*`` series), the nvidia-smi line, and last
+Output: a ``[phase]`` line as each phase ends, one ``{"kernels": [...]}``
+line, one ``{"serve": {...}}`` line, one ``{"baselines": {...}}`` line, one
+``{"obs": {...}}`` line (phase 7(b): counters, span counts,
+``engine.generate`` p50/p99 per arch, the per-shard ``cache.*`` series),
+one ``{"train": {...}}`` line (phase 9: step seconds and tokens/s,
+checkpoint bytes, save and restore seconds, peak memory, the card-vs-CPU
+and served-logits errors, the cold runs), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
 ``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -249,9 +264,110 @@ FAMILIES_ROLES = {"small_planner": "granite-moe-1b-a400m", "keyword_extractor": 
 PHASE8_ENV, PHASE8_TASKS = "qasper", 8
 PHASE8_EXPECT = {"families": (2, 0.75, 0.1127), "flagship": (2, 0.75, 0.1127)}
 FLAGSHIP_DEPTH = 1  # kimi-k2's 61 layers are ~2 TB in bf16; one card holds 80 GB
+# every run after phase 5's headline pair (exact, accuracy_optimal: their
+# engines whole) serves these deep archs at these depths, each at its
+# published width and arch seed, to hold the script inside its time limit:
+# nemotron-4-15b the large planner (32 layers), qwen2.5-3b the actor (36),
+# and the recurrent run's rwkv6-3b (32) and zamba2-2.7b (54; 12 keeps two
+# applications of its shared block). Decode is host-bound, so a run's
+# seconds follow its layers. Hits, accuracy, cost, the censuses and the
+# router's counters do not depend on depth; flash and decode launches per
+# task do
+HEADLINE = ("exact", "accuracy_optimal")
+LATER_DEPTHS = {"nemotron-4-15b": 8, "qwen2.5-3b": 8, "rwkv6-3b": 8, "zamba2-2.7b": 12}
 # phase 4 checks kimi-k2 at its attention width with this many experts: 2
 # layers of all 384 are 135 GB in fp32
 MODEL_KIMI_EXPERTS = 16
+
+# phase 9, the trainer: (a) olmo-1b at published size (16 layers, d 2,048,
+# bf16 params) under launch/train.py's settings (AdamW lr 1e-3, fp32 state)
+# on its synthetic batches through the FaultTolerantRunner, a checkpoint
+# every 3 steps and 1 kept, a NaN injected at step 4: one rollback to step
+# 3, whose restored state must equal the saved one bit for bit and whose
+# re-run of step 4 must give the first try's loss within a relative 1e-3
+# (the card's atomics change the last bits);
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 64, 6, 1e-3
+TRAIN_CKPT_EVERY, TRAIN_KEEP_LAST, TRAIN_NAN_AT = 3, 1, 4
+TRAIN_SHARDS = 8  # checkpoint shards, written and read in parallel (8 host cores)
+TRAIN_RERUN_RTOL = 1e-3
+# (b) one step at olmo-1b's width cut to GRAD_LAYERS layers, fp32, batch
+# GRAD_BATCH x seq TRAIN_SEQ, card against CPU on the same weights and
+# batch: |loss diff| <= GRAD_LOSS_RTOL * |loss|, and each gradient's largest
+# |diff| <= GRAD_RTOL * its largest |g| on the CPU (both fp32, TF32 off: sums
+# in other orders only);
+GRAD_LAYERS, GRAD_BATCH = 2, 2
+GRAD_LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
+# (c) (a)'s final weights served by an Engine (bf16): the prefill logits
+# against the training path's forward on the same tokens within SERVED_TOL
+# of the largest |logit| (flash's bf16 P and tiling against the plain fp32
+# softmax), then SERVED_NEW greedy decode steps; each CUDA wrapper must
+# refuse an input that requires grad;
+SERVED_PROMPT, SERVED_NEW, SERVED_TOL = 48, 8, 2.0 ** -4
+# (d) the cold tier: tests/test_memory.py::test_cold_tier_conformance's op
+# stream (12 keys into 4 hot slots a node, looked up, one removed, cleared)
+# through PlanCache and a 2-node DistributedPlanCache (replication 1) with a
+# cold_dir, fuzzy on the `device` index, per eviction policy, at the test's
+# threshold 0.7 (every key is 0.833 from every other, so the fuzzy stage
+# resolves each miss to a hot key) and at 0.9 (it resolves none, so every
+# miss reaches the cold tier and promotes). The reference's outcome on the
+# CPU (tests/test_torch_tiered.py), keyed "store/policy/threshold": the
+# lookups, each node's hot and cold key ids, the cold_hits / spills /
+# promotes totals, remove's [first, lookup, second], and after clear the
+# hot and cold sizes and the lookups that miss
+COLD_KEYS = 12
+COLD_THRESHOLDS = (0.7, 0.9)
+COLD_EXPECT = {
+    "plan/lru/0.7": {
+        "lookup": [8, 8, 8, 8, 8, 8, 8, 8, 8, 9, 10, 11], "hot": [[8, 9, 10, 11]],
+        "cold": [[0, 1, 2, 3, 4, 5, 6, 7]], "cold_hits": 0, "spills": 8, "promotes": 0,
+        "remove": [True, 8, False], "cleared": [0, 0, 12]},
+    "plan/lru/0.9": {
+        "lookup": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], "hot": [[4, 5, 6, 7]],
+        "cold": [[0, 1, 2, 3, 8, 9, 10, 11]], "cold_hits": 8, "spills": 16, "promotes": 8,
+        "remove": [True, None, False], "cleared": [0, 0, 12]},
+    "plan/lfu/0.7": {
+        "lookup": [8, 8, 8, 8, 8, 8, 8, 8, 8, 9, 10, 11], "hot": [[8, 9, 10, 11]],
+        "cold": [[0, 1, 2, 3, 4, 5, 6, 7]], "cold_hits": 0, "spills": 8, "promotes": 0,
+        "remove": [True, 8, False], "cleared": [0, 0, 12]},
+    "plan/lfu/0.9": {
+        "lookup": [None, None, None, None, None, None, None, None, 8, 9, 10, 11],
+        "hot": [[8, 9, 10, 11]], "cold": [[0, 1, 2, 3, 4, 5, 6, 7]], "cold_hits": 0,
+        "spills": 16, "promotes": 8, "remove": [True, None, False], "cleared": [0, 0, 12]},
+    "plan/cost/0.7": {
+        "lookup": [8, 8, 8, 8, 8, 8, 8, 8, 8, 9, 10, 11], "hot": [[8, 9, 10, 11]],
+        "cold": [[0, 1, 2, 3, 4, 5, 6, 7]], "cold_hits": 0, "spills": 8, "promotes": 0,
+        "remove": [True, 8, False], "cleared": [0, 0, 12]},
+    "plan/cost/0.9": {
+        "lookup": [None, None, None, None, None, None, None, None, 8, 9, 10, 11],
+        "hot": [[8, 9, 10, 11]], "cold": [[0, 1, 2, 3, 4, 5, 6, 7]], "cold_hits": 0,
+        "spills": 16, "promotes": 8, "remove": [True, None, False], "cleared": [0, 0, 12]},
+    "distributed/lru/0.7": {
+        "lookup": [2, 6, 2, 6, 6, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
+        "spills": 4, "promotes": 0, "remove": [True, 2, False], "cleared": [0, 0, 12]},
+    "distributed/lru/0.9": {
+        "lookup": [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[1, 3, 4, 10], [0, 5, 7, 11]], "cold": [[6, 8, 9], [2]], "cold_hits": 4,
+        "spills": 8, "promotes": 4, "remove": [True, None, False], "cleared": [0, 0, 12]},
+    "distributed/lfu/0.7": {
+        "lookup": [2, 6, 2, 6, 6, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
+        "spills": 4, "promotes": 0, "remove": [True, 2, False], "cleared": [0, 0, 12]},
+    "distributed/lfu/0.9": {
+        "lookup": [None, None, 2, None, None, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
+        "spills": 8, "promotes": 4, "remove": [True, None, False], "cleared": [0, 0, 12]},
+    "distributed/cost/0.7": {
+        "lookup": [2, 6, 2, 6, 6, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
+        "spills": 4, "promotes": 0, "remove": [True, 2, False], "cleared": [0, 0, 12]},
+    "distributed/cost/0.9": {
+        "lookup": [None, None, 2, None, None, 5, 6, 7, 8, 9, 10, 11],
+        "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
+        "spills": 8, "promotes": 4, "remove": [True, None, False], "cleared": [0, 0, 12]},
+}
+
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
 # a 4-entry plan cache; each wave arrives three times in a row (the first
@@ -402,7 +518,13 @@ def time_ms(torch, fn, repeats: int = 5, calls: int = 20):
       the events bracket device work only, not the host's launch gaps. If
       the device reached the first event before the host had queued the
       whole run (a plain version of many small ops), the run is discarded
-      and the sleep doubled, up to ~1.6 s;
+      and the sleep doubled, until it outlasts twice the host's time to
+      queue a run (measured once, without a sleep). If the device still
+      gets there first, the launch queue filled while the host waited:
+      the run is halved until it fits in the queue. At one call, ``fn``
+      waits for the device itself (a copy from pageable host memory): no
+      sleep can hold the stream ahead of it, so its runs go without one,
+      and their events bracket the host's gaps;
     * ``call``: the median over ``repeats * calls`` single calls bracketed
       by events with no sleep ahead — what a caller on the host waits for,
       launch overhead included.
@@ -410,22 +532,34 @@ def time_ms(torch, fn, repeats: int = 5, calls: int = 20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     device = []
     cycles = 50_000_000  # ~25 ms of device time at 1.98 GHz
+    n, blocks = calls, False
     while len(device) < repeats:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
+        if not blocks:
+            torch.cuda._sleep(cycles)
         a.record()
-        for _ in range(calls):
+        for _ in range(n):
             fn()
         host_late = a.query()  # the sleep ran out while the host queued
         b.record()
         b.synchronize()
-        if host_late and cycles < 3_200_000_000:
-            cycles *= 2
+        if host_late and not blocks:
+            if cycles / 1.98e9 <= 2 * queue_s:
+                cycles *= 2
+            elif n > 1:
+                n //= 2
+            else:
+                blocks = True
             continue
-        device.append(a.elapsed_time(b) / calls)
+        device.append(a.elapsed_time(b) / n)
     call = []
     for _ in range(repeats * calls):
         a = torch.cuda.Event(enable_timing=True)
@@ -1328,6 +1462,36 @@ def build_deployment(torch):
     return engines, init_s
 
 
+def cut_engine(torch, arch, max_len=192):
+    """An engine of ``arch`` at its published width and arch seed, depth
+    cut to LATER_DEPTHS[arch]."""
+    from repro_torch.launch.serve import arch_seed, engine_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(engine_config(arch, full=True), num_layers=LATER_DEPTHS[arch])
+    gen = torch.Generator(device="cuda").manual_seed(arch_seed(arch))
+    return Engine(cfg, lm.init_params(cfg, gen, "cuda"), max_len=max_len, device="cuda")
+
+
+def cut_deployment(torch, engines):
+    """The runs after the headline pair: every role whose arch is in
+    LATER_DEPTHS gets ``cut_engine`` of it (roles of one arch share it);
+    the whole engines are freed first."""
+    roles = {role: e.cfg.name for role, e in engines.items() if e.cfg.name in LATER_DEPTHS}
+    specs = {engines[role].cfg.name: (engines[role].max_len, engines[role].cfg.num_layers)
+             for role in roles}
+    for role in roles:
+        del engines[role]
+    free_memory(torch)
+    cut = {arch: cut_engine(torch, arch, max_len) for arch, (max_len, _) in specs.items()}
+    engines.update({role: cut[arch] for role, arch in roles.items()})
+    depths = {arch: f"{layers} -> {LATER_DEPTHS[arch]} layers"
+              for arch, (_, layers) in specs.items()}
+    log(f"[serve] after the headline pair: {depths}; "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
 def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census=None):
     """One serving run: ``n`` tasks of ``env`` (seed 0) through a fresh agent
     from ``make_agent(backend, ledger)`` on the shared engines. The kernels'
@@ -1792,26 +1956,23 @@ def serve_dcache(torch, engines):
 
 def build_recurrent(torch, engines):
     """Phase 5d: the recurrent run's engines: rwkv6-3b and zamba2-2.7b at
-    full width (``build_engines`` on a deployment of those two archs), the
-    large planner the deployment phase's nemotron-4-15b engine (no second
-    copy of its weights)."""
+    full width, depth cut to LATER_DEPTHS (``cut_engine``; roles of one arch
+    share it), the large planner the deployment phase's nemotron-4-15b
+    engine (no second copy of its weights)."""
     from repro_torch.configs import registry
-    from repro_torch.configs.apc_minion import APCDeployment
-    from repro_torch.launch.serve import build_engines
 
     t0 = time.perf_counter()
-    own = build_engines(APCDeployment(large_planner=RECURRENT_ROLES["small_planner"],
-                                      **RECURRENT_ROLES), full=True, device="cuda")
+    built = {arch: cut_engine(torch, arch) for arch in sorted(set(RECURRENT_ROLES.values()))}
+    own = {role: built[arch] for role, arch in RECURRENT_ROLES.items()}
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rec = {**own, "large_planner": engines["large_planner"]}
-    n_params = {e.cfg.name: sum(t.numel() for t in _leaves(e.params))
-                for e in {id(e): e for e in own.values()}.values()}
-    widened = {e.cfg.name: e.cfg.vocab_size for e in own.values()
-               if e.cfg.vocab_size != registry.get(e.cfg.name).vocab_size}
+    n_params = {arch: sum(t.numel() for t in _leaves(e.params)) for arch, e in built.items()}
+    widened = {arch: e.cfg.vocab_size for arch, e in built.items()
+               if e.cfg.vocab_size != registry.get(arch).vocab_size}
     log(f"[recurrent] engines built in {init_s:.1f}s; params {n_params} (published "
-        f"widths; vocabularies widened to the tokenizer's: {widened}); "
-        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"widths, depths {({a: LATER_DEPTHS[a] for a in built})}; vocabularies widened to "
+        f"the tokenizer's: {widened}); allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return rec, init_s, n_params
 
 
@@ -2004,7 +2165,7 @@ def build_flagship(torch, engines):
     """Phase 8c: the FLAGSHIP deployment's engines: kimi-k2-1t-a32b at its
     published width with depth cut to FLAGSHIP_DEPTH (61 layers are ~2 TB in
     bf16; one card holds 80 GB), its other roles the DEFAULT engines of the
-    same archs (olmo-1b, qwen2.5-3b)."""
+    same archs (olmo-1b; qwen2.5-3b cut to LATER_DEPTHS)."""
     from repro_torch.configs.apc_minion import DEFAULT, FLAGSHIP
     from repro_torch.launch.serve import arch_seed, engine_config
     from repro_torch.models import lm
@@ -2100,6 +2261,311 @@ def check_whisper(torch):
     return out
 
 
+def _bitwise_equal(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def train_full(torch, ckpt_dir):
+    """Phase 9(a): olmo-1b at published size trained TRAIN_STEPS steps
+    through the port's FaultTolerantRunner (checks in the constants'
+    comment). Returns (its config, the final parameters, the phase's
+    record)."""
+    import math
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import registry
+    from repro_torch.distributed.fault import FaultEvent, FaultPolicy, FaultTolerantRunner
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    class Recorded(CheckpointStore):
+        """The store, timing each save and restore and keeping a reference
+        to each saved and restored tree (the step is functional, so a saved
+        tree stays as it was saved)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.saved, self.restored = {}, []
+            self.save_s, self.restore_s, self.nbytes = [], [], []
+
+        def save(self, step, tree, *, extra=None):
+            t = time.perf_counter()
+            path = super().save(step, tree, extra=extra)
+            self.save_s.append(time.perf_counter() - t)
+            self.nbytes.append(sum(f.stat().st_size for f in path.iterdir()))
+            self.saved[step] = tree
+            return path
+
+        def restore(self, template, **kw):
+            t = time.perf_counter()
+            tree, extra = super().restore(template, **kw)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.perf_counter() - t)
+            self.restored.append((extra.get("step"), tree))
+            return tree, extra
+
+    cfg = registry.get(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    state = (params, adamw_init(params, opt_cfg))
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    at, losses, step_s = {}, [], []
+
+    def batch_of(step):
+        at["step"] = step  # the step whose batch the runner asked for last
+        return batches(step)
+
+    def stepper(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, m = step_fn(*state, batch)
+        loss = m["loss"].item()  # the loss before any injection replaces it
+        step_s.append(time.perf_counter() - t)
+        losses.append((at["step"], loss))
+        return (p, o), m
+
+    store = Recorded(ckpt_dir, keep_last=TRAIN_KEEP_LAST, n_shards=TRAIN_SHARDS)
+    runner = FaultTolerantRunner(stepper, store, FaultPolicy(checkpoint_every=TRAIN_CKPT_EVERY))
+    runner.inject(TRAIN_NAN_AT, "nan")
+    t0 = time.perf_counter()
+    state, completed, events = runner.run(state, batch_of, TRAIN_STEPS)
+    run_s = time.perf_counter() - t0
+    back = TRAIN_NAN_AT - TRAIN_NAN_AT % TRAIN_CKPT_EVERY
+    if completed != TRAIN_STEPS or events != [FaultEvent(TRAIN_NAN_AT, "nan", "rollback")]:
+        raise AssertionError(f"train: completed {completed}, events {events}")
+    if not all(math.isfinite(loss) for _, loss in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if [s for s, _ in store.restored] != [back] or store.committed_steps() != [TRAIN_STEPS]:
+        raise AssertionError(f"train: restored {[s for s, _ in store.restored]}, committed "
+                             f"{store.committed_steps()}")
+    saved, restored = list(_leaves(store.saved[back])), list(_leaves(store.restored[0][1]))
+    bitwise = len(saved) == len(restored) and all(
+        _bitwise_equal(torch, a, b) for a, b in zip(saved, restored))
+    if not bitwise:
+        raise AssertionError(f"train: the state restored at step {back} differs from the saved one")
+    tries = [loss for s, loss in losses if s == TRAIN_NAN_AT]
+    rerun_rel = abs(tries[1] - tries[0]) / abs(tries[0])
+    if len(tries) != 2 or not rerun_rel <= TRAIN_RERUN_RTOL:
+        raise AssertionError(f"train: step {TRAIN_NAN_AT}'s losses {tries} (rel {rerun_rel})")
+    steady = statistics.median(step_s[1:])
+    out = {
+        "arch": cfg.name, "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": completed, "events": [vars(e) for e in events], "losses": losses,
+        "init_s": init_s, "run_s": run_s, "step_s": step_s, "step_s_median": steady,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+        "checkpoint_bytes": store.nbytes, "save_s": store.save_s, "restore_s": store.restore_s,
+        "restored_bitwise": bitwise, "rerun_loss_rel_err": rerun_rel,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"[train] {cfg.name} {completed} steps (B {TRAIN_BATCH}, S {TRAIN_SEQ}): step "
+        f"{steady:.4f}s median ({out['tokens_per_s']:.0f} tokens/s), first {step_s[0]:.3f}s; "
+        f"losses {[round(v, 4) for _, v in losses]}; checkpoints {store.nbytes} bytes, "
+        f"save {store.save_s} s, restore {store.restore_s} s; rollback to {back} bitwise, "
+        f"re-run loss rel {rerun_rel:.2e}; peak {out['peak_gib']:.2f} GiB")
+    return cfg, state[0], out
+
+
+def train_grad_check(torch):
+    """Phase 9(b): one loss and gradient at olmo-1b's width cut to
+    GRAD_LAYERS layers, fp32, on the card against the CPU (same weights and
+    batch)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import lm
+    from repro_torch.training.train_step import value_and_grad
+
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH), num_layers=GRAD_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(61), "cpu")
+    batch = synthetic_batches(cfg, GRAD_BATCH, TRAIN_SEQ)(0)
+    t0 = time.perf_counter()
+    loss_c, _, g_cpu = value_and_grad(cfg, p_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    p_gpu = lm.params_to(p_cpu, "cuda")
+    value_and_grad(cfg, p_gpu, {k: v.cuda() for k, v in batch.items()})  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_g, _, g_gpu = value_and_grad(cfg, p_gpu, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    loss_rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    worst = max((gg.cpu() - gc).abs().max().item() / max(gc.abs().max().item(), 1e-30)
+                for gc, gg in zip(_leaves(g_cpu), _leaves(g_gpu)))
+    out = {"layers": GRAD_LAYERS, "batch": GRAD_BATCH, "seq": TRAIN_SEQ,
+           "loss_cpu": loss_c.item(), "loss_card": loss_g.item(), "loss_rel_err": loss_rel,
+           "grad_max_rel_err": worst, "cpu_s": cpu_s, "card_s": card_s}
+    log(f"[train] card vs CPU, {GRAD_LAYERS} layers fp32: {out}")
+    if not (loss_rel <= GRAD_LOSS_RTOL and worst <= GRAD_RTOL):
+        raise AssertionError(f"train: card vs CPU loss rel {loss_rel}, gradient rel {worst}")
+    return out
+
+
+def check_grad_refusals(torch):
+    """Each CUDA kernel wrapper raises ValueError, launching nothing, on an
+    input that requires grad (none has a backward)."""
+    from repro_torch.kernels import ops
+
+    kernels = _kernel_launchers()
+    _reset_counts(kernels)
+    f32 = dict(device="cuda", dtype=torch.float32)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+
+    def req(t):
+        return t.requires_grad_(True)
+
+    q = torch.randn(1, 16, 2, 64, **bf)
+    cache = torch.randn(1, 32, 2, 64, **bf)
+    pages = torch.randn(4, 16, 2, 64, **bf)
+    table = torch.tensor([[2, 0]], device="cuda", dtype=torch.int32)
+    lens = torch.tensor([20], device="cuda", dtype=torch.int32)
+    r = torch.randn(1, 16, 2, 64, **f32)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention_op(req(q.clone()), q, q),
+        "decode_attention": lambda: ops.decode_attention_op(req(q[:, :1].clone()), cache,
+                                                            cache, lens),
+        "paged_decode_attention": lambda: ops.paged_decode_attention_op(
+            q[:, :1], req(pages.clone()), pages, table, lens),
+        "wkv6": lambda: ops.wkv6_op(r, r, r, -torch.rand_like(r),
+                                    req(torch.randn(2, 64, **f32))),
+        "ssd": lambda: ops.ssd_op(req(r.clone()), torch.rand(1, 16, 2, **f32),
+                                  torch.zeros(2, **f32), r[..., 0, :], r[..., 1, :],
+                                  torch.ones(2, **f32)),
+        "topk_cosine": lambda: ops.resident_topk(req(torch.randn(2, 384, **f32)),
+                                                 torch.randn(8, 384, **f32)),
+    }
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e)
+        else:
+            raise AssertionError(f"{name}: the CUDA wrapper took an input that requires grad")
+    launched = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"refused calls launched kernels: {launched}")
+    return sorted(refused)
+
+
+def serve_trained(torch, cfg, params):
+    """Phase 9(c): the trained olmo-1b weights in an Engine (bf16): one
+    prefill through the flash kernel, held against the training path's
+    forward on the card, then SERVED_NEW greedy steps through the decode
+    kernel; launches pinned to one a layer a call."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    kernels = _kernel_launchers()
+    eng = Engine(cfg, params, max_len=SERVED_PROMPT + SERVED_NEW + 8, device="cuda")
+    prompt = np.random.RandomState(71).randint(16, min(cfg.vocab_size, 4096),
+                                               (1, SERVED_PROMPT)).astype(np.int32)
+    _reset_counts(kernels)
+    logits, cache = eng.prefill(prompt)
+    flash_n = kernels["flash_attention"].launches
+    steps = []
+    tok = logits.argmax(-1, keepdim=True)
+    for _ in range(SERVED_NEW):
+        steps.append(int(tok.item()))
+        lg, cache = eng.decode(cache, tok.cpu().numpy())
+        if not torch.isfinite(lg).all():
+            raise AssertionError("served: non-finite decode logits")
+        tok = lg.argmax(-1, keepdim=True)
+    decode_n = kernels["decode_attention"].launches
+    if (flash_n, decode_n) != (cfg.num_layers, SERVED_NEW * cfg.num_layers):
+        raise AssertionError(f"served: flash {flash_n}, decode {decode_n} launches, want "
+                             f"{cfg.num_layers} and {SERVED_NEW * cfg.num_layers}")
+    with torch.no_grad():
+        want, _, _ = lm.forward(cfg, params, torch.as_tensor(prompt, device="cuda"),
+                                use_kernels=False)
+    want = want[:, -1].float()
+    err = (logits.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    out = {"prompt": SERVED_PROMPT, "steps": SERVED_NEW, "tokens": steps,
+           "logits_max_abs_err": err, "logits_max_abs": scale,
+           "argmax_equal": int(logits.argmax()) == int(want.argmax()),
+           "flash_launches": flash_n, "decode_launches": decode_n,
+           "prefill_tok_s": eng.stats.rates()["prefill"],
+           "decode_tok_s": eng.stats.rates()["decode"]}
+    if not err <= SERVED_TOL * scale:
+        raise AssertionError(f"served: prefill logits differ from the training path's by "
+                             f"{err} (largest {scale})")
+    out["grad_refused"] = check_grad_refusals(torch)
+    log(f"[train] served: {out}")
+    return out
+
+
+def make_cold_store(plan_cls, dist_cls, name, cold_dir, **kw):
+    """Phase 9(d)'s store ``name`` ("store/policy/threshold"): a 4-slot
+    PlanCache, or 2 nodes of 4 slots at replication 1, fuzzy on the
+    ``device`` index, with a cold tier."""
+    kind, policy, threshold = name.split("/")
+    kw = dict(eviction=policy, fuzzy=True, fuzzy_threshold=float(threshold),
+              index_backend="device", **kw)
+    if kind == "plan":
+        return plan_cls(capacity=4, cold_dir=cold_dir, **kw)
+    return dist_cls(2, replication=1, capacity_per_node=4, cold_dir=cold_dir, **kw)
+
+
+def cold_stream(store):
+    """Phase 9(d)'s op stream on a store with a cold tier, its outcome as
+    plain data: the lookups of every key after the insert wave, each
+    node's hot and cold key ids, the cold_hits / spills / promotes totals,
+    then remove (twice, with a lookup between) and what clear leaves."""
+    shards = ([store.shards[n] for n in sorted(store.shards)] if hasattr(store, "shards")
+              else [store])
+    keys = [f"key number {i}" for i in range(COLD_KEYS)]
+
+    def ids(ks):
+        return sorted(keys.index(k) for k in ks)
+
+    store.insert_batch([(k, i) for i, k in enumerate(keys)])
+    out = {"lookup": store.lookup_batch(keys),
+           "hot": [ids(sh.keys()) for sh in shards],
+           "cold": [ids(sh.cold.keys()) for sh in shards]}
+    for f in ("cold_hits", "spills", "promotes"):
+        out[f] = sum(getattr(sh.stats, f) for sh in shards)
+    out["remove"] = [store.remove(keys[0]), store.lookup(keys[0]), store.remove(keys[0])]
+    store.clear()
+    out["cleared"] = [len(store), sum(len(sh.cold) for sh in shards),
+                      store.lookup_batch(keys).count(None)]
+    return out
+
+
+def cold_on_card(torch, root):
+    """Phase 9(d): ``cold_stream`` on the card's ``device`` index for each
+    pinned (store, policy); each must equal the reference's outcome and
+    launch the top-k kernel."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.distributed_cache import DistributedPlanCache
+
+    topk = _kernel_launchers()["topk_cosine"]
+    out = {}
+    for name, want in COLD_EXPECT.items():
+        topk.launches = 0
+        store = make_cold_store(PlanCache, DistributedPlanCache, name,
+                                os.path.join(root, name.replace("/", "_")), device="cuda")
+        got = cold_stream(store)
+        if got != want:
+            raise AssertionError(f"cold {name}: {got}, the reference's {want}")
+        if not topk.launches:
+            raise AssertionError(f"cold {name}: the top-k kernel never launched")
+        out[name] = {"topk_launches": topk.launches, "cold_hits": got["cold_hits"],
+                     "spills": got["spills"], "promotes": got["promotes"]}
+    log(f"[train] cold tier on the card: {out}")
+    return out
+
+
 def check_outputs(torch, engines):
     """What comes out is right: finite logits of the expected shape on
     every engine."""
@@ -2153,7 +2619,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     else:
@@ -2169,6 +2635,15 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    phase_s = {}
+    mark = {"t": t_start}
+
+    def done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark["t"]
+        mark["t"] = now
+        log(f"[phase] {name}: {phase_s[name]:.1f}s")
+
     # phase 1: the card
     smi = nvidia_smi()
     log(f"[card] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
@@ -2176,6 +2651,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[card] TF32 off for matmuls and cuDNN")
+    done("1_card")
 
     # phase 2: the build
     t0 = time.perf_counter()
@@ -2184,6 +2660,7 @@ def main() -> int:
     log(f"[build] {names} built in {time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
     for n, text in _build.build_logs.items():
         log(f"[build] {n}: {ptxas_summary(text)}")
+    done("2_build")
 
     # phase 3: kernels against their plain versions, then timings
     err, checks = check_kernels(torch)
@@ -2193,13 +2670,18 @@ def main() -> int:
     err.update(scan_err)
     checks.update(scan_checks)
     timing = time_kernels(torch) + time_topk(torch) + time_paged(torch) + time_scans(torch)
+    done("3_kernels")
 
     # phase 4: the model on the card against the CPU
     check_model(torch)
+    done("4_model")
 
     # phase 5: serving, one run per path on the same engines
     engines, init_s = build_deployment(torch)
-    runs = {row[0]: serve(torch, engines, *row) for row in SERVE_RUNS}
+    runs = {row[0]: serve(torch, engines, *row) for row in SERVE_RUNS if row[0] in HEADLINE}
+    cut_deployment(torch, engines)
+    runs.update((row[0], serve(torch, engines, *row)) for row in SERVE_RUNS
+                if row[0] not in HEADLINE)
     runs["prefix"] = serve_prefix(torch, engines)
     check_outputs(torch, engines)
     rec_engines, rec_init_s, rec_params = build_recurrent(torch, engines)
@@ -2214,12 +2696,14 @@ def main() -> int:
     check_outputs(torch, rec_engines)
     del rec_engines  # phase 8 needs their memory
     free_memory(torch)
+    done("5_serve")
 
     # phase 6: the paper's baselines, its other workloads and the
     # deep-research agent, on the DEFAULT engines
     for row in BASELINE_RUNS:
         runs[row[0]] = serve(torch, engines, *row)
     baselines = compare_baselines(runs)
+    done("6_baselines")
 
     # phase 7: the rest of the plan store on the DEFAULT engines: the
     # speculative method, then the traced router over the distributed cache
@@ -2227,6 +2711,7 @@ def main() -> int:
         runs[row[0]] = serve(torch, engines, *row)
     obs = serve_dcache(torch, engines)
     peak = {"phases_5_7_gib": torch.cuda.max_memory_allocated() / 2**30}
+    done("7_plan_store")
 
     # phase 8: the other families. (a) the families run on the moe, qk-norm
     # and vlm archs beside the nemotron engine; (b) their prefix path; (c)
@@ -2259,7 +2744,31 @@ def main() -> int:
     del flag
     free_memory(torch)
     whisper = check_whisper(torch)
-    srv = {"init_s": init_s, "max_memory_allocated_gib": max(peak.values()),
+    done("8_families")
+
+    # phase 9: the trainer (a) olmo-1b at published size through the
+    # fault-tolerant runner with its checkpoints, (b) one step card vs CPU,
+    # (c) the trained weights served, (d) the plan cache's cold tier
+    engines.clear()  # no later phase serves the DEFAULT engines
+    free_memory(torch)
+    import shutil
+    import tempfile
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_cfg, trained, train = train_full(torch, os.path.join(scratch, "ckpt"))
+        free_memory(torch)
+        train["card_vs_cpu"] = train_grad_check(torch)
+        train["served"] = serve_trained(torch, train_cfg, trained)
+        del trained
+        free_memory(torch)
+        train["cold"] = cold_on_card(torch, os.path.join(scratch, "cold"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    done("9_train")
+    train["phase_s"] = phase_s["9_train"]
+    srv = {"init_s": init_s, "later_depths": LATER_DEPTHS,
+           "max_memory_allocated_gib": max(peak.values()),
            "peak_memory_gib": peak, "prefix_families": prefix_families,
            "whisper": whisper, "runs": runs}
 
@@ -2300,11 +2809,13 @@ def main() -> int:
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
+    log(f"[phases] {json.dumps(phase_s)}")
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))
     print(json.dumps({"baselines": baselines}))
     print(json.dumps({"obs": obs}))
+    print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,6 +103,49 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula
+        (``repro.configs.base.ModelConfig.param_count``). The reference
+        branches on ``ssm.kind`` and ``shared_attention``, fields the port
+        does not keep: here the hybrid family is its mamba2 kind with one
+        shared attention block, the ssm family its rwkv6 kind."""
+        d, v = self.d_model, self.vocab_size
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # output head
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        mlp_mats = 3 if self.mlp_act == "swiglu" else 2
+        if self.moe is not None:
+            e = self.moe
+            mlp = e.num_experts * (mlp_mats * d * e.d_ff_expert) + d * e.num_experts
+        else:
+            mlp = mlp_mats * d * self.d_ff
+        if self.family == "hybrid":  # mamba2 mixers, one shared attention block
+            s = self.ssm
+            d_in = s.expand * d
+            heads = d_in // s.head_dim
+            ssm_p = (d * (2 * d_in + 2 * s.state_dim + heads)  # in_proj (z, x, B, C, dt)
+                     + s.conv_dim * (d_in + 2 * s.state_dim)  # depthwise conv
+                     + 3 * heads  # A_log, dt_bias, D
+                     + d_in  # pre-out norm
+                     + d_in * d)  # out_proj
+            n += self.num_layers * ssm_p
+            if self.attn_every > 0:
+                n += attn + mlp
+        elif self.family == "ssm":  # rwkv6: time-mix + channel-mix a layer
+            s = self.ssm
+            heads = d // s.head_dim
+            ssm_p = 5 * d * d + d * d + 2 * heads * s.head_dim + 6 * d
+            n += self.num_layers * (ssm_p + mlp)
+        else:
+            n += self.num_layers * (attn + mlp)
+        if self.encoder is not None:
+            n += self.encoder.num_layers * (4 * d * d + mlp_mats * d * self.d_ff)
+            n += self.num_layers * 4 * d * d  # decoder cross-attention
+        return n
+
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Shrink a full config to CPU-smoke scale (as ``repro`` does)."""

@@ -1,6 +1,6 @@
 """The plan cache: a batch-native plan store with composable eviction
-policies and a pluggable match pipeline (the twin of
-``repro.core.cache.PlanCache``, without the cold tier).
+policies, a pluggable match pipeline and an optional cold tier (the twin of
+``repro.core.cache.PlanCache``).
 
 ``lookup_batch``/``insert_batch`` are the primitives (one lock acquisition,
 one batched fuzzy/semantic resolution, one device write per admission wave
@@ -19,12 +19,18 @@ Eviction is an :class:`~repro_torch.memory.policies.EvictionPolicy`
 (``eviction="lru" | "lfu" | "cost"`` or an instance); ``ttl_s`` wraps the
 chosen policy in TTL expiry, applied on the lookup path.
 
+With ``cold_dir`` set, eviction victims spill to a
+:class:`~repro_torch.memory.tiered.ColdTier` (one segment a wave) instead
+of vanishing, and a lookup that every stage missed tries the cold tier's
+manifest on the exact key, promoting a hit back through ``insert_batch``.
+
 Accounting lands in a :class:`repro_torch.obs.MetricsRegistry` (``obs``,
 labelled ``obs_labels``: the shards of a ``DistributedPlanCache`` share the
 facade's registry with a ``shard=<name>`` label). Under a tracer a lookup
-opens ``cache.lookup_batch`` with one ``match.stage`` span a stage, an
-insert ``cache.insert_batch``, and every resolved query deposits its stage
-and matched key into the open attribution collector
+opens ``cache.lookup_batch`` with one ``match.stage`` span a stage (the
+cold tier's ``stage="cold"``), an insert ``cache.insert_batch``, a spill
+``cache.spill`` and a promotion ``cache.promote``, and every resolved query
+deposits its stage and matched key into the open attribution collector
 (:mod:`repro_torch.obs.attribution`).
 """
 
@@ -37,8 +43,15 @@ from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple
 from repro_torch.memory.pipeline import build_pipeline
 from repro_torch.memory.policies import CacheEntry, EvictionPolicy, make_policy
 from repro_torch.memory.protocol import CacheStats, PlanStoreBase, V
+from repro_torch.memory.tiered import ColdTier
 from repro_torch.obs import MetricsRegistry, deposit, trace_span
-from repro_torch.obs.names import SPAN_CACHE_INSERT, SPAN_CACHE_LOOKUP, SPAN_MATCH_STAGE
+from repro_torch.obs.names import (
+    SPAN_CACHE_INSERT,
+    SPAN_CACHE_LOOKUP,
+    SPAN_CACHE_PROMOTE,
+    SPAN_CACHE_SPILL,
+    SPAN_MATCH_STAGE,
+)
 
 
 class PlanCache(PlanStoreBase, Generic[V]):
@@ -62,6 +75,10 @@ class PlanCache(PlanStoreBase, Generic[V]):
         pipeline: Optional[Sequence[str]] = None,
         clock: Optional[Callable[[], float]] = None,
         device=None,
+        cold_dir: Optional[str] = None,
+        cold_budget_tokens: int = 160,
+        cold_keep_last: int = 8,
+        cold_refcount_gc: bool = True,
         obs: Optional[MetricsRegistry] = None,
         obs_labels: Optional[Dict[str, str]] = None,
     ):
@@ -90,6 +107,11 @@ class PlanCache(PlanStoreBase, Generic[V]):
         self._evict_listeners: List[Callable[[str], None]] = []
         self._lock = threading.RLock()
         self.stats = CacheStats(self.obs, **self.obs_labels)
+        # the cold persistent tier: victims spill to segments on disk and
+        # hot misses promote back through insert_batch; None: no cold tier
+        self.cold: Optional[ColdTier] = None if cold_dir is None else ColdTier(
+            cold_dir, budget_tokens=cold_budget_tokens, keep_last=cold_keep_last,
+            refcount_gc=cold_refcount_gc)
 
     def now(self) -> float:
         """The store's clock: capture this before a read whose derived wave
@@ -140,6 +162,24 @@ class PlanCache(PlanStoreBase, Generic[V]):
                                 deposit(i, stage=stage.name, matched_key=alt)
                         ssp.set(resolved=len(pending) - len(still))
                         pending = still
+                if pending and self.cold is not None:
+                    # the cold tier resolves exact keys only, through its
+                    # manifest; a hit is promoted (one wave a key, in batch
+                    # order) and served from the hot tier
+                    with trace_span(SPAN_MATCH_STAGE, stage="cold",
+                                    pending=len(pending)) as ssp:
+                        still = []
+                        for i in pending:
+                            kw = keywords[i]
+                            v = self._promote(kw, now) if kw in self.cold else None
+                            if v is None:
+                                still.append(i)
+                            else:
+                                out[i] = v
+                                deposit(i, stage="cold", matched_key=kw, cache_tier="cold")
+                                self.stats.add("cold_hits")
+                        ssp.set(resolved=len(pending) - len(still))
+                        pending = still
                 for v in out:
                     if v is None:
                         self.stats.misses += 1
@@ -159,11 +199,28 @@ class PlanCache(PlanStoreBase, Generic[V]):
         if entry is None:
             return None
         if self.policy.expired(keyword, entry, now):
-            self._delete(keyword)  # an expiry is a delete, not an eviction
+            # an expiry is a delete, never a spill: a stale entry must not
+            # come back from the cold tier
+            self._delete(keyword)
             return None
         entry.hits += 1
         self.policy.on_access(keyword, entry)
         return entry.value
+
+    def _promote(self, keyword: str, now: float) -> Optional[V]:
+        """Move one cold entry back to the hot tier and serve it: the
+        manifest entry is consumed and the value goes through
+        ``insert_batch`` like a fresh insert (its cascading eviction may
+        spill a colder victim, or this key again). None when the manifest
+        was stale or the entry did not survive its own admission wave."""
+        got = self.cold.take([keyword])[0]
+        if got is None:
+            return None
+        with trace_span(SPAN_CACHE_PROMOTE, key=keyword, **self.obs_labels):
+            self.insert_batch([(keyword, got.value)], contexts=[got.context],
+                              vectors=None if got.vector is None else [got.vector])
+            self.stats.add("promotes")
+        return self._get_live(keyword, now)
 
     def add_evict_listener(self, fn: Callable[[str], None]) -> None:
         """Register a delete hook (see ``_evict_listeners``)."""
@@ -188,7 +245,8 @@ class PlanCache(PlanStoreBase, Generic[V]):
         """Insert a whole admission wave under one lock acquisition.
 
         Stages ingest the wave batched. Eviction runs after the wave lands,
-        so a wave larger than ``capacity`` keeps its newest entries. Keys
+        so a wave larger than ``capacity`` keeps its newest entries; with a
+        cold tier the wave's victims spill as one segment at wave end. Keys
         whose live entry was (re)written at or after
         ``unless_written_since`` are skipped.
         """
@@ -209,7 +267,8 @@ class PlanCache(PlanStoreBase, Generic[V]):
                     # an overwrite is delete + insert: listeners must see
                     # the old entry go
                     self._delete(kw)
-                entry = CacheEntry(v, now)
+                entry = CacheEntry(v, now, context=contexts[idx],
+                                   vector=None if vectors is None else vectors[idx])
                 self._store[kw] = entry
                 self.policy.on_insert(kw, entry)
                 self.stats.inserts += 1
@@ -219,9 +278,28 @@ class PlanCache(PlanStoreBase, Generic[V]):
                     [contexts[i] for i in kept],
                     None if vectors is None else [vectors[i] for i in kept],
                 )
+            victims: List[Tuple[str, CacheEntry]] = []
             while len(self._store) > self.capacity:
-                self._delete(self.policy.victim(self._store))
+                vk = self.policy.victim(self._store)
+                victims.append((vk, self._store[vk]))
+                self._delete(vk)
                 self.stats.evictions += 1
+            if victims and self.cold is not None:
+                self._spill(victims)
+
+    def _spill(self, victims: List[Tuple[str, CacheEntry]]) -> None:
+        """One spill wave (an insert wave's victims) to the cold tier:
+        compaction, segment write, manifest commit."""
+        with trace_span(SPAN_CACHE_SPILL, n=len(victims), **self.obs_labels) as sp:
+            saved = self.cold.spill([
+                (kw, e.value, e.context, e.vector,
+                 float(e.hits + getattr(e.value, "uses", 0)))
+                for kw, e in victims
+            ])
+            self.stats.add("spills", len(victims))
+            if saved:
+                self.stats.add("compaction_saved_tokens", saved)
+            sp.set(saved_tokens=saved)
 
     def peek(self, keyword: str) -> Optional[V]:
         """The value of an exact key without hit accounting or policy
@@ -243,10 +321,13 @@ class PlanCache(PlanStoreBase, Generic[V]):
                     if not self.policy.expired(k, e, now)]
 
     def remove(self, keyword: str) -> bool:
-        """Delete one entry, keeping stage indexes in sync; True if present."""
+        """Delete one entry, keeping stage indexes in sync. True if present
+        in either tier: a removed key must not come back from the cold
+        manifest on a later miss."""
         with self._lock:
+            purged = self.cold.purge(keyword) if self.cold is not None else False
             if keyword not in self._store:
-                return False
+                return purged
             self._delete(keyword)
             return True
 
@@ -288,6 +369,8 @@ class PlanCache(PlanStoreBase, Generic[V]):
             self.stats.reset()
             self.policy.reset()
             self.pipeline.clear()
+            if self.cold is not None:
+                self.cold.clear()
 
     # -- serialization (checkpoint/restore of the test-time memory) --------
 

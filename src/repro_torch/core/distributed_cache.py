@@ -42,16 +42,20 @@ Control-plane operations (``keys``/``__len__``/``autotune``/``clear`` and
 the scans behind re-homing and repair) pay the same seam; an unreachable
 shard is skipped.
 
-Not ported yet: the cold tier (the options ``cold_dir``,
-``cold_budget_tokens``, ``cold_keep_last`` and the method
-``arm_cold_crash``) and the deterministic simulation's seams (``ablate``,
-``ack_policy="primary"``); passing any of those options raises.
+With ``cold_dir`` every shard gets its own cold tier
+(``memory/tiered.py``) in ``<cold_dir>/<node>``: spill and promote stay
+shard-local, under the same seam as the lookup and insert calls that
+trigger them. ``arm_cold_crash`` is the fault seam of every shard's tier.
+
+Not ported yet: the deterministic simulation's seams (``ablate``,
+``ack_policy="primary"``); passing either raises.
 """
 
 from __future__ import annotations
 
 import bisect
 import hashlib
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -133,15 +137,17 @@ class DistributedPlanCache(PlanStoreBase):
         clock: Optional[Callable[[], float]] = None,
         interceptor: Optional[Any] = None,
         ack_policy: str = "all",
+        cold_dir: Optional[str] = None,
+        cold_budget_tokens: int = 160,
+        cold_keep_last: int = 8,
         device=None,
         obs: Optional[MetricsRegistry] = None,
         **deferred: Any,
     ):
         if deferred:
             raise TypeError(
-                f"DistributedPlanCache does not take {sorted(deferred)} yet: the cold "
-                "tier (cold_dir, cold_budget_tokens, cold_keep_last) and the "
-                "simulation's ablate= are not ported"
+                f"DistributedPlanCache does not take {sorted(deferred)} yet: the "
+                "simulation's ablate= is not ported"
             )
         if not isinstance(eviction, str):
             # a policy instance would be bookkeeping shared across shards
@@ -165,6 +171,9 @@ class DistributedPlanCache(PlanStoreBase):
         self.clock = clock if clock is not None else time.time
         self.interceptor = interceptor
         self.ack_policy = ack_policy
+        self.cold_dir = cold_dir
+        self.cold_budget_tokens = cold_budget_tokens
+        self.cold_keep_last = cold_keep_last
         self.device = device
         self.shards: Dict[str, PlanCache] = {}
         self.down: set = set()
@@ -188,6 +197,9 @@ class DistributedPlanCache(PlanStoreBase):
             ttl_s=self.ttl_s,
             clock=self.clock,
             device=self.device,
+            cold_dir=None if self.cold_dir is None else os.path.join(self.cold_dir, name),
+            cold_budget_tokens=self.cold_budget_tokens,
+            cold_keep_last=self.cold_keep_last,
             obs=self.obs,
             obs_labels={"shard": name},
         )
@@ -243,6 +255,9 @@ class DistributedPlanCache(PlanStoreBase):
             if name not in self.shards:
                 self.add_node(name)
                 return 0
+            old = self.shards[name]
+            if old.cold is not None:
+                old.cold.clear()  # a crash loses the manifest; gc reclaims
             self.shards[name] = shard = self._new_shard(name)
             shard.stats.reset()
             self.down.discard(name)
@@ -435,6 +450,15 @@ class DistributedPlanCache(PlanStoreBase):
         """The facade's clock (shared with every shard) — capture before a
         read whose derived wave inserts with ``unless_written_since``."""
         return self.clock()
+
+    def arm_cold_crash(self, waves: int) -> None:
+        """Fault seam: arm every shard's cold tier to crash between segment
+        write and manifest commit on its next ``waves`` spill waves (no-op
+        for shards without a cold tier)."""
+        with self._lock:
+            for shard in self.shards.values():
+                if shard.cold is not None:
+                    shard.cold.arm_crash_after_segment(waves)
 
     def insert_batch(
         self,

@@ -28,6 +28,14 @@ class PlanStep:
     content: str
     op: Optional[Dict[str, Any]] = None
 
+    def to_json(self) -> Dict[str, Any]:
+        return {"kind": self.kind, "content": self.content, "op": self.op}
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "PlanStep":
+        """The inverse of ``to_json`` (the cold tier's segment decoder)."""
+        return cls(d["kind"], d["content"], d["op"])
+
 
 @dataclass
 class PlanTemplate:

@@ -4,7 +4,10 @@
 Dispatch mirrors ``repro.kernels.ops._on_cpu``: a tensor on the CPU takes
 the plain PyTorch version (``ref``); any other tensor goes to the CUDA
 kernel, which launches or raises. There is no fallback from one to the
-other.
+other. No kernel has a backward (nor has any kernel of the reference), so
+a CUDA branch raises ``ValueError`` when grad mode is on and an input
+requires grad, instead of returning a result that autograd cannot see
+through; training runs ``lm.forward(..., use_kernels=False)``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,13 @@ from repro_torch.kernels.similarity import topk_cosine
 from repro_torch.kernels.ssd import ssd
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise ValueError(f"{name} kernel: an input requires grad and the kernel has no "
+                         "backward (train through lm.forward(..., use_kernels=False))")
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0.0):
     """Model layout: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)."""
     if q.device.type == "cpu":
@@ -28,6 +38,7 @@ def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0
             causal=causal, logit_softcap=logit_softcap,
         )
         return o.transpose(1, 2)
+    _refuse_grad("flash_attention", q, k, v)
     if logit_softcap:
         raise ValueError("flash_attention kernel: attn_logit_softcap is not supported")
     return flash_attention(q, k, v, causal=causal)
@@ -50,6 +61,7 @@ def decode_attention_op(q, cache_k, cache_v, lengths, *, logit_softcap: float = 
             logit_softcap=logit_softcap,
         )
         return _zero_empty_rows(o, lengths)[:, None]
+    _refuse_grad("decode_attention", q, cache_k, cache_v)
     if logit_softcap:
         raise ValueError("decode_attention kernel: attn_logit_softcap is not supported")
     return decode_attention(q, cache_k, cache_v, torch.as_tensor(lengths, device=q.device))
@@ -66,6 +78,7 @@ def paged_decode_attention_op(q, k_pages, v_pages, page_table, lengths, *,
         o = ref.paged_attention_ref(q[:, 0], k_pages, v_pages, page_table, lengths,
                                     logit_softcap=logit_softcap)
         return _zero_empty_rows(o, lengths)[:, None]
+    _refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     if logit_softcap:
         raise ValueError("paged_decode_attention kernel: attn_logit_softcap is not supported")
     return paged_decode_attention(q, k_pages, v_pages,
@@ -80,6 +93,7 @@ def wkv6_op(r, k, v, w_log, u, *, chunk: int = 64):
     (the model passes its ``ssm.chunk_size``); the kernel has no chunk."""
     if r.device.type == "cpu":
         return ref.wkv6_chunked_ref(r, k, v, w_log, u, chunk=chunk)
+    _refuse_grad("wkv6", r, k, v, w_log, u)
     return wkv6(r, k, v, w_log, u)
 
 
@@ -90,6 +104,7 @@ def ssd_op(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
     with chunk ``chunk``; the kernel has no chunk."""
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, A_log, B_, C_, D, chunk=chunk)
+    _refuse_grad("ssd", x, dt, A_log, B_, C_, D)
     return ssd(x, dt, A_log, B_, C_, D)
 
 
@@ -120,4 +135,5 @@ def resident_topk(queries: torch.Tensor, bank: torch.Tensor, *, k: int = 1):
         if bank.device.type != "cpu":
             raise ValueError(f"resident_topk: queries on the CPU, bank on {bank.device}")
         return ref.topk_cosine_ref(queries, bank, k)
+    _refuse_grad("topk_cosine", queries, bank)
     return topk_cosine(queries, bank, k)

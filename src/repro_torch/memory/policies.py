@@ -1,5 +1,5 @@
 """Composable eviction policies for plan stores (paper §4.4; the twin of
-``repro.memory.policies``, without the cold tier's entry fields).
+``repro.memory.policies``).
 
 * ``lru``  — least-recently-used, O(1) victim selection (the paper default);
 * ``lfu``  — least-frequently-used on the store's live hit counters;
@@ -31,6 +31,11 @@ class CacheEntry:
     value: Any
     inserted_at: float
     hits: int = 0  # lookups served by this entry since (re)insert
+    # the insertion side-channel a cold-tier spill round-trips
+    # (memory/tiered.py): the semantic stage's context string and the key's
+    # embedding vector (None when the caller passed none)
+    context: Optional[str] = None
+    vector: Any = None
 
 
 class EvictionPolicy:

@@ -42,8 +42,8 @@ class CacheStats:
     the reference's field reads and ``snapshot()``. Stores that share a
     registry (the shards of a ``DistributedPlanCache``) are label-keyed
     series of one set; a bare ``CacheStats()`` has a private registry.
-    The cold-tier fields stay 0 (the port has no cold tier yet) and out of
-    ``snapshot()``, as in the reference."""
+    The cold-tier and conditional-admission fields stay out of
+    ``snapshot()``, as in the reference: ``cold_snapshot()`` reads them."""
 
     _FIELDS = {
         "hits": _names.CACHE_HITS,
@@ -99,6 +99,16 @@ class CacheStats:
             "inserts": self.inserts,
             "evictions": self.evictions,
             "lookup_time_s": round(self.lookup_time_s, 6),
+        }
+
+    def cold_snapshot(self) -> Dict[str, int]:
+        """The tiered-memory counters (all 0 unless a cold tier is wired)."""
+        return {
+            "cold_hits": self.cold_hits,
+            "spills": self.spills,
+            "promotes": self.promotes,
+            "compaction_saved_tokens": self.compaction_saved_tokens,
+            "stale_insert_skips": self.stale_insert_skips,
         }
 
 

@@ -7,8 +7,10 @@ Every prefill goes through ``kernels.ops.flash_attention_op`` and every
 decode step through ``kernels.ops.decode_attention_op``: on a CUDA tensor
 they launch the hand-written kernels, on a CPU tensor they run the plain
 versions. ``attention_extend`` and the cross-attention are plain PyTorch on
-both, as the reference computes them outside any kernel. RoPE is skipped
-where ``cos`` is None (``rope_type="none"``).
+both, as the reference computes them outside any kernel. Training
+(``attention_seq(use_kernels=False)``) runs the reference's model code with
+autograd: ``naive_attention``, or ``flash_attention_chunked`` past 512
+positions. RoPE is skipped where ``cos`` is None (``rope_type="none"``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import Params, dense_init, dtype_of, rms_norm
 from repro_torch.models.rope import apply_rope
+
+ATTN_CHUNK = 2048  # the reference's attn_chunk (no config changes it)
 
 
 def attn_init(cfg, generator, device) -> Params:
@@ -66,14 +70,75 @@ def _rope(q, k, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
-def attention_seq(cfg, p: Params, x: torch.Tensor, cos, sin, *, causal: bool = True):
-    """Full-sequence attention (prefill; ``causal=False`` for an encoder).
-    Returns (out, (k, v))."""
+def naive_attention(q, k, v, *, causal: bool = True, logit_softcap: float = 0.0):
+    """Softmax attention with the scores materialized, fp32 (the reference's
+    ``naive_attention``). q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) ->
+    (B, S, Hq, hd) in q's dtype."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def flash_attention_chunked(q, k, v, *, chunk: int = ATTN_CHUNK, causal: bool = True,
+                            logit_softcap: float = 0.0):
+    """Online-softmax attention over (chunk x chunk) blocks, fp32
+    accumulators (the reference's ``flash_attention_jnp``): the (S, S)
+    scores are never held whole. Same layouts as ``naive_attention``."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    C = min(chunk, S)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i0 in range(0, S, C):
+        qb = q[:, i0:i0 + C].reshape(B, -1, Hkv, G, hd).float()
+        Cq = qb.shape[1]
+        m = torch.full((B, Hkv, G, Cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, Cq, hd), dtype=torch.float32, device=q.device)
+        for j0 in range(0, (i0 + C) if causal else S, C):
+            kb, vb = k[:, j0:j0 + C].float(), v[:, j0:j0 + C].float()
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            if logit_softcap > 0.0:
+                s = logit_softcap * torch.tanh(s / logit_softcap)
+            if causal and j0 == i0:
+                r = torch.arange(Cq, device=q.device)
+                s = s.masked_fill(r[None, :kb.shape[1]] > r[:, None], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            pb = torch.exp(s - m_new[..., None])
+            l = l * alpha + pb.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pb, vb)
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)  # (B, Hkv, G, Cq, hd)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, Cq, Hq, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_seq(cfg, p: Params, x: torch.Tensor, cos, sin, *, causal: bool = True,
+                  use_kernels: bool = True):
+    """Full-sequence attention (prefill or training; ``causal=False`` for
+    an encoder). ``use_kernels`` sends it to ``flash_attention_op``; else
+    the reference's training path, ``naive_attention`` up to 512 positions
+    and ``flash_attention_chunked`` past them. Returns (out, (k, v))."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope(q, k, cos, sin)
-    o = kops.flash_attention_op(q, k, v, causal=causal,
-                                logit_softcap=cfg.attn_logit_softcap)
+    cap = cfg.attn_logit_softcap
+    if use_kernels:
+        o = kops.flash_attention_op(q, k, v, causal=causal, logit_softcap=cap)
+    elif S > 512:
+        o = flash_attention_chunked(q, k, v, causal=causal, logit_softcap=cap)
+    else:
+        o = naive_attention(q, k, v, causal=causal, logit_softcap=cap)
     out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
     return out, (k, v)
 

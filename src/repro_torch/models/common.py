@@ -13,6 +13,27 @@ Params = Dict[str, Any]
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
+def tree_leaves(tree: Any) -> list:
+    """Leaves of a parameter tree in order: dict values in insertion order,
+    lists and tuples by index."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching subtrees of
+    ``rest`` (where ``tree`` has a leaf, the subtree of ``rest`` there is
+    passed whole)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 

@@ -29,6 +29,15 @@ Caches are dicts with a Python int ``length``:
 Decode updates the cache IN PLACE (the reference donates the buffers
 instead), so a cache passed to ``decode_step`` must not be reused by the
 caller afterwards.
+
+``forward`` returns ``(logits, aux, cache)`` as the reference does, aux
+the MoE layers' summed load-balancing loss (0 without them). Its
+``use_kernels=False`` is the training path: the model code the reference
+trains through (``use_pallas`` False by default), with autograd and no
+kernel: attention as ``attention.naive_attention`` (or its chunked online
+softmax past 512 positions), the scans as the chunked forms. Every serving
+entry point (``prefill``, ``prefill_extend``, ``decode_step``) runs the
+kernels, whose CUDA wrappers refuse inputs that require grad.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from repro_torch.models.common import (
     mlp_forward,
     mlp_init,
     norm_param_init,
+    tree_map,
 )
 from repro_torch.models.rope import positions_for_rope
 
@@ -153,14 +163,6 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def params_from_jax(cfg, params_np: Params) -> Params:
     """The port's (CPU) parameters from a ``repro.models.lm.init_params``
     pytree given as numpy arrays. Unstacks the leading layer axis of
@@ -170,15 +172,15 @@ def params_from_jax(cfg, params_np: Params) -> Params:
     (bf16 via a uint16 view) and the names."""
     _check_family(cfg)
     stacks = ("enc_blocks", "dec_blocks") if cfg.family == "audio" else ("blocks",)
-    out = {k: _tree_map(_from_numpy, v) for k, v in params_np.items() if k not in stacks}
+    out = {k: tree_map(_from_numpy, v) for k, v in params_np.items() if k not in stacks}
 
     def unstack(tree, n):
-        return [_tree_map(lambda t: t[i].clone(), tree) for i in range(n)]
+        return [tree_map(lambda t: t[i].clone(), tree) for i in range(n)]
 
     for name in stacks:
-        stacked = _tree_map(_from_numpy, params_np[name])
+        stacked = tree_map(_from_numpy, params_np[name])
         if cfg.family == "hybrid":
-            out[name] = [unstack(_tree_map(lambda t: t[g], stacked), cfg.attn_every)
+            out[name] = [unstack(tree_map(lambda t: t[g], stacked), cfg.attn_every)
                          for g in range(_groups(cfg))]
         else:
             n = cfg.encoder.num_layers if name == "enc_blocks" else cfg.num_layers
@@ -188,7 +190,7 @@ def params_from_jax(cfg, params_np: Params) -> Params:
 
 def params_to(params: Params, device) -> Params:
     """The same parameters on ``device`` (no copy where already there)."""
-    return _tree_map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
 
 
 # ===========================================================================
@@ -266,12 +268,11 @@ def _embed_inputs(cfg, params: Params, tokens, embeds, positions):
     return x, positions
 
 
-def _ffn_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The layer's MLP, or its MoE where it has one (the aux loss, which
-    only training reads, is dropped)."""
+def _ffn_block(cfg, p: Params, x: torch.Tensor):
+    """The layer's MLP, or its MoE where it has one: (y, aux loss or None)."""
     if "moe" in p:
-        return moe_mod.moe_forward(cfg, p["moe"], x)[0]
-    return mlp_forward(cfg, p["mlp"], x)
+        return moe_mod.moe_forward(cfg, p["moe"], x)
+    return mlp_forward(cfg, p["mlp"], x), None
 
 
 def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -285,13 +286,14 @@ def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 
 
-def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin):
+def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin, use_kernels: bool):
     """One dense or moe layer (attention + MLP/MoE) over a sequence.
-    Returns (x, k, v)."""
-    h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin)
+    Returns (x, k, v, aux or None)."""
+    h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin,
+                                   use_kernels=use_kernels)
     x = x + h
-    x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
-    return x, k, v
+    y, aux = _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
+    return x + y, k, v, aux
 
 
 def forward(
@@ -304,25 +306,30 @@ def forward(
     frames: Optional[torch.Tensor] = None,
     want_cache: bool = False,
     cache_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, Optional[Cache]]:
+    use_kernels: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """Full-sequence forward of ``tokens`` (B, S), or of the vlm stub
     frontend's ``embeds`` (B, S, D) with ``positions`` ((3, B, S) for
     M-RoPE); audio takes the decoder's ``tokens`` and the stub frontend's
-    ``frames`` (B, T, D). Returns (logits (B, S, V), cache-or-None); the
-    cache covers ``cache_len`` positions (default S) with S filled. The
-    recurrent families start from a zero state (``lm.py:315-318`` and
-    ``:387`` of the reference)."""
+    ``frames`` (B, T, D). Returns (logits (B, S, V), aux loss (fp32
+    scalar), cache-or-None); the cache covers ``cache_len`` positions
+    (default S) with S filled. The recurrent families start from a zero
+    state (``lm.py:315-318`` and ``:387`` of the reference).
+    ``use_kernels=False`` runs the training path (module docstring)."""
     _check_family(cfg)
     if cfg.family == "audio":
-        return _whisper_forward(cfg, params, tokens, frames, want_cache, cache_len)
+        return _whisper_forward(cfg, params, tokens, frames, want_cache, cache_len,
+                                use_kernels)
     x, pos = _embed_inputs(cfg, params, tokens, embeds, positions)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, cache_len or S, x.device) if want_cache else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = apply_norm(cfg, params, "ln0", x)
         for i, p in enumerate(params["blocks"]):
             y, st, sh_tm = rwkv_mod.rwkv_time_mix(cfg, p["rwkv"],
-                                                  apply_norm(cfg, p, "ln1", x), None)
+                                                  apply_norm(cfg, p, "ln1", x), None,
+                                                  use_kernels=use_kernels)
             x = x + y
             y, sh_cm = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"],
                                                  apply_norm(cfg, p, "ln2", x), None)
@@ -338,27 +345,31 @@ def forward(
             for g, group in enumerate(params["blocks"]):
                 for i, p in enumerate(group):
                     y, st, cv = mam.mamba_forward(cfg, p["mamba"],
-                                                  apply_norm(cfg, p, "ln1", x), None)
+                                                  apply_norm(cfg, p, "ln1", x), None,
+                                                  use_kernels=use_kernels)
                     x = x + y
                     if cache is not None:
                         cache["ssm_state"][g, i] = st
                         cache["conv"][g, i] = cv
-                x, k, v = _dense_layer(cfg, shared, x, cos, sin)
+                x, k, v, a = _dense_layer(cfg, shared, x, cos, sin, use_kernels)
+                aux = aux if a is None else aux + a
                 if cache is not None:
                     cache["kv_k"][g, :, :S] = k
                     cache["kv_v"][g, :, :S] = v
         else:
             for i, p in enumerate(params["blocks"]):
-                x, k, v = _dense_layer(cfg, p, x, cos, sin)
+                x, k, v, a = _dense_layer(cfg, p, x, cos, sin, use_kernels)
+                aux = aux if a is None else aux + a
                 if cache is not None:
                     cache["kv_k"][i, :, :S] = k
                     cache["kv_v"][i, :, :S] = v
     if cache is not None:
         cache["length"] = S
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x), aux, cache
 
 
-def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len):
+def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len,
+                     use_kernels):
     """Encoder over the stub frames (sinusoidal positions, bidirectional
     attention), then the decoder over ``tokens`` (learned positions,
     causal self-attention, cross-attention to the encoder output)."""
@@ -377,7 +388,7 @@ def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len)
     x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1)[None].to(dt)
     for p in params["enc_blocks"]:
         h, _ = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None, None,
-                                  causal=False)
+                                  causal=False, use_kernels=use_kernels)
         x = x + h
         x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
     enc_out = apply_norm(cfg, params, "enc_final", x)
@@ -386,7 +397,7 @@ def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len)
     cache = init_cache(cfg, B, cache_len or S, x.device, enc_len=T) if want_cache else None
     for i, p in enumerate(params["dec_blocks"]):
         h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None,
-                                       None)
+                                       None, use_kernels=use_kernels)
         x = x + h
         ck, cv = attn.cross_attention_kv(cfg, p["cross"], enc_out)
         x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x), ck, cv)
@@ -398,14 +409,16 @@ def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len)
             cache["cross_v"][i] = cv
     if cache is not None:
         cache["length"] = S
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device), cache
 
 
 def prefill(cfg, params: Params, tokens: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None, **inputs) -> Tuple[torch.Tensor, Cache]:
-    """``forward`` with the cache; ``inputs`` are its ``embeds``,
-    ``positions`` and ``frames``."""
-    return forward(cfg, params, tokens, want_cache=True, cache_len=cache_len, **inputs)
+    """``forward`` with the cache, on the kernels; ``inputs`` are its
+    ``embeds``, ``positions`` and ``frames``. Returns (logits, cache)."""
+    logits, _, cache = forward(cfg, params, tokens, want_cache=True, cache_len=cache_len,
+                               **inputs)
+    return logits, cache
 
 
 def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Tensor,
@@ -446,7 +459,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
         h, (k, v) = attn.attention_extend(cfg, p["attn"], apply_norm(cfg, p, "ln1", x),
                                           cos, sin, prefix_k[i], prefix_v[i], prefix_len)
         x = x + h
-        x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
+        x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))[0]
         cache["kv_k"][i, :, prefix_len:total] = k
         cache["kv_v"][i, :, prefix_len:total] = v
     cache["length"] = total
@@ -494,7 +507,7 @@ def decode_step(cfg, params: Params, cache: Cache,
 
     def dense_layer(p, x, i):
         x = self_attn(p, x, i)
-        return x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
+        return x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))[0]
 
     if cfg.family == "audio":
         rows = params["dec_pos"].shape[0]

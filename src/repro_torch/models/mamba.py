@@ -8,8 +8,11 @@ n_groups=1):
     y_t = H_t C_t + D_h x_t
 
 A prefill runs the scan through ``kernels.ops.ssd_op``: the hand-written
-CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor. A
-decode step is plain PyTorch (``ssd_step``), as in the reference.
+CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor.
+Training (``use_kernels=False``) calls the chunked form itself,
+``ref.ssd_chunked_ref``, the twin of the reference's model function
+``ssd_chunked`` that the reference trains through, with autograd. A decode
+step is plain PyTorch (``ssd_step``), as in the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models.common import Params, dense_init, dtype_of, rms_norm
 
 
@@ -92,9 +96,10 @@ def _split_proj(cfg, proj):
 
 
 def mamba_forward(cfg, p: Params, x: torch.Tensor,
-                  conv_prev: Optional[torch.Tensor] = None):
-    """x: (B, S, D). The scan starts from a zero state. Returns (y, state
-    (B, H, P, Ns) fp32, conv carry (B, K-1, CH))."""
+                  conv_prev: Optional[torch.Tensor] = None, *, use_kernels: bool = True):
+    """x: (B, S, D). The scan starts from a zero state, on the ssd kernel
+    (``use_kernels``) or the chunked form. Returns (y, state (B, H, P, Ns)
+    fp32, conv carry (B, K-1, CH))."""
     B, S, D = x.shape
     s = cfg.ssm
     d_in, heads, _ = mamba_dims(cfg)
@@ -104,8 +109,9 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
     Bc = conv_out[..., d_in:d_in + s.state_dim]
     Cc = conv_out[..., d_in + s.state_dim:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
-    y, state = kops.ssd_op(xin.reshape(B, S, heads, s.head_dim), dt, p["A_log"], Bc, Cc,
-                           p["D"], chunk=s.chunk_size)
+    scan = kops.ssd_op if use_kernels else ref.ssd_chunked_ref
+    y, state = scan(xin.reshape(B, S, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
+                    chunk=s.chunk_size)
     y = rms_norm(y.reshape(B, S, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
     return y @ p["out_proj"], state, conv_carry
 

@@ -8,8 +8,10 @@ with w_t = exp(-exp(w_base + lora(x^w_t))) in (0, 1), data-dependent.
 
 A prefill runs the recurrence through ``kernels.ops.wkv6_op``: the
 hand-written CUDA kernel on a CUDA tensor, the chunked plain version on a
-CPU tensor. A decode step is plain PyTorch (``wkv6_step``), as in the
-reference.
+CPU tensor. Training (``use_kernels=False``) calls the chunked form itself,
+``ref.wkv6_chunked_ref``, the twin of the reference's model function
+``wkv6_chunked`` that the reference trains through, with autograd. A decode
+step is plain PyTorch (``wkv6_step``), as in the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models.common import Params, dense_init, dtype_of, layer_norm, token_shift
 
 LORA_DIM = 64
@@ -110,18 +113,18 @@ def _out(p: Params, y: torch.Tensor, g: torch.Tensor, x_dtype) -> torch.Tensor:
     return (y.to(x_dtype) * g) @ p["wo"]
 
 
-def rwkv_time_mix(cfg, p: Params, x: torch.Tensor,
-                  x_prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def rwkv_time_mix(cfg, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor], *,
+                  use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D); x_prev: (B, D) shift carry or None. The recurrence
-    starts from a zero state. Returns (y, state (B, H, N, N) fp32,
-    new x_prev)."""
+    starts from a zero state, on the wkv6 kernel (``use_kernels``) or the
+    chunked form. Returns (y, state (B, H, N, N) fp32, new x_prev)."""
     B, S, D = x.shape
     s = cfg.ssm
     H, N = D // s.head_dim, s.head_dim
     r, k, v, g, w_log = _projections(p, x, token_shift(x, x_prev))
-    y, state = kops.wkv6_op(r.reshape(B, S, H, N), k.reshape(B, S, H, N),
-                            v.reshape(B, S, H, N), w_log.reshape(B, S, H, N), p["bonus"],
-                            chunk=s.chunk_size)
+    scan = kops.wkv6_op if use_kernels else ref.wkv6_chunked_ref
+    y, state = scan(r.reshape(B, S, H, N), k.reshape(B, S, H, N), v.reshape(B, S, H, N),
+                    w_log.reshape(B, S, H, N), p["bonus"], chunk=s.chunk_size)
     return _out(p, y, g, x.dtype), state, x[:, -1]
 
 

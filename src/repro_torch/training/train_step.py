@@ -1,0 +1,106 @@
+"""Training step: loss, gradients, optimizer update, with optional
+vocab-chunked cross-entropy and gradient accumulation over microbatches
+(the twin of ``repro.training.train_step``).
+
+The loss runs ``lm.forward(..., use_kernels=False)``: the model code the
+reference trains through, with autograd, and none of the kernels (which
+have no backward). Gradients come from ``torch.autograd.grad`` with respect
+to detached copies of the parameters, so the step is functional like the
+reference's: it returns new parameter and optimizer trees.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.training.optimizer import AdamWConfig, adamw_update
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  chunk_vocab: int = 0) -> torch.Tensor:
+    """Mean token NLL. logits (B, S, V) any dtype; labels (B, S) int.
+    ``chunk_vocab`` > 0 takes the logsumexp over vocabulary chunks (a
+    bound on the fp32 temporaries)."""
+    lg = logits.float()
+    V = logits.shape[-1]
+    if chunk_vocab and V > chunk_vocab:
+        chunks = [lg[..., i:i + chunk_vocab] for i in range(0, V, chunk_vocab)]
+        m = torch.full(lg.shape[:-1], float("-inf"), dtype=torch.float32, device=lg.device)
+        for c in chunks:
+            m = torch.maximum(m, c.amax(-1))
+        s = torch.zeros(lg.shape[:-1], dtype=torch.float32, device=lg.device)
+        for c in chunks:
+            s = s + torch.exp(c - m[..., None]).sum(-1)
+        lse = m + torch.log(s)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """nll + aux over ``batch`` (``tokens`` or vlm ``embeds`` with
+    ``positions``, audio ``frames``, and ``labels``). As in the reference,
+    ``positions`` are read only with ``embeds``."""
+    embeds = batch.get("embeds")
+    logits, aux, _ = lm.forward(
+        cfg, params, batch.get("tokens"), embeds=embeds,
+        positions=batch.get("positions") if embeds is not None else None,
+        frames=batch.get("frames"), use_kernels=False)
+    nll = cross_entropy(logits, batch["labels"])
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+def value_and_grad(cfg, params, batch) -> Tuple[torch.Tensor, Dict, Any]:
+    """(loss, metrics, grads): grads in the parameters' tree and dtypes."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(cfg, live, batch)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(it), params))
+
+
+def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, microbatch: int = 0):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
+    metrics as 0-d tensors on the parameters' device. With ``microbatch`` >
+    1 the batch splits into that many equal parts whose fp32 gradients are
+    averaged (the vlm's (3, B, S) positions split on their B axis)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        if microbatch and microbatch > 1:
+            B = batch["labels"].shape[0]
+            mb = B // microbatch
+
+            def reshard(x):
+                if x.dim() >= 1 and x.shape[0] == B:
+                    return x.reshape(microbatch, mb, *x.shape[1:])
+                if x.dim() == 3 and x.shape[0] == 3:  # vlm positions (3, B, S)
+                    return x.reshape(3, microbatch, mb, x.shape[2]).permute(1, 0, 2, 3)
+                return x.expand((microbatch,) + tuple(x.shape))
+
+            parts = {k: reshard(v) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            losses = []
+            for i in range(microbatch):
+                loss_i, _, g = value_and_grad(cfg, params, {k: v[i] for k, v in parts.items()})
+                grads = tree_map(lambda a, b: a + b, grads, g)
+                losses.append(loss_i)
+            grads = tree_map(lambda g: g / microbatch, grads)
+            metrics = {"loss": torch.mean(torch.stack(losses))}
+        else:
+            loss, m, grads = value_and_grad(cfg, params, batch)
+            metrics = {"loss": loss, **m}
+        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics.update(om)
+        return params, opt_state, metrics
+
+    return train_step

@@ -120,13 +120,14 @@ def test_overwrite_is_delete_then_insert():
 
 
 def test_unported_options_raise():
-    """The cold tier is not ported: its stage name and its arguments are
-    refused. The default index backend, ``auto``, is ported (a host index,
-    as in repro)."""
+    """The cold tier is no pipeline stage (it is the cache's own last
+    stage, tests/test_torch_tiered.py), and the simulation's ablation seams
+    are not ported: both are refused. The default index backend, ``auto``,
+    is ported (a host index, as in repro)."""
     with pytest.raises(ValueError, match="unknown pipeline stage"):
         build_pipeline(["cold"])
-    with pytest.raises(TypeError, match="cold_dir"):
-        PlanCache(cold_dir="plans")
+    with pytest.raises(TypeError, match="evict_during_wave"):
+        PlanCache(evict_during_wave=True)
     assert PlanCache().pipeline.stage("fuzzy") is None  # exact-only builds no index
     index = PlanCache(fuzzy=True).pipeline.stage("fuzzy").index
     assert index.backend == "auto" and index.device is None

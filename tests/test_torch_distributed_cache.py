@@ -191,10 +191,10 @@ def test_plan_cache_repair_primitives_match_reference(backend):
 
 
 def test_deferred_options_raise():
-    """The cold tier's and the simulation's options are not ported yet: each
-    raises instead of being ignored."""
-    for kw in ({"cold_dir": "/nonexistent"}, {"cold_budget_tokens": 10}, {"cold_keep_last": 2},
-               {"ablate": ("fuzzy_scatter",)}):
+    """The simulation's options are not ported yet: each raises instead of
+    being ignored (the cold tier's options are ported:
+    tests/test_torch_tiered.py)."""
+    for kw in ({"ablate": ("fuzzy_scatter",)}, {"ablate": ("cold_gc_refcount",)}):
         with pytest.raises(TypeError, match="not ported"):
             tdc.DistributedPlanCache(n_nodes=1, **kw)
     with pytest.raises(ValueError, match="primary"):

@@ -58,5 +58,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.core.distributed_cache", "repro_torch.serving.scheduler",
               "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
               "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.qwen3_4b",
-              "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.whisper_tiny"):
+              "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.whisper_tiny",
+              "repro_torch.checkpoint.store", "repro_torch.memory.tiered",
+              "repro_torch.core.fuzzy", "repro_torch.training.optimizer",
+              "repro_torch.training.grad_compress", "repro_torch.training.train_step",
+              "repro_torch.distributed.fault", "repro_torch.launch.train"):
         assert m in mods

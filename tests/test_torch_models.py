@@ -329,7 +329,7 @@ def test_recurrent_prefill_decode_and_caches_match_reference(arch, dtype):
     tol = TOL[dtype]
 
     lj, _, _ = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(pj, {"tokens": jnp.asarray(toks)})
-    lt, none = tlm.forward(tcfg, pt, torch.from_numpy(toks))
+    lt, _, none = tlm.forward(tcfg, pt, torch.from_numpy(toks))
     assert none is None
     _close(lt, lj, tol)
 
@@ -365,7 +365,7 @@ def test_multi_step_decode_matches_forward(arch):
     p = tlm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     B, S, extra = 1, 18, 3
     toks = torch.randint(3, VOCAB, (B, S + extra), generator=torch.Generator().manual_seed(4))
-    full, _ = tlm.forward(cfg, p, toks)
+    full, _, _ = tlm.forward(cfg, p, toks)
     _, cache = tlm.prefill(cfg, p, toks[:, :S], cache_len=S + extra + 2)
     for i in range(extra):
         ld, cache = tlm.decode_step(cfg, p, cache, toks[:, S + i:S + i + 1])
@@ -561,10 +561,10 @@ def test_mrope_positions_change_output():
     pos1 = torch.arange(S, dtype=torch.int32)[None, None].expand(3, B, S)
     pos2 = pos1.clone()
     pos2[1] = pos1[1] * 3
-    l1, _ = tlm.forward(cfg, p, embeds=emb, positions=pos1)
-    l2, _ = tlm.forward(cfg, p, embeds=emb, positions=pos2)
+    l1, _, _ = tlm.forward(cfg, p, embeds=emb, positions=pos1)
+    l2, _, _ = tlm.forward(cfg, p, embeds=emb, positions=pos2)
     assert (l1 - l2).abs().max().item() > 1e-5
-    l0, _ = tlm.forward(cfg, p, embeds=emb)  # default: 0..S-1 on every stream
+    l0, _, _ = tlm.forward(cfg, p, embeds=emb)  # default: 0..S-1 on every stream
     assert torch.equal(l0, l1)
 
 
@@ -584,7 +584,7 @@ def test_whisper_forward_prefill_decode_match_reference(dtype):
     tol = TOL[dtype]
     batch = {"frames": jnp.asarray(frames), "tokens": jnp.asarray(toks[:, :S])}
     lj, _, _ = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(pj, batch)
-    lt, none = tlm.forward(tcfg, pt, torch.from_numpy(toks[:, :S]),
+    lt, _, none = tlm.forward(tcfg, pt, torch.from_numpy(toks[:, :S]),
                            frames=torch.from_numpy(frames))
     assert none is None
     _close(lt, lj, tol)
