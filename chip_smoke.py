@@ -96,7 +96,17 @@ printing the ok line):
    and one rollback from an injected NaN; (b) one step card against CPU;
    (c) the trained weights served through the flash and decode kernels,
    and every CUDA kernel wrapper refusing an input that requires grad;
-   (d) the plan cache's cold tier on the ``device`` index.
+   (d) the plan cache's cold tier on the ``device`` index;
+10. the deterministic simulation (``repro_torch.sim``; constants ``SIM_*``):
+   the cells of ``python -m repro_torch.sim --check``. (a) every fuzzy cell
+   (the paraphrase scenario under each plan, the speculation plan and the
+   fuzzy-scatter and speculation audits) at seeds 0-4 with its shard
+   indexes and the oracle's twin indexes on the card's ``device`` backend:
+   clean or caught as expected, run twice with equal trace hash and span
+   digest, its trace hash equal to the same cell on the CPU on the same
+   backend, top-k launched; (b) every other cell at seed 0, its trace hash
+   pinned to the reference's; (c) a soak of the paraphrase scenario under
+   crash/restart at 10x the default ops.
 
 Output: a ``[phase]`` line as each phase ends, one ``{"kernels": [...]}``
 line, one ``{"serve": {...}}`` line, one ``{"baselines": {...}}`` line, one
@@ -104,7 +114,9 @@ line, one ``{"serve": {...}}`` line, one ``{"baselines": {...}}`` line, one
 ``engine.generate`` p50/p99 per arch, the per-shard ``cache.*`` series),
 one ``{"train": {...}}`` line (phase 9: step seconds and tokens/s,
 checkpoint bytes, save and restore seconds, peak memory, the card-vs-CPU
-and served-logits errors, the cold runs), the nvidia-smi line, and last
+and served-logits errors, the cold runs), one ``{"sim": {...}}`` line
+(phase 10: cells, hash checks, audit trips, top-k launches, the soak,
+seconds), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
 ``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -366,6 +378,65 @@ COLD_EXPECT = {
         "lookup": [None, None, 2, None, None, 5, 6, 7, 8, 9, 10, 11],
         "hot": [[6, 8, 9, 10], [2, 5, 7, 11]], "cold": [[1, 3, 4], [0]], "cold_hits": 0,
         "spills": 8, "promotes": 4, "remove": [True, None, False], "cleared": [0, 0, 12]},
+}
+
+
+# phase 10, the deterministic simulation (repro_torch.sim) on the card: the
+# cells of ``python -m repro_torch.sim --check`` (``matrix_cells``). (a) the
+# fuzzy cells (those whose normalized config has fuzzy=True: every shard
+# index and every oracle twin on the ``device`` backend, so each lookup wave
+# launches top-k) at seeds 0..SIM_SEEDS-1, each run twice on the card (equal
+# trace hash and span digest) and once on the CPU on the same backend (equal
+# trace hash); (b) every other cell at seed 0, its trace hash pinned to the
+# reference's (``python -m repro.sim``; tests/test_torch_sim.py holds the
+# pins to it); (c) the soak, SIM_SOAK at 10x the default ops. A clean cell
+# must show no violation; an audit cell (one guard ablated) must trip one of
+# SIM_ORACLES[guard] (tests/test_sim.py's EXPECTED_ORACLES by guard)
+SIM_SEEDS = 5
+SIM_SOAK = {"seed": 0, "scenario": "paraphrase_burst", "fault": "crash_restart", "n_ops": 600}
+SIM_ORACLES = {
+    "crash_fallthrough": {"durability"},
+    "replica_ack": {"linearizability", "durability", "control_plane"},
+    "hedge_failover": {"completeness"},
+    "evict_after_wave": {"eviction_order", "durability", "phantom"},
+    "churn_rehome": {"durability", "linearizability", "control_plane"},
+    "cachegen_fallback": {"cachegen_loss"},
+    "cold_gc_refcount": {"durability"},
+    "ttl_expiry": {"phantom", "control_plane"},
+    "spec_rollback": {"spec_leak"},
+    "spec_verify_timeout": {"spec_liveness"},
+    "fuzzy_scatter": {"durability"},
+}
+SIM_REF_HASHES = {  # seed 0, by cell tag without its "s0-"
+    "skewed_reuse-none": "0e78d7776fd22038dc648efa1cb736bc",
+    "skewed_reuse-crash_restart": "7c81f0606382e5ab7ac800ffad6c78b2",
+    "skewed_reuse-replica_lag": "ed48100896f9b808e7589d85531b4dec",
+    "skewed_reuse-hedge_timeout": "c966097d8cbfa459ee9848dbd742b370",
+    "skewed_reuse-membership_churn": "1501bc99d15138b32833f0b1ecbd1b57",
+    "skewed_reuse-async_cachegen": "0ac1785019e94ef51b3ddf405c1f949e",
+    "skewed_reuse-ttl_churn": "154992485e567b9203d2a4adff430848",
+    "evict_then_hit-none": "3dc8dcae9ebed31528fbd4ae2211232f",
+    "evict_then_hit-crash_restart": "98a83c74a24a997c69a28f56d2d5b437",
+    "evict_then_hit-replica_lag": "4b0d26fd117de4eaf78cf4fe8dafd1fd",
+    "evict_then_hit-hedge_timeout": "efe64b3be1b44fee277eaec3fed5a90f",
+    "evict_then_hit-mid_wave_evict": "369ae363514c7f982625d91dabc92a61",
+    "evict_then_hit-membership_churn": "3e8a77715f34765e2966ab853d2c78a6",
+    "evict_then_hit-async_cachegen": "952b275810eb1607d5512c99b36bc075",
+    "evict_then_hit-cold_tier": "d4ec68ca3e3255b3ffdc44f56f88d915",
+    "uniform-none": "1bd2e3ea28ad81f0d2060e6abd794df1",
+    "uniform-crash_restart": "3ef8b3413d24b3773ca836c5a4ad73d7",
+    "uniform-replica_lag": "8d20f110ca625badfd6fedc6bd06d8dc",
+    "uniform-hedge_timeout": "5a78d143d7e0fa0460ac11cd53ead6bc",
+    "uniform-membership_churn": "066adc87d2a5857fde2d0256df233424",
+    "uniform-async_cachegen": "bc097dc4fd7741ee4baa53f6138ae8ad",
+    "ablate-cachegen_fallback": "2e61e8670b853df1f7b058838a477a7f",
+    "ablate-cold_gc_refcount": "c11a7d0cd5a468f2ba2326ac8843d20b",
+    "ablate-crash_fallthrough": "fbb329f69df897f518506ad7771c8c32",
+    "ablate-hedge_failover": "8f821d5a6fe2e71584ffd84e69710e4c",
+    "ablate-churn_rehome": "15ea20a3594f2b4ef7c25763680a7d25",
+    "ablate-evict_after_wave": "369ae363514c7f982625d91dabc92a61",
+    "ablate-replica_ack": "6907da0912f121e7553a003172f92dec",
+    "ablate-ttl_expiry": "e3616d349c5966a9c10c231c87159c36",
 }
 
 
@@ -2566,6 +2637,128 @@ def cold_on_card(torch, root):
     return out
 
 
+def _sim_judge(tag, cfg, report):
+    """A clean cell must show no violation, an audit cell must trip one of
+    its guard's oracles; returns the oracles that fired."""
+    fired = sorted({v.oracle for v in report.violations})
+    if cfg.ablate:
+        want = SIM_ORACLES[cfg.ablate[0]]
+        if not want & set(fired):
+            raise AssertionError(f"sim {tag}: guard {cfg.ablate[0]} ablated, oracles {fired} "
+                                 f"fired, none of {sorted(want)}")
+    elif fired:
+        v = report.violations[0]
+        raise AssertionError(f"sim {tag}: {len(report.violations)} violations, the first "
+                             f"step {v.step} {v.oracle}: {v.detail}")
+    return fired
+
+
+def sim_on_card(torch):
+    """Phase 10: the deterministic simulation with its similarity indexes on
+    the card (SIM_* above states each check). The CPU runs the card's hashes
+    are held to run in a worker process (spawned, one torch thread) while
+    the card runs here. Returns the ``{"sim": ...}`` line's body."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.sim import SimConfig, run_sim
+    from repro_torch.sim.__main__ import matrix_cells
+
+    t0 = time.perf_counter()
+    kernels = _kernel_launchers()
+    out = {"fuzzy": {}, "other": {}, "audit_trips": {}}
+    cells = [(tag, cfg) for seed in range(SIM_SEEDS) for tag, cfg in sum(matrix_cells(seed), [])]
+    soak = SimConfig(**SIM_SOAK)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(1,)) as pool:
+        on_cpu = {tag: pool.submit(run_sim, cfg, device="cpu", index_backend="device")
+                  for tag, cfg in cells + [("soak", soak)] if cfg.normalized().fuzzy}
+        _reset_counts(kernels)
+        hash_checks = _sim_card_cells(cells, soak, on_cpu, kernels["topk_cosine"], out)
+        launches = {n: fn.launches for n, fn in kernels.items()}
+    if set(n for n, v in launches.items() if v) != {"topk_cosine"}:
+        raise AssertionError(f"sim: launches {launches}; only top-k is on this path")
+    out.update(
+        cells=len(out["fuzzy"]) + len(out["other"]) + 1, fuzzy_cells=len(out["fuzzy"]),
+        violations_clean=0, hash_checks=hash_checks, topk_launches=launches["topk_cosine"],
+        cold_tier_s=out["other"]["s0-evict_then_hit-cold_tier"]["s"])
+    out["seconds"]["total"] = time.perf_counter() - t0
+    log(f"[sim] {out['cells']} cells ({out['fuzzy_cells']} fuzzy on the card and the CPU), "
+        f"{hash_checks} hash checks, {len(out['audit_trips'])} audit cells tripped, top-k "
+        f"{launches['topk_cosine']} launches; soak {out['soak']['s']:.2f}s "
+        f"{out['soak']['topk_launches']} launches; seconds {out['seconds']}")
+    return out
+
+
+def _sim_card_cells(cells, soak, on_cpu, topk, out):
+    """Phase 10's runs on the card: (a), (b) and (c) of SIM_* above, each
+    fuzzy run's hash held to its CPU run's (``on_cpu``: tag -> future).
+    Fills ``out``; returns the number of hash checks."""
+    from repro_torch.sim import run_sim
+
+    hash_checks = 0
+    t0 = time.perf_counter()
+    for tag, cfg in cells:
+        if not cfg.normalized().fuzzy:
+            continue
+        before = topk.launches
+        t = time.perf_counter()
+        a = run_sim(cfg, device="cuda")
+        card_s = time.perf_counter() - t
+        launched = topk.launches - before
+        b = run_sim(cfg, device="cuda")
+        cpu = on_cpu[tag].result()
+        if a.index_backend != "device" or not launched:
+            raise AssertionError(f"sim {tag}: index {a.index_backend}, {launched} top-k launches")
+        if (a.trace_hash, a.span_digest) != (b.trace_hash, b.span_digest):
+            raise AssertionError(f"sim {tag}: nondeterministic on the card: "
+                                 f"{(a.trace_hash, a.span_digest)} then "
+                                 f"{(b.trace_hash, b.span_digest)}")
+        if a.trace_hash != cpu.trace_hash:
+            raise AssertionError(f"sim {tag}: card hash {a.trace_hash}, CPU {cpu.trace_hash}; "
+                                 f"last card events {a.trace_tail[-3:]}")
+        hash_checks += 2
+        fired = _sim_judge(tag, cfg, a)
+        if cfg.ablate:
+            out["audit_trips"][tag] = fired
+        out["fuzzy"][tag] = {"trace_hash": a.trace_hash, "topk_launches": launched,
+                             "violations": len(a.violations), "card_s": card_s}
+    fuzzy_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for tag, cfg in cells:
+        if cfg.seed != 0 or cfg.normalized().fuzzy:
+            continue
+        t = time.perf_counter()
+        r = run_sim(cfg, device="cuda")
+        want = SIM_REF_HASHES[tag[len("s0-"):]]
+        if r.trace_hash != want:
+            raise AssertionError(f"sim {tag}: trace hash {r.trace_hash}, the reference's {want}")
+        hash_checks += 1
+        fired = _sim_judge(tag, cfg, r)
+        if cfg.ablate:
+            out["audit_trips"][tag] = fired
+        out["other"][tag] = {"violations": len(r.violations), "s": time.perf_counter() - t}
+    other_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    before = topk.launches
+    a = run_sim(soak, device="cuda")
+    soak_s = time.perf_counter() - t2
+    soak_launches = topk.launches - before
+    b = run_sim(soak, device="cuda")
+    cpu = on_cpu["soak"].result()
+    _sim_judge("soak", soak, a)
+    if not soak_launches or len({a.trace_hash, b.trace_hash, cpu.trace_hash}) != 1 \
+            or a.span_digest != b.span_digest:
+        raise AssertionError(f"sim soak: launches {soak_launches}, hashes card "
+                             f"{(a.trace_hash, a.span_digest)}, {(b.trace_hash, b.span_digest)}, "
+                             f"CPU {cpu.trace_hash}")
+    out.update(soak={**SIM_SOAK, "s": soak_s, "topk_launches": soak_launches, "steps": a.steps,
+                     "lookups": a.lookups, "trace_hash": a.trace_hash},
+               seconds={"fuzzy": fuzzy_s, "other": other_s,
+                        "soak": time.perf_counter() - t2})
+    return hash_checks + 2
+
+
 def check_outputs(torch, engines):
     """What comes out is right: finite logits of the expected shape on
     every engine."""
@@ -2767,6 +2960,12 @@ def main() -> int:
         shutil.rmtree(scratch, ignore_errors=True)
     done("9_train")
     train["phase_s"] = phase_s["9_train"]
+
+    # phase 10: the deterministic simulation, its fuzzy cells' indexes and
+    # oracle twins on the card
+    sim = sim_on_card(torch)
+    done("10_sim")
+    sim["phase_s"] = phase_s["10_sim"]
     srv = {"init_s": init_s, "later_depths": LATER_DEPTHS,
            "max_memory_allocated_gib": max(peak.values()),
            "peak_memory_gib": peak, "prefix_families": prefix_families,
@@ -2806,6 +3005,7 @@ def main() -> int:
             "launches_per_task": {r: v["launches_per_task"][name] for r, v in runs.items()
                                   if v.get("launches_per_task", {}).get(name)},
             **({"library": row["library"]} if "library" in row else {}),
+            **({"sim_launches": sim["topk_launches"]} if name == "topk_cosine" else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
@@ -2816,6 +3016,7 @@ def main() -> int:
     print(json.dumps({"baselines": baselines}))
     print(json.dumps({"obs": obs}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"sim": sim}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

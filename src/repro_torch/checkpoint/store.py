@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import shutil
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -87,6 +88,9 @@ def _crc32(arr: np.ndarray) -> int:
 
 
 def _parallel(fn: Callable, items) -> List[Any]:
+    items = list(items)
+    if len(items) <= 1:  # a cold-tier segment: one array, one shard
+        return [fn(item) for item in items]
     with ThreadPoolExecutor(max_workers=_THREADS) as pool:
         return list(pool.map(fn, items))
 
@@ -132,6 +136,10 @@ class CheckpointStore:
         # manifest entries) and survives gc whatever its age; keep_last
         # rotates only the unpinned steps
         self.pin_check = pin_check
+        # step directories seen with their COMMITTED marker: a listing
+        # stats only the others (a cold tier lists its directory on every
+        # spill, over every live segment)
+        self._committed_names: set = set()
 
     def _step_dir(self, step: int) -> Path:
         return self.dir / f"step_{step:09d}"
@@ -158,14 +166,38 @@ class CheckpointStore:
         final = self._step_dir(step)
         if final.exists():
             shutil.rmtree(final)
+        self._committed_names.discard(final.name)
         tmp.rename(final)
         (final / "COMMITTED").write_text("ok")  # the commit point
+        self._committed_names.add(final.name)
         self.gc()
         return final
 
+    def _scan(self) -> Tuple[List[int], List[str], List[str]]:
+        """One listing of the directory: the committed steps (sorted), the
+        torn step directories (no ``COMMITTED``) and the ``.tmp_step_*``
+        leftovers. A step directory is checked for its marker only the
+        first time this store lists it."""
+        committed: List[int] = []
+        torn: List[str] = []
+        tmp: List[str] = []
+        seen = set()
+        with os.scandir(self.dir) as entries:
+            for e in entries:
+                if e.name.startswith("step_"):
+                    if (e.name in self._committed_names
+                            or os.path.exists(os.path.join(e.path, "COMMITTED"))):
+                        committed.append(int(e.name.split("_")[1]))
+                        seen.add(e.name)
+                    else:
+                        torn.append(e.path)
+                elif e.name.startswith(".tmp_step_"):
+                    tmp.append(e.path)
+        self._committed_names = seen
+        return sorted(committed), torn, tmp
+
     def committed_steps(self) -> List[int]:
-        return sorted(int(d.name.split("_")[1]) for d in self.dir.glob("step_*")
-                      if (d / "COMMITTED").exists())
+        return self._scan()[0]
 
     def restore(self, template: Any, *, step: Optional[int] = None,
                 strict: bool = True) -> Tuple[Any, Dict]:
@@ -174,10 +206,14 @@ class CheckpointStore:
         dtype and device. Raises ``IOError`` on a crc mismatch and, when
         ``strict``, ``KeyError`` on a template key the checkpoint lacks
         (else that leaf is kept)."""
-        steps = self.committed_steps()
-        if not steps:
-            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
-        step = step if step is not None else steps[-1]
+        # a named committed step needs no listing (a cold tier restores one
+        # segment a promotion); otherwise the newest committed step, and no
+        # committed step at all is an error either way
+        if step is None or not (self._step_dir(step) / "COMMITTED").exists():
+            steps = self.committed_steps()
+            if not steps:
+                raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+            step = step if step is not None else steps[-1]
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         keys = [key for key, _ in _flatten(template)]
@@ -209,18 +245,16 @@ class CheckpointStore:
         return _rebuild(template, leaf), manifest["extra"]
 
     def gc(self) -> None:
-        steps = self.committed_steps()
+        steps, torn, tmp = self._scan()
         # pinned steps are live: age rotation only considers the unpinned
         # ones, so a referenced cold-tier segment is never deleted from
         # under its manifest
         unpinned = (steps if self.pin_check is None
                     else [s for s in steps if not self.pin_check(s)])
         for s in unpinned[: -self.keep_last] if self.keep_last > 0 else unpinned:
+            self._committed_names.discard(self._step_dir(s).name)
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
-        for d in self.dir.glob("step_*"):  # torn checkpoints (no COMMITTED)
-            if not (d / "COMMITTED").exists():
-                shutil.rmtree(d, ignore_errors=True)
-        for d in self.dir.glob(".tmp_step_*"):
+        for d in torn + tmp:  # torn checkpoints (no COMMITTED), leftovers
             shutil.rmtree(d, ignore_errors=True)
 
 

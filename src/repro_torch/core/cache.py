@@ -79,6 +79,8 @@ class PlanCache(PlanStoreBase, Generic[V]):
         cold_budget_tokens: int = 160,
         cold_keep_last: int = 8,
         cold_refcount_gc: bool = True,
+        evict_during_wave: bool = False,
+        serve_expired: bool = False,
         obs: Optional[MetricsRegistry] = None,
         obs_labels: Optional[Dict[str, str]] = None,
     ):
@@ -86,6 +88,11 @@ class PlanCache(PlanStoreBase, Generic[V]):
         # injectable time source: TTL expiry, entry timestamps and `now()`
         # read this, never the wall clock directly
         self._clock = clock if clock is not None else time.time
+        # the simulation's guard ablations (repro_torch.sim): evict after
+        # every insert of a wave instead of after the wave, and serve
+        # entries past their TTL; the defaults keep both guards
+        self._evict_during_wave = evict_during_wave
+        self._serve_expired = serve_expired
         self.policy = make_policy(eviction, ttl_s=ttl_s)
         self.obs = obs if obs is not None else MetricsRegistry()
         self.obs_labels = dict(obs_labels or {})
@@ -198,7 +205,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
         entry = self._store.get(keyword)
         if entry is None:
             return None
-        if self.policy.expired(keyword, entry, now):
+        if not self._serve_expired and self.policy.expired(keyword, entry, now):
             # an expiry is a delete, never a spill: a stale entry must not
             # come back from the cold tier
             self._delete(keyword)
@@ -256,6 +263,14 @@ class PlanCache(PlanStoreBase, Generic[V]):
         with trace_span(SPAN_CACHE_INSERT, n=len(items), **self.obs_labels), self._lock:
             now = self._clock()
             kept: List[int] = []
+            victims: List[Tuple[str, CacheEntry]] = []
+
+            def evict_one() -> None:
+                vk = self.policy.victim(self._store)
+                victims.append((vk, self._store[vk]))
+                self._delete(vk)
+                self.stats.evictions += 1
+
             for idx, (kw, v) in enumerate(items):
                 if unless_written_since is not None:
                     existing = self._store.get(kw)
@@ -272,18 +287,17 @@ class PlanCache(PlanStoreBase, Generic[V]):
                 self._store[kw] = entry
                 self.policy.on_insert(kw, entry)
                 self.stats.inserts += 1
+                if self._evict_during_wave:
+                    while len(self._store) > self.capacity:
+                        evict_one()
             if kept:
                 self.pipeline.on_insert_batch(
                     [items[i] for i in kept],
                     [contexts[i] for i in kept],
                     None if vectors is None else [vectors[i] for i in kept],
                 )
-            victims: List[Tuple[str, CacheEntry]] = []
             while len(self._store) > self.capacity:
-                vk = self.policy.victim(self._store)
-                victims.append((vk, self._store[vk]))
-                self._delete(vk)
-                self.stats.evictions += 1
+                evict_one()
             if victims and self.cold is not None:
                 self._spill(victims)
 

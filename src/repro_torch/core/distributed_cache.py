@@ -47,8 +47,15 @@ With ``cold_dir`` every shard gets its own cold tier
 shard-local, under the same seam as the lookup and insert calls that
 trigger them. ``arm_cold_crash`` is the fault seam of every shard's tier.
 
-Not ported yet: the deterministic simulation's seams (``ablate``,
-``ack_policy="primary"``); passing either raises.
+The deterministic simulation (``repro_torch.sim``) proves each guard above
+is needed by switching it off: ``ablate`` takes ``crash_fallthrough`` (a
+failed shard's keywords are dropped as misses), ``churn_rehome`` (joins do
+not rebalance, drains drop their data), ``fuzzy_scatter`` (probe the
+query's own owners only), and the shard-level ``evict_after_wave``,
+``ttl_expiry`` and ``cold_gc_refcount`` (``PlanCache``'s
+``evict_during_wave``, ``serve_expired`` and the cold tier's age-only gc);
+``ack_policy="primary"`` acks after the primary write and hands replica
+writes to ``interceptor.defer(node, fn)``, which it requires.
 """
 
 from __future__ import annotations
@@ -137,25 +144,23 @@ class DistributedPlanCache(PlanStoreBase):
         clock: Optional[Callable[[], float]] = None,
         interceptor: Optional[Any] = None,
         ack_policy: str = "all",
+        ablate: Sequence[str] = (),
         cold_dir: Optional[str] = None,
         cold_budget_tokens: int = 160,
         cold_keep_last: int = 8,
         device=None,
         obs: Optional[MetricsRegistry] = None,
-        **deferred: Any,
     ):
-        if deferred:
-            raise TypeError(
-                f"DistributedPlanCache does not take {sorted(deferred)} yet: the "
-                "simulation's ablate= is not ported"
-            )
         if not isinstance(eviction, str):
             # a policy instance would be bookkeeping shared across shards
             raise TypeError("DistributedPlanCache takes an eviction policy name")
-        if ack_policy != "all":
+        if ack_policy not in ("all", "primary"):
+            raise ValueError(f"ack_policy must be 'all' or 'primary', got {ack_policy!r}")
+        if ack_policy == "primary" and not callable(getattr(interceptor, "defer", None)):
+            # without a defer channel 'primary' would silently act as 'all'
             raise ValueError(
-                f"ack_policy must be 'all', got {ack_policy!r} (the simulation's "
-                "'primary' ablation is not ported)"
+                "ack_policy='primary' requires an interceptor with a "
+                "defer(node, fn) channel to carry the lagged replica writes"
             )
         self.ring = HashRing()
         self.replication = replication
@@ -171,6 +176,7 @@ class DistributedPlanCache(PlanStoreBase):
         self.clock = clock if clock is not None else time.time
         self.interceptor = interceptor
         self.ack_policy = ack_policy
+        self.ablate = frozenset(ablate)
         self.cold_dir = cold_dir
         self.cold_budget_tokens = cold_budget_tokens
         self.cold_keep_last = cold_keep_last
@@ -197,9 +203,12 @@ class DistributedPlanCache(PlanStoreBase):
             ttl_s=self.ttl_s,
             clock=self.clock,
             device=self.device,
+            evict_during_wave="evict_after_wave" in self.ablate,
+            serve_expired="ttl_expiry" in self.ablate,
             cold_dir=None if self.cold_dir is None else os.path.join(self.cold_dir, name),
             cold_budget_tokens=self.cold_budget_tokens,
             cold_keep_last=self.cold_keep_last,
+            cold_refcount_gc="cold_gc_refcount" not in self.ablate,
             obs=self.obs,
             obs_labels={"shard": name},
         )
@@ -211,22 +220,27 @@ class DistributedPlanCache(PlanStoreBase):
                 return
             self.shards[name] = self._new_shard(name)
             self.ring.add(name)
-            # a join re-homes the keys whose owner set the ring change moved
-            self._rebalance()
+            if "churn_rehome" not in self.ablate:
+                # a join re-homes the keys whose owner set the ring change moved
+                self._rebalance()
 
     def remove_node(self, name: str) -> None:
         """Graceful removal: re-home this node's keys before dropping it.
         The drain scan goes through the ``_shard_call`` seam; a node that
         turns out to be unreachable cannot donate its keys and is dropped
-        crash-style (its replicas still hold their copies)."""
+        crash-style (its replicas still hold their copies). Under the
+        ``churn_rehome`` ablation the drain is skipped and the keys are
+        lost."""
         with self._lock:
             if name not in self.shards:
                 return
             shard = self.shards[name]
-            try:
-                pairs = self._shard_call(name, "drain_scan", shard.snapshot_items)
-            except ShardUnavailable:
-                pairs = None  # unreachable: crash-style removal
+            pairs = None
+            if "churn_rehome" not in self.ablate:
+                try:
+                    pairs = self._shard_call(name, "drain_scan", shard.snapshot_items)
+                except ShardUnavailable:
+                    pairs = None  # unreachable: crash-style removal
             self.shards.pop(name)
             self.ring.remove(name)
             self.down.discard(name)
@@ -337,7 +351,7 @@ class DistributedPlanCache(PlanStoreBase):
         shard still scans only its local keys; in a networked deployment
         this fan-out runs in parallel)."""
         owners = self._live(self.ring.nodes_for(keyword, self.replication))
-        if self.fuzzy:
+        if self.fuzzy and "fuzzy_scatter" not in self.ablate:
             owners += [
                 n for n in sorted(self.shards)
                 if n not in self.down and n not in owners
@@ -375,6 +389,7 @@ class DistributedPlanCache(PlanStoreBase):
             out: List[Optional[Any]] = [None] * len(keywords)
             owners_of = [self._probe_order(k) for k in keywords]
             pending = list(range(len(keywords)))
+            dropped: set = set()
             tier = 0
             while pending:
                 by_node: Dict[str, List[int]] = {}
@@ -402,6 +417,8 @@ class DistributedPlanCache(PlanStoreBase):
                                         s.lookup_batch(k, contexts=c),
                                 )
                         except ShardUnavailable:
+                            if "crash_fallthrough" in self.ablate:
+                                dropped.update(idxs)  # the ablation: misses
                             continue  # the keywords stay pending: next tier
                         for j, (i, v) in enumerate(zip(idxs, vals)):
                             out[i] = v
@@ -410,7 +427,8 @@ class DistributedPlanCache(PlanStoreBase):
                                         **shard_attrib.get(j))
                 pending = [
                     i for i in pending
-                    if out[i] is None and tier + 1 < len(owners_of[i])
+                    if out[i] is None and i not in dropped
+                    and tier + 1 < len(owners_of[i])
                 ]
                 tier += 1
             hits = sum(1 for v in out if v is not None)
@@ -478,7 +496,9 @@ class DistributedPlanCache(PlanStoreBase):
         applies the wave before this call returns, so a reader falling
         through to any replica observes the acked version. A replica that
         raises :class:`ShardUnavailable` is skipped (the wave lands on the
-        remaining owners)."""
+        remaining owners). ``ack_policy="primary"`` (the simulation's
+        ablation) acks after the primary writes and hands each replica
+        write to ``interceptor.defer``."""
         items = list(items)
         if contexts is None:
             contexts = [None] * len(items)
@@ -512,6 +532,11 @@ class DistributedPlanCache(PlanStoreBase):
                 except ShardUnavailable:
                     continue  # replicas still take the wave below
             for n, idxs in replica_by_node.items():
+                if self.ack_policy == "primary":
+                    # the ablation: ack without the replica, whose write
+                    # lands after the interceptor's lag (a stale-read window)
+                    self.interceptor.defer(n, lambda n=n, idxs=idxs: apply(n, idxs))
+                    continue
                 try:
                     self._shard_call(n, "insert_batch",
                                      lambda n=n, idxs=idxs: apply(n, idxs))

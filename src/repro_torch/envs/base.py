@@ -24,17 +24,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 class Workspace:
     """Mutable env-side state with a compensating-write protocol.
 
-    Every write returns the compensation closure that restores the prior
+    Every mutation returns the compensation closure that restores the prior
     state (previous value, or absence), which callers hand to a
     :class:`repro_torch.core.journal.StepJournal` step: what makes
-    speculative plan execution reversible. Single-owner (one workspace per
-    task, driven from one thread), so it takes no lock.
+    speculative plan execution reversible. ``writes`` counts mutations and
+    ``compensations_run`` the undos that ran. Single-owner (one workspace
+    per task, driven from one thread), so it takes no lock.
     """
 
     _ABSENT = object()
 
     def __init__(self) -> None:
         self._data: Dict[str, Any] = {}
+        self.writes = 0
+        self.compensations_run = 0
 
     def _restore(self, key: str, prior: Any) -> Callable[[], None]:
         def compensation() -> None:
@@ -42,6 +45,7 @@ class Workspace:
                 self._data.pop(key, None)
             else:
                 self._data[key] = prior
+            self.compensations_run += 1
 
         return compensation
 
@@ -49,6 +53,14 @@ class Workspace:
         """Apply ``key = value`` eagerly; return the undo closure."""
         prior = self._data.get(key, Workspace._ABSENT)
         self._data[key] = value
+        self.writes += 1
+        return self._restore(key, prior)
+
+    def delete(self, key: str) -> Callable[[], None]:
+        """Remove ``key`` eagerly (no-op if absent); return the undo."""
+        prior = self._data.get(key, Workspace._ABSENT)
+        self._data.pop(key, None)
+        self.writes += 1
         return self._restore(key, prior)
 
     def read(self, key: str, default: Any = None) -> Any:
@@ -56,6 +68,16 @@ class Workspace:
 
     def keys(self) -> List[str]:
         return sorted(self._data)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """A copy in key order, for comparing states byte for byte."""
+        return dict(sorted(self._data.items()))
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._data
+
+    def __len__(self) -> int:
+        return len(self._data)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """The other four paper workloads: TabMWP, QASPER, AIME, GAIA (the twin of
-``repro.envs.workloads``, without the simulation traffic generators), and
-the env registry of all five.
+``repro.envs.workloads``), the env registry of all five, and the seeded
+traffic of the deterministic simulation (``sim_traffic``).
 
 Each differs along the axes that matter to APC:
   * TabMWP  — short tabular contexts, ~30 recurring intents (high hit rate).
@@ -13,7 +13,8 @@ Each differs along the axes that matter to APC:
 
 from __future__ import annotations
 
-from typing import Dict, List
+import random
+from typing import Any, Dict, List
 
 from repro_torch.envs.base import AgentEnv, IntentSpec
 from repro_torch.envs.finance import FinanceEnv
@@ -274,4 +275,113 @@ def get_env(name: str) -> AgentEnv:
 ALL_ENVS = ["financebench", "tabmwp", "qasper", "aime", "gaia"]
 
 
-__all__ = ["ALL_ENVS", "ENVS", "AimeEnv", "GaiaEnv", "QasperEnv", "TabMWPEnv", "get_env"]
+# -- seeded traffic of the deterministic simulation (repro_torch.sim) ---------
+
+SIM_SCENARIOS = ("skewed_reuse", "paraphrase_burst", "evict_then_hit", "uniform")
+
+
+def _zipf_pick(rng: random.Random, n: int, s: float = 1.2) -> int:
+    """Zipf-skewed index in [0, n): rank r with weight 1/(r+1)^s."""
+    weights = [1.0 / (r + 1) ** s for r in range(n)]
+    return rng.choices(range(n), weights=weights, k=1)[0]
+
+
+def sim_traffic(
+    scenario: str,
+    seed: int,
+    *,
+    n_ops: int = 60,
+    n_clients: int = 4,
+    batch: int = 4,
+    env: str = "tabmwp",
+) -> List[List[Dict[str, Any]]]:
+    """One seeded op stream per logical client for the ``repro_torch.sim`` harness.
+
+    Every op is a plain dict the harness applies against the store under
+    test AND its sequential model, so generation must be fully determined
+    by ``(scenario, seed, sizes)``:
+
+    * ``{"op": "lookup", "kws": [...]}`` — one ``lookup_batch`` wave;
+    * ``{"op": "insert", "kws": [...]}`` — one ``insert_batch`` admission
+      wave (the harness assigns versioned payloads);
+    * ``{"op": "remove", "kw": ...}`` / ``{"op": "autotune"}`` — sprinkled
+      maintenance traffic;
+    * ``{"op": "keys"}`` / ``{"op": "len"}`` — control-plane scans
+      (``skewed_reuse`` only): they pay one interceptor RPC per shard and
+      are checked against the model's reachable-key union, so a crashed or
+      churned shard's visibility is oracle-verified too.
+
+    Scenarios:
+
+    * ``skewed_reuse`` — zipf-skewed draws over the env's recurring
+      intents: a hot head that re-hits constantly plus a long cold tail.
+    * ``paraphrase_burst`` — inserts a canonical keyword, then bursts
+      lookups of its paraphrase variants (fuzzy/semantic tier pressure).
+    * ``evict_then_hit`` — adversarial floods of one-shot keys that force
+      eviction churn, interleaved with immediate lookups of the newest
+      wave (catches evict-during-wave and index-desync bugs).
+    * ``uniform`` — uniform reference traffic.
+    """
+    if scenario not in SIM_SCENARIOS:
+        raise ValueError(f"unknown sim scenario {scenario!r}; one of {SIM_SCENARIOS}")
+    rng = random.Random((seed, scenario).__repr__())
+    intents = get_env(env).intents()
+    kws = [it.keyword for it in intents]
+    paras = {it.keyword: list(it.paraphrase_keywords) for it in intents}
+
+    clients: List[List[Dict[str, Any]]] = [[] for _ in range(n_clients)]
+    for ci in range(n_clients):
+        ops = clients[ci]
+        fresh = 0  # per-client unique-key counter (evict_then_hit floods)
+        while len(ops) < n_ops:
+            r = rng.random()
+            if scenario == "skewed_reuse":
+                wave = [kws[_zipf_pick(rng, len(kws))] for _ in range(batch)]
+                if r < 0.30:
+                    ops.append({"op": "insert", "kws": wave})
+                elif r < 0.93:
+                    ops.append({"op": "lookup", "kws": wave})
+                elif r < 0.955:
+                    ops.append({"op": "remove", "kw": wave[0]})
+                elif r < 0.97:
+                    ops.append({"op": "autotune"})
+                elif r < 0.985:
+                    ops.append({"op": "keys"})
+                else:
+                    ops.append({"op": "len"})
+            elif scenario == "paraphrase_burst":
+                canon = kws[_zipf_pick(rng, len(kws))]
+                variants = paras.get(canon) or [canon]
+                if r < 0.35:
+                    ops.append({"op": "insert", "kws": [canon]})
+                else:
+                    burst = [rng.choice([canon] + variants) for _ in range(batch)]
+                    ops.append({"op": "lookup", "kws": burst})
+            elif scenario == "evict_then_hit":
+                if r < 0.5:
+                    flood = [f"c{ci}-one-shot-{fresh + j}" for j in range(batch)]
+                    fresh += batch
+                    # re-insert a (likely resident) hot key MID-wave: the
+                    # case where evict-during-wave diverges from the
+                    # evict-after-wave contract (the hot key can be chosen
+                    # as victim before its own re-insert lands, costing an
+                    # extra eviction that kills a key the policy says
+                    # should survive)
+                    hot = kws[_zipf_pick(rng, min(8, len(kws)))]
+                    flood.insert(len(flood) // 2, hot)
+                    ops.append({"op": "insert", "kws": flood})
+                    # adversarial: immediately demand the newest wave back
+                    ops.append({"op": "lookup", "kws": list(reversed(flood))})
+                else:
+                    hot = kws[_zipf_pick(rng, min(8, len(kws)))]
+                    ops.append({"op": "insert" if r < 0.6 else "lookup",
+                                "kws": [hot]})
+            else:  # uniform
+                wave = [rng.choice(kws) for _ in range(batch)]
+                ops.append({"op": "insert" if r < 0.4 else "lookup", "kws": wave})
+        del ops[n_ops:]  # evict_then_hit appends in pairs; trim to size
+    return clients
+
+
+__all__ = ["ALL_ENVS", "ENVS", "SIM_SCENARIOS", "AimeEnv", "GaiaEnv", "QasperEnv", "TabMWPEnv",
+           "get_env", "sim_traffic"]

@@ -139,6 +139,12 @@ class TierPool:
                 self._executor = None
 
 
+def _since(token: Optional[float]) -> Dict[str, float]:
+    """The conditional-admission keyword for a token; none for a store
+    without ``now()`` (its inserts are unconditional)."""
+    return {} if token is None else {"unless_written_since": token}
+
+
 def _metric_prop(field: str):
     def get(self):
         v = self._c[field].value
@@ -236,6 +242,13 @@ class TwoTierRouter:
     """keyword -> cache -> tier selection.
 
     ``obs`` is the registry of ``metrics`` (the cache's own by default).
+    ``clock`` times the lookups (``time.perf_counter`` by default; the
+    simulation passes its virtual clock). ``cachegen_pool`` replaces the
+    private worker pool with any object whose ``submit(fn)`` returns a
+    future (the simulation's scheduler-driven workers); ``close()`` does not
+    shut an injected pool down. ``cachegen_fallback=False`` drops a wave the
+    pool rejects (counted in ``cachegen_dropped``) instead of generating it
+    on the request thread.
     ``spec_verify(request, matched_key) -> bool`` turns on near-hit
     speculation; ``spec_effect(request, kw)`` applies an eager env effect
     and returns its compensation. ``spec_rollback=False`` commits a
@@ -254,6 +267,9 @@ class TwoTierRouter:
         make_template: Callable[[Any, Any], Any],
         async_cachegen: bool = True,
         cachegen_workers: int = 2,
+        cachegen_pool: Optional[Any] = None,
+        cachegen_fallback: bool = True,
+        clock: Optional[Callable[[], float]] = None,
         obs: Optional[MetricsRegistry] = None,
         kv_prefix: Optional[Any] = None,
         spec_verify: Optional[Callable[[Any, Optional[str]], bool]] = None,
@@ -278,12 +294,14 @@ class TwoTierRouter:
         self.plan_large = plan_large
         self.plan_small_with_template = plan_small_with_template
         self.make_template = make_template
+        self._clock = clock if clock is not None else time.perf_counter
         if obs is None:
             obs = getattr(cache, "obs", None)
         self.metrics = RouterMetrics(obs)
-        self._pool: Optional[cf.ThreadPoolExecutor] = (
-            cf.ThreadPoolExecutor(max_workers=cachegen_workers) if async_cachegen else None
-        )
+        self.cachegen_fallback = cachegen_fallback
+        self._owns_pool = cachegen_pool is None
+        self._pool: Optional[Any] = cachegen_pool if cachegen_pool is not None else (
+            cf.ThreadPoolExecutor(max_workers=cachegen_workers) if async_cachegen else None)
         self._pending: List[cf.Future] = []
         self._sync_cachegen_errors: List[BaseException] = []
         self._lock = threading.Lock()
@@ -295,15 +313,22 @@ class TwoTierRouter:
             PlanSpeculator(rollback_enabled=spec_rollback) if spec_verify is not None else None
         )
 
+    def _read_token(self) -> Optional[float]:
+        """The conditional-admission token: the store's clock read at lookup
+        time, so a distilled wave never clobbers an entry written after this
+        read (None for a store without ``now()``)."""
+        now_fn = getattr(self.cache, "now", None)
+        return now_fn() if callable(now_fn) else None
+
     def route(self, request: Any) -> Any:
         self.metrics.add("requests")
         kw = self.extract_keyword(request)
         with trace_span(_names.SPAN_ROUTE) as sp:
-            token = self.cache.now()
-            t0 = time.perf_counter()
+            token = self._read_token()
+            t0 = self._clock()
             with collect() as attrib, trace_span(_names.SPAN_ROUTER_LOOKUP, n=1):
                 tpl = self.cache.lookup(kw)
-            self.metrics.observe_lookup(time.perf_counter() - t0)
+            self.metrics.observe_lookup(self._clock() - t0)
             self._attribution_event(sp, 0, tpl, attrib)
             return self._dispatch(request, kw, tpl, token)
 
@@ -321,11 +346,11 @@ class TwoTierRouter:
         self.metrics.add("requests", len(requests))
         kws = [self.extract_keyword(r) for r in requests]
         with trace_span(_names.SPAN_ROUTE_BATCH, batch=len(requests)) as bsp:
-            token = self.cache.now()
-            t0 = time.perf_counter()
+            token = self._read_token()
+            t0 = self._clock()
             with collect() as attrib, trace_span(_names.SPAN_ROUTER_LOOKUP, n=len(kws)):
                 tpls = self.cache.lookup_batch(kws)
-            self.metrics.observe_lookup(time.perf_counter() - t0)
+            self.metrics.observe_lookup(self._clock() - t0)
 
             out: List[Any] = []
             wave: List[tuple] = []  # (request, kw, large-tier result) misses
@@ -361,7 +386,7 @@ class TwoTierRouter:
                     if items:
                         # insert-if-newer: an entry (re)written since the
                         # lookup wins over the possibly slow distillation
-                        self.cache.insert_batch(items, unless_written_since=token)
+                        self.cache.insert_batch(items, **_since(token))
                     if first_err is not None:
                         raise first_err
                     return items
@@ -384,7 +409,7 @@ class TwoTierRouter:
                                 self._sync_cachegen_errors.append(e)
             return out
 
-    def _begin_speculation(self, request: Any, kw: str, tpl: Any, token: float,
+    def _begin_speculation(self, request: Any, kw: str, tpl: Any, token: Optional[float],
                            matched_key: Optional[str]) -> None:
         """Open a near-hit speculation and race its verification.
 
@@ -397,7 +422,7 @@ class TwoTierRouter:
         speculator = self.speculator
 
         def admit() -> None:
-            self.cache.insert(kw, tpl, unless_written_since=token)
+            self.cache.insert(kw, tpl, **_since(token))
 
         def bump_commit() -> None:
             self.metrics.add("spec_commits")
@@ -497,10 +522,16 @@ class TwoTierRouter:
     def _submit_cachegen(self, gen: Callable[[], Any], n: int) -> bool:
         """Hand one cache-generation task to the worker pool. Returns False
         when the pool rejected it (saturated or shut down): the caller then
-        runs it synchronously — slower, never lost."""
+        runs it synchronously — slower, never lost. With
+        ``cachegen_fallback=False`` a rejected wave is dropped instead (True
+        is returned, and nothing runs)."""
         try:
             fut = self._pool.submit(gen)
         except RuntimeError:
+            if not self.cachegen_fallback:
+                self.metrics.add("cachegen_dropped", n)
+                current_span().event(_names.EVENT_CACHEGEN_FATE, fate="dropped", n=n)
+                return True
             self.metrics.add("sync_cachegen_fallbacks", n)
             current_span().event(_names.EVENT_CACHEGEN_FATE, fate="sync_fallback", n=n)
             return False
@@ -527,7 +558,8 @@ class TwoTierRouter:
         self.metrics.add("large_tier_calls")
         return self.plan_large(request)
 
-    def _dispatch(self, request: Any, kw: str, tpl: Optional[Any], token: float) -> Any:
+    def _dispatch(self, request: Any, kw: str, tpl: Optional[Any],
+                  token: Optional[float]) -> Any:
         if tpl is not None:
             return self._serve_hit(request, tpl)
         result = self._serve_miss(request)
@@ -535,7 +567,7 @@ class TwoTierRouter:
         def gen_and_insert():
             template = self.make_template(request, result)
             if template is not None:
-                self.cache.insert(kw, template, unless_written_since=token)
+                self.cache.insert(kw, template, **_since(token))
             return template
 
         gen = self._traced_cachegen(gen_and_insert, 1)
@@ -557,7 +589,7 @@ class TwoTierRouter:
 
     def close(self) -> None:
         self.drain()
-        if self._pool is not None:
+        if self._pool is not None and self._owns_pool:
             self._pool.shutdown(wait=True)
 
 

@@ -121,13 +121,49 @@ def test_overwrite_is_delete_then_insert():
 
 def test_unported_options_raise():
     """The cold tier is no pipeline stage (it is the cache's own last
-    stage, tests/test_torch_tiered.py), and the simulation's ablation seams
-    are not ported: both are refused. The default index backend, ``auto``,
-    is ported (a host index, as in repro)."""
+    stage, tests/test_torch_tiered.py) and is refused as one; the
+    simulation's ablation seams are ported (below), off by default. The
+    default index backend, ``auto``, is ported (a host index, as in
+    repro)."""
     with pytest.raises(ValueError, match="unknown pipeline stage"):
         build_pipeline(["cold"])
-    with pytest.raises(TypeError, match="evict_during_wave"):
-        PlanCache(evict_during_wave=True)
+    c = PlanCache()
+    assert (c._evict_during_wave, c._serve_expired) == (False, False)
     assert PlanCache().pipeline.stage("fuzzy") is None  # exact-only builds no index
     index = PlanCache(fuzzy=True).pipeline.stage("fuzzy").index
     assert index.backend == "auto" and index.device is None
+
+
+@pytest.mark.parametrize("seam", ["evict_during_wave", "serve_expired"])
+def test_ablation_seams_match_reference(seam):
+    """The simulation's two PlanCache ablations, on a seeded stream of
+    insert waves larger than the cache (overwrites mid-wave) and lookups
+    across a short TTL, fuzzy on the ``device`` index: the same answers,
+    counters and listener calls as the reference's with the seam on; and the
+    seam bites (the guarded cache answers, or evicts, otherwise: evicting
+    during a wave that overwrites a resident key costs an extra eviction)."""
+    def play(t, j, clocks, events):
+        rng = np.random.RandomState(5)
+        words = [f"intent {i}" for i in range(8)]
+        seen = []
+        for n in range(160):
+            for c in clocks:
+                c.t += 0.01
+            wave = [str(w) for w in rng.choice(words, size=rng.randint(1, 7))]
+            if rng.rand() < 0.45:
+                items = [(w, f"{w}@{n}") for w in wave]
+                t.insert_batch(items)
+                j.insert_batch(items)
+                got = None
+            else:
+                got = t.lookup_batch(wave)
+                assert got == j.lookup_batch(wave), n
+            assert t.keys() == j.keys(), n
+            assert _stats(t) == _stats(j), n
+            seen.append((got, t.keys(), _stats(t)))
+        assert events[0] == events[1]
+        return seen
+
+    kw = dict(capacity=4, fuzzy=True, fuzzy_threshold=0.9, index_backend="device", ttl_s=0.05)
+    ablated = play(*_pair(**kw, **{seam: True}))
+    assert ablated != play(*_pair(**kw))

@@ -228,3 +228,53 @@ def test_reference_olmo_checkpoint_restores_into_the_port(tmp_path):
     lt, _, _ = tlm.forward(tcfg, ported, torch.from_numpy(toks))
     np.testing.assert_allclose(lt.float().numpy(), np.asarray(lj, np.float32),
                                atol=3e-2, rtol=3e-2)  # bf16 smoke model, as test_torch_models
+
+
+def test_listing_and_gc_match_reference_on_a_segment_stream(tmp_path):
+    """The port lists its directory once a call and checks a step's
+    ``COMMITTED`` marker only the first time it sees the step; on a stream
+    of small saves with pins (a cold tier's segments), torn and ``.tmp``
+    directories planted from outside, steps another store writes into the
+    same directory, rotations and restores, its ``committed_steps``, its
+    restores and what is left on disk equal the reference store's."""
+    import random
+    import shutil
+
+    rng = random.Random(2)
+    pinned = set()
+    stores = {}
+    for name, cls in (("t", CheckpointStore), ("j", JStore)):
+        stores[name] = cls(str(tmp_path / name), keep_last=2, pin_check=pinned.__contains__)
+    for n in range(60):
+        op = rng.random()
+        for name, store in stores.items():
+            d = store.dir
+            if op < 0.55:
+                store.save(n, {"payload": np.full(3, n, np.uint8)})
+            elif op < 0.65:
+                (d / f"step_{n:09d}").mkdir()  # torn: no COMMITTED
+                (d / f"step_{n:09d}" / "manifest.json").write_text("{}")
+            elif op < 0.7:
+                (d / f".tmp_step_{n:09d}").mkdir()
+            elif op < 0.78:
+                # another writer's committed step (a fresh store object)
+                type(store)(str(d), keep_last=100).save(n, {"payload": np.full(2, n, np.uint8)})
+            elif op < 0.85:
+                victims = sorted(p.name for p in d.glob("step_*"))[:1]
+                for v in victims:
+                    shutil.rmtree(d / v)  # removed from outside
+            else:
+                store.gc()
+        if op < 0.55 and rng.random() < 0.4:
+            pinned.add(n)
+        if rng.random() < 0.2 and pinned:
+            pinned.discard(rng.choice(sorted(pinned)))
+        steps = {name: s.committed_steps() for name, s in stores.items()}
+        assert steps["t"] == steps["j"], n
+        assert (sorted(p.name for p in stores["t"].dir.iterdir())
+                == sorted(p.name for p in stores["j"].dir.iterdir())), n
+        if steps["t"]:
+            step = rng.choice(steps["t"])
+            got, _ = stores["t"].restore({"payload": np.zeros(0, np.uint8)}, step=step)
+            want, _ = stores["j"].restore({"payload": np.zeros(0, np.uint8)}, step=step)
+            assert _bits(got["payload"]) == _bits(want["payload"]), n

@@ -191,14 +191,177 @@ def test_plan_cache_repair_primitives_match_reference(backend):
 
 
 def test_deferred_options_raise():
-    """The simulation's options are not ported yet: each raises instead of
-    being ignored (the cold tier's options are ported:
-    tests/test_torch_tiered.py)."""
-    for kw in ({"ablate": ("fuzzy_scatter",)}, {"ablate": ("cold_gc_refcount",)}):
-        with pytest.raises(TypeError, match="not ported"):
+    """The simulation's options are ported (``ablate=``, ``ack_policy=
+    "primary"``, below); what the reference refuses, the port refuses with
+    the reference's errors: an unknown ack policy, and "primary" without an
+    interceptor whose ``defer`` carries the lagged replica writes."""
+    for kw in ({"ack_policy": "quorum"}, {"ack_policy": "primary"},
+               {"ack_policy": "primary", "interceptor": Crashes(tdc)}):
+        with pytest.raises(ValueError) as port:
             tdc.DistributedPlanCache(n_nodes=1, **kw)
-    with pytest.raises(ValueError, match="primary"):
-        tdc.DistributedPlanCache(n_nodes=1, ack_policy="primary")
+        if "interceptor" in kw:
+            kw = {**kw, "interceptor": Crashes(jdc)}
+        with pytest.raises(ValueError) as ref:
+            jdc.DistributedPlanCache(n_nodes=1, **kw)
+        assert str(port.value) == str(ref.value)
+    # the store takes any ablation key, as the reference's does (the
+    # simulation harness is what refuses unknown ones)
+    for mod in (jdc, tdc):
+        assert mod.DistributedPlanCache(n_nodes=1, ablate=("nope",)).ablate == {"nope"}
+
+
+class Lags(Crashes):
+    """``Crashes`` with the replica-lag channel: ``defer`` queues a write,
+    which lands before every seventh call (a crashed node's is dropped)."""
+
+    def __init__(self, mod):
+        super().__init__(mod)
+        self.queued = []
+
+    def defer(self, node, fn):
+        self.queued.append((node, fn))
+
+    def flush(self):
+        queued, self.queued = self.queued, []
+        for node, fn in queued:
+            if node not in self.crashed:
+                fn()
+        return len(queued)
+
+    def call(self, node, op, fn):
+        if len(self.calls) % 7 == 6:
+            self.flush()
+        return super().call(node, op, fn)
+
+
+STORE_ABLATIONS = ("crash_fallthrough", "evict_after_wave", "churn_rehome", "fuzzy_scatter",
+                   "cold_gc_refcount", "ttl_expiry")
+
+
+@pytest.mark.parametrize("ablate", STORE_ABLATIONS + ("ack_primary",))
+def test_ablation_op_streams_match_reference(ablate, tmp_path):
+    """Each of the simulation's store seams switched off, on the same op
+    stream in both facades (``auto`` index; a TTL for ``ttl_expiry``, a
+    cold tier with a short rotation for ``cold_gc_refcount``; for
+    ``ack_policy="primary"`` the lagged replica writes land before every
+    seventh shard call): equal results, loads and shard-call logs after
+    every op, and equal stats; the guarded store answers the same stream
+    otherwise."""
+
+    def make(mod, guarded=False):
+        ic = Lags(mod)
+        kw = dict(ablate=(ablate,)) if ablate != "ack_primary" else dict(ack_policy="primary")
+        if guarded:
+            kw = {}
+        if ablate == "ttl_expiry":
+            kw["ttl_s"] = 40
+        if ablate == "cold_gc_refcount":
+            kw.update(cold_dir=str(tmp_path / f"{mod.__name__}{guarded}"), cold_keep_last=2)
+        cache = mod.DistributedPlanCache(n_nodes=3, replication=2, capacity_per_node=3,
+                                         fuzzy=True, fuzzy_threshold=0.6, interceptor=ic,
+                                         clock=iter(range(10**6)).__next__, **kw)
+        return cache, ic
+
+    (jc, jic), (tc, tic) = make(jdc), make(tdc)
+    got, want = _op_stream(tc, tic, seed=3), _op_stream(jc, jic, seed=3)
+    for g, w in zip(got, want, strict=True):
+        assert g == w, g[0]
+    assert tic.flush() == jic.flush()
+    sj, st = jc.stats.snapshot(), tc.stats.snapshot()
+    sj.pop("lookup_time_s"), st.pop("lookup_time_s")
+    assert st == sj
+    # and the seam bites: the guarded store answers the stream otherwise
+    assert [g[:3] for g in _op_stream(*make(tdc, guarded=True), seed=3)] != [g[:3] for g in got]
+
+
+def _kw_store(mod, n_nodes=4, replication=2, crashed=(), **kw):
+    """tests/test_sim.py's store: ``n_nodes`` nodes of 64 slots, "kw-i" ->
+    i inserted for i < 24 (30 with replication 2), ``crashed`` nodes behind
+    a ``Crashes`` interceptor (the facade not told)."""
+    ic = Crashes(mod)
+    dc = mod.DistributedPlanCache(n_nodes, replication=replication, capacity_per_node=64,
+                                  interceptor=ic, **kw)
+    n = 30 if replication == 2 else 24
+    for i in range(n):
+        dc.insert(f"kw-{i}", i)
+    ic.crashed.update(crashed)
+    return dc, ic, n
+
+
+def _sim_case(mod, case):
+    """One of tests/test_sim.py's direct cases of the store's seams, as
+    plain data: what the case asserts on."""
+    if case == "crash_fallthrough":
+        dc, _, n = _kw_store(mod, crashed=("cache-1",))
+        return [dc.lookup(f"kw-{i}") for i in range(n)]
+    if case == "crash_fallthrough_ablated":
+        dc, _, n = _kw_store(mod, crashed=("cache-1",), ablate=("crash_fallthrough",))
+        return [dc.lookup(f"kw-{i}") for i in range(n)]
+    if case == "restart_read_repair":
+        dc, _, n = _kw_store(mod)
+        repaired = dc.restart_node("cache-2", recover=True)
+        out = [repaired, len(dc.shards["cache-2"]), [dc.lookup(f"kw-{i}") for i in range(n)]]
+        dc.mark_down("cache-0")
+        return out + [[dc.lookup(f"kw-{i}") for i in range(n)]]
+    if case == "restart_without_repair":
+        dc, _, n = _kw_store(mod, replication=1)
+        held = len(dc.shards["cache-2"])
+        dc.restart_node("cache-2", recover=False)
+        return [held, len(dc.shards["cache-2"]), [dc.lookup(f"kw-{i}") for i in range(n)]]
+    if case == "control_plane":
+        dc, ic, _ = _kw_store(mod, replication=1)
+        held = len(dc.shards["cache-1"])
+        ic.crashed.add("cache-1")
+        out = [held, dc.keys(), len(dc), dc.autotune()]
+        dc.clear()
+        out.append(len(dc.shards["cache-1"]))
+        ic.crashed.discard("cache-1")
+        out.append(len(dc))
+        dc.restart_node("cache-1", recover=False)
+        return out + [len(dc), ic.calls]
+    if case == "graceful_drain_unreachable":
+        dc, ic, n = _kw_store(mod, replication=1)
+        held = len(dc.shards["cache-1"])
+        ic.crashed.add("cache-1")
+        dc.remove_node("cache-1")
+        ic.crashed.discard("cache-1")
+        return [held, sorted(dc.shards), [dc.lookup(f"kw-{i}") for i in range(n)]]
+    if case in ("churn_rehome", "churn_rehome_ablated"):
+        kw = {"ablate": ("churn_rehome",)} if case.endswith("ablated") else {}
+        dc, _, n = _kw_store(mod, replication=1, **kw)
+        dc.add_node("cache-9")
+        return [dc.lookup(f"kw-{i}") for i in range(n)]
+    raise ValueError(case)
+
+
+SIM_CASES = ("crash_fallthrough", "crash_fallthrough_ablated", "restart_read_repair",
+             "restart_without_repair", "control_plane", "graceful_drain_unreachable",
+             "churn_rehome", "churn_rehome_ablated")
+
+
+@pytest.mark.parametrize("case", SIM_CASES)
+def test_sim_store_cases_match_reference(case):
+    """The twins of tests/test_sim.py's direct cases of the seams (crash
+    fallthrough and its ablation, restart with and without read-repair, the
+    control plane through the seam, draining an unreachable node, churn
+    re-homing and its ablation): equal outcomes in both packages, and the
+    outcome the reference's test asserts."""
+    got, want = _sim_case(tdc, case), _sim_case(jdc, case)
+    assert got == want
+    if case in ("crash_fallthrough", "churn_rehome"):
+        assert got == list(range(len(got)))  # every key served
+    if case in ("crash_fallthrough_ablated", "churn_rehome_ablated"):
+        assert None in got  # the ablated facade loses keys
+    if case == "restart_read_repair":
+        assert got[0] == got[1] and got[2] == got[3] == list(range(30))
+    if case == "restart_without_repair":
+        assert got[1] == 0 and got[2].count(None) == got[0] > 0
+    if case == "control_plane":
+        held, keys, n, actions, kept, back, after = got[:7]
+        assert held > 0 and len(keys) == 24 - held == n and actions == []
+        assert kept == held and back == held and after == 0
+    if case == "graceful_drain_unreachable":
+        assert "cache-1" not in got[1] and got[2].count(None) == got[0]
 
 
 def test_restart_replaces_and_frees_the_device_bank():

@@ -383,3 +383,104 @@ def test_chip_smoke_router_stream_matches_reference():
     waves = [[t.intent.keyword for t in w] for w in chip_smoke.router_waves(ttasks)]
     r = _run_both(waves, capacity=chip_smoke.ROUTER_CAPACITY, kv=True)
     assert (r.metrics.hits, r.metrics.misses) == chip_smoke.ROUTER_EXPECT
+
+
+# -- the simulation's seams: clock, an injected pool, cachegen_fallback --------
+
+
+class QueuePool:
+    """A cachegen pool the caller drives (the simulation's kind): ``submit``
+    queues the task and returns a future, or raises while ``reject`` > 0;
+    ``run`` runs the queued tasks. ``shutdown`` is recorded: a router must
+    not shut down a pool it was given."""
+
+    def __init__(self):
+        self.queued, self.reject, self.shut = [], 0, False
+
+    def submit(self, fn):
+        if self.reject > 0:
+            self.reject -= 1
+            raise RuntimeError("pool saturated")
+        import concurrent.futures as cf
+
+        fut = cf.Future()
+        self.queued.append((fn, fut))
+        return fut
+
+    def run(self):
+        queued, self.queued = self.queued, []
+        for fn, fut in queued:
+            fut.set_result(fn())
+
+    def shutdown(self, wait=True):
+        self.shut = True
+
+
+@pytest.mark.parametrize("fallback", [True, False])
+def test_injected_pool_clock_and_fallback_match_reference(fallback):
+    """``clock=``, ``cachegen_pool=`` and ``cachegen_fallback=`` on a seeded
+    stream of route_batch waves in both routers: the pool rejects some
+    submissions and runs the queued ones every third wave. With the
+    fallback a rejected wave is generated on the request thread; without
+    it, it is dropped (``cachegen_dropped``) and its keys never land. The
+    metrics, the lookup times read from the virtual clock among them, and
+    the cache contents equal the reference's after every wave; ``close()``
+    leaves the injected pool running."""
+    rs = np.random.RandomState(3)
+    names = [f"intent {i}" for i in range(12)]
+    waves = [list(rs.choice(names, size=4)) for _ in range(24)]
+    routers, pools = {}, {}
+    for side, Cache, Router in (("j", JPlanCache, JRouter), ("t", PlanCache, TwoTierRouter)):
+        ticks = iter(range(10**6))
+        pools[side] = QueuePool()
+        routers[side] = Router(Cache(capacity=6), async_cachegen=True,
+                               cachegen_pool=pools[side], cachegen_fallback=fallback,
+                               clock=lambda ticks=ticks: 0.25 * next(ticks), **_callbacks())
+    for n, wave in enumerate(waves):
+        for side in routers:
+            pools[side].reject = 2 if n % 5 == 1 else 0
+        outs = {s: r.route_batch([{"kw": kw} for kw in wave]) for s, r in routers.items()}
+        assert outs["t"] == outs["j"]
+        if n % 3 == 2:
+            for p in pools.values():
+                p.run()
+        assert routers["t"].metrics.snapshot() == routers["j"].metrics.snapshot()
+        assert routers["t"].cache.keys() == list(routers["j"].cache._store)
+    m = routers["t"].metrics
+    assert m.lookup_s == 0.25 * len(waves)  # one virtual tick a lookup
+    assert m.sync_cachegen_fallbacks > 0 if fallback else m.cachegen_dropped > 0
+    assert (m.cachegen_dropped == 0) == fallback
+    for side, r in routers.items():
+        pools[side].run()
+        r.close()
+        assert not pools[side].shut
+
+
+def test_store_without_now_admits_unconditionally():
+    """A store without ``now()`` gets no conditional-admission token: its
+    inserts take no ``unless_written_since``, in both routers."""
+    class Legacy:
+        def __init__(self):
+            self.data = {}
+
+        def lookup(self, kw):
+            return self.data.get(kw)
+
+        def lookup_batch(self, kws):
+            return [self.data.get(k) for k in kws]
+
+        def insert(self, kw, v):
+            self.data[kw] = v
+
+        def insert_batch(self, items):
+            self.data.update(items)
+
+    seen = {}
+    for side, Router in (("j", JRouter), ("t", TwoTierRouter)):
+        r = Router(Legacy(), async_cachegen=False, **_callbacks())
+        assert r._read_token() is None
+        out = r.route_batch([{"kw": "a"}, {"kw": "b"}]) + [r.route({"kw": "c"}),
+                                                           r.route({"kw": "a"})]
+        seen[side] = (out, r.cache.data, r.metrics.snapshot()["requests"])
+        r.close()
+    assert seen["t"] == seen["j"]
