@@ -106,7 +106,24 @@ printing the ok line):
    digest, its trace hash equal to the same cell on the CPU on the same
    backend, top-k launched; (b) every other cell at seed 0, its trace hash
    pinned to the reference's; (c) a soak of the paraphrase scenario under
-   crash/restart at 10x the default ops.
+   crash/restart at 10x the default ops;
+11. the multi-device layer (``repro_torch.distributed``, ``launch/mesh.py``;
+   constants ``MULTI_*``), each part in processes of its own
+   (``spawn_local``, every sub-phase under a timeout that kills every
+   rank): (a) one NCCL rank at world size 1 serving olmo-1b at published
+   size through ``Engine(mesh=)``, bitwise equal to the engine without a
+   mesh, launches equal, the NCCL collectives counted, and the FSDP
+   gather's backward a NCCL reduce-scatter; (b) four gloo ranks sharing
+   the card: tensor-parallel serving with flash and decode at 4 local
+   heads (launches pinned, each call held to its plain version, logits
+   within ``MULTI_TP_TOL`` of the unsharded engine's; phase 3 also checks
+   both kernels at that layout), expert parallelism (granite-moe, 8
+   experts a rank) against the grouped path, a sharded train step under
+   the TP and FSDP profiles against the one-rank step and, bit for bit,
+   against AdamW from its own gradients, the GPipe pipeline, the int8
+   all-reduce on CUDA equal to the CPU's, and a reshard onto a smaller
+   mesh. Four ranks on one card check correctness and launch shapes, not
+   four-card speed.
 
 Output: a ``[phase]`` line as each phase ends, one ``{"kernels": [...]}``
 line, one ``{"serve": {...}}`` line, one ``{"baselines": {...}}`` line, one
@@ -116,7 +133,9 @@ one ``{"train": {...}}`` line (phase 9: step seconds and tokens/s,
 checkpoint bytes, save and restore seconds, peak memory, the card-vs-CPU
 and served-logits errors, the cold runs), one ``{"sim": {...}}`` line
 (phase 10: cells, hash checks, audit trips, top-k launches, the soak,
-seconds), the nvidia-smi line, and last
+seconds), one ``{"multi": {...}}`` line (phase 11: backends, each check's
+error, launches a rank, collective calls and bytes by kind, staged bytes,
+seconds, peak memory), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
 ``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -125,6 +144,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -148,6 +168,9 @@ FAMILY_LAYOUTS = {"granite-moe-1b-a400m": (16, 8, 64), "qwen3-4b": (32, 8, 128),
                   "qwen2-vl-7b": (28, 4, 128), "kimi-k2-1t-a32b": (64, 8, 128)}
 # zamba2-2.7b's shared attention block: the attention kernels' hd-80 case
 ATTN_LAYOUTS = {**LAYOUTS, "zamba2-2.7b": (32, 32, 80), **FAMILY_LAYOUTS}
+# phase 11's tensor-parallel serving: each rank's local heads (olmo-1b at
+# TP 4), checked in phase 3 beside the layouts above
+TP_LAYOUTS = {"olmo-1b tp4": (4, 4, 128)}
 # the prefix families' paged layouts beside the DEFAULT ones
 PAGED_FAMILY_LAYOUTS = {a: FAMILY_LAYOUTS[a] for a in ("granite-moe-1b-a400m", "qwen2-vl-7b")}
 # whisper-tiny's encoder: bidirectional flash over the stub frontend's
@@ -439,6 +462,61 @@ SIM_REF_HASHES = {  # seed 0, by cell tag without its "s0-"
     "ablate-ttl_expiry": "e3616d349c5966a9c10c231c87159c36",
 }
 
+# phase 11, the multi-device layer (repro_torch.distributed, launch/mesh.py)
+# on the one card. (a) One NCCL rank at world size 1, mesh (1, 1) over
+# ("data", "model"): MULTI_ARCH at published size (bf16, arch seed) served
+# through Engine(mesh=) must give the same tokens and logits, bit for bit,
+# and the same flash / decode launches, as the engine without a mesh, on
+# MULTI_PROMPTS FinanceBench queries (seed 0, right-padded) for MULTI_NEW
+# greedy tokens, with the NCCL collectives counted. (b) Four gloo ranks
+# sharing the card (spawn_local; every CUDA operand of a collective staged
+# through the host), each sub-phase under MULTI_PHASE_TIMEOUT_S:
+#   tp_serve: MULTI_ARCH bf16 on mesh (1, 4) under its serving profile, a
+#     MULTI_PROMPT_LEN-token prompt (the queries run together) prefilled
+#     and decoded MULTI_NEW steps on (a)'s unsharded greedy tokens: each
+#     step's largest |logit - unsharded| <= MULTI_TP_TOL * the largest
+#     |logit| (each rank's row shard sums in bf16 before the psum, the
+#     unsharded product accumulates all of it in fp32 once); flash and
+#     decode launch at 4 local heads (16 q, 16 kv / 4), once a layer a
+#     prefill and a decode step; then a free greedy run, its tokens matching
+#     (a)'s counted;
+#   ep: MULTI_EP_ARCH at published width cut to MULTI_EP_LAYERS layers, fp32,
+#     mode "ep" (32 experts, 8 a rank), at capacity factor 8 (nothing drops)
+#     against the unsharded grouped path, <= MULTI_EP_TOL of the largest
+#     |logit|; the pairs dropped at the published 1.25 reported;
+#   train: one AdamW step of MULTI_ARCH at published width cut to
+#     MULTI_TRAIN_LAYERS layers, fp32, on mesh (2, 2) under the serving (TP)
+#     and train (FSDP) profiles (remat "full"), against the one-rank step
+#     on the card: the loss, each gradient relative to its leaf's largest
+#     |g|, and every parameter whose |g| >= MULTI_TRAIN_GMIN within
+#     MULTI_TRAIN_TOL. Every parameter, whatever its |g|, is held by two
+#     exact checks: the step equals, bit for bit, AdamW run on the shards
+#     from the sharded gradients and their norm; and the gathered result
+#     equals, bit for bit, one-rank AdamW from the gathered gradients and
+#     that norm. (AdamW's first step moves a parameter by lr * g / (|g| +
+#     eps): where |g| is near eps (1e-8), gradients that the two reduction
+#     orders round ~1e-9 apart (fp32) move it up to ~lr / 4 apart, so the
+#     one-rank step holds those parameters to nothing tighter);
+#   pipeline: pipeline_apply over 4 stages (MULTI_PIPE = L, D, B; 4
+#     microbatches), forward within 1e-5 and gradient within 1e-3 of
+#     sequential_reference (tests/test_distributed.py's bounds, here each
+#     relative to the larger of 1 and the largest |value|);
+#   allreduce: compressed_allreduce of a (1, MULTI_AR_N) gradient a rank on
+#     CUDA tensors equal, bit for bit, to the same call on CPU tensors, and
+#     within 0.02 of the mean relative to its largest |value|;
+#   reshard: the train step's (2, 2) shards resharded onto (1, 2) over the
+#     first two ranks, gathered back bit for bit.
+MULTI_ARCH = "olmo-1b"
+MULTI_PROMPTS, MULTI_NEW, MULTI_PROMPT_LEN = 4, 32, 152
+MULTI_TP_TOL = 2.0 ** -4
+MULTI_EP_ARCH, MULTI_EP_LAYERS, MULTI_EP_BATCH, MULTI_EP_TOL = (
+    "granite-moe-1b-a400m", 4, (2, 64), 1e-4)
+MULTI_TRAIN_LAYERS, MULTI_TRAIN_BATCH, MULTI_TRAIN_TOL = 2, (4, 65), 1e-4
+MULTI_TRAIN_GMIN = 1e-6
+MULTI_PIPE = (8, 256, 32)
+MULTI_AR_N = 1 << 20
+MULTI_TIMEOUT_S, MULTI_PHASE_TIMEOUT_S = 420, 150
+
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
 # a 4-entry plan cache; each wave arrives three times in a row (the first
@@ -683,7 +761,7 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 def check_kernels(torch):
     """Phase 3: the attention kernels against their plain versions at every
-    layout of ATTN_LAYOUTS, flash at S in FLASH_SEQS, decode at the batches
+    layout of ATTN_LAYOUTS and TP_LAYOUTS, flash at S in FLASH_SEQS, decode at the batches
     of DECODE_LENGTHS (also against the split-K plain version; a row of
     length 0 must be zeros, and each row bitwise equal to that row decoded
     alone); and flash bidirectional at whisper-tiny's encoder (WHISPER_ENC).
@@ -703,7 +781,7 @@ def check_kernels(torch):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dt)
 
-        for arch, (hq, hkv, hd) in ATTN_LAYOUTS.items():
+        for arch, (hq, hkv, hd) in {**ATTN_LAYOUTS, **TP_LAYOUTS}.items():
             for S in FLASH_SEQS:
                 for B in (1, 3):
                     for causal in ((True, False) if S == 37 else (True,)):
@@ -2819,6 +2897,450 @@ def _leaves(tree):
         yield tree
 
 
+def multi_prompts():
+    """(MULTI_PROMPTS FinanceBench queries right-padded, (1,
+    MULTI_PROMPT_LEN) of the queries run together), as int32 arrays."""
+    import numpy as np
+
+    from repro_torch.data.tokenizer import PAD, HashTokenizer
+    from repro_torch.envs.workloads import get_env
+
+    tok = HashTokenizer()
+    tasks = get_env("financebench").generate(N_TASKS, seed=0)
+    ids = [tok.encode(t.query) for t in tasks]
+    width = max(len(i) for i in ids[:MULTI_PROMPTS])
+    batch = np.full((MULTI_PROMPTS, width), PAD, np.int32)
+    for r, i in enumerate(ids[:MULTI_PROMPTS]):
+        batch[r, :len(i)] = i
+    run = [x for i in ids for x in i][:MULTI_PROMPT_LEN]
+    if len(run) < MULTI_PROMPT_LEN:
+        raise AssertionError(f"multi: the queries give {len(run)} tokens, not {MULTI_PROMPT_LEN}")
+    return batch, np.asarray([run], np.int32)
+
+
+def _greedy(torch, eng, prompts, n, forced=None):
+    """Prefill and n - 1 decode steps: (tokens (B, n), logits (n, B, V) fp32
+    on the host). ``forced`` (B, n) feeds those tokens instead of the
+    argmax (teacher forcing), so that logits compare step by step."""
+    import numpy as np
+
+    logits, cache = eng.prefill(prompts)
+    toks, outs = [], [logits.float().cpu()]
+    for i in range(n):
+        tok = logits.argmax(-1).cpu().numpy()[:, None].astype(np.int32)
+        toks.append(tok)
+        if i + 1 == n:
+            break
+        feed = tok if forced is None else forced[:, i:i + 1]
+        logits, cache = eng.decode(cache, feed)
+        outs.append(logits.float().cpu())
+    return np.concatenate(toks, 1), torch.stack(outs)
+
+
+def multi_nccl(rank, world):
+    """Phase 11(a)'s body, one NCCL rank at world size 1 in a process of its
+    own (module constants). Returns (its record, (b)'s unsharded
+    references: the 152-token prompt, its greedy tokens and logits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import mesh_compat as mc
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.serve import arch_seed, engine_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lmesh.phase("nccl")
+    t0 = time.perf_counter()
+    kernels = _kernel_launchers()
+    cfg = engine_config(MULTI_ARCH, full=True)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        arch_seed(MULTI_ARCH)), "cuda")
+    batch, long_prompt = multi_prompts()
+    max_len = MULTI_PROMPT_LEN + MULTI_NEW + 8
+    mesh = lmesh.make_mesh((1, 1), ("data", "model"))
+    engines = {"plain": Engine(cfg, params, max_len=max_len, device="cuda"),
+               "mesh": Engine(cfg, params, mesh=mesh, max_len=max_len, device="cuda",
+                              profile=registry.get_sharding(MULTI_ARCH))}
+    got = {}
+    for name, eng in engines.items():
+        _reset_counts(kernels)
+        mc.reset_counters()
+        toks, logits = _greedy(torch, eng, batch, MULTI_NEW)
+        gen = eng.generate(batch, MULTI_NEW)
+        torch.cuda.synchronize()
+        got[name] = {"tokens": toks, "logits": logits, "generate": gen,
+                     "launches": {n: kernels[n].launches
+                                  for n in ("flash_attention", "decode_attention")},
+                     "collectives": {k: dict(v) for k, v in mc.COUNTERS.items()}}
+    plain, sharded = got["plain"], got["mesh"]
+    if not (np.array_equal(plain["tokens"], sharded["tokens"])
+            and torch.equal(plain["logits"], sharded["logits"])
+            and np.array_equal(plain["generate"], sharded["generate"])):
+        d = float((plain["logits"] - sharded["logits"]).abs().max())
+        raise AssertionError(f"multi(a): Engine(mesh=) at world 1 differs: |dlogit| {d}")
+    if plain["launches"] != sharded["launches"] or not all(plain["launches"].values()):
+        raise AssertionError(f"multi(a): launches {plain['launches']} vs "
+                             f"{sharded['launches']}")
+    nccl = sharded["collectives"]
+    if mesh.backend != "nccl" or not (nccl["psum"]["calls"] and nccl["all_gather"]["calls"]):
+        raise AssertionError(f"multi(a): backend {mesh.backend}, collectives {nccl}")
+    # the FSDP gather's backward on NCCL: one reduce-scatter, here over one
+    # rank, so the gradient comes back unchanged
+    mc.reset_counters()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(8, 16, generator=gen, device="cuda").requires_grad_(True)
+    w = torch.randn(8, 16, generator=gen, device="cuda")
+    with torch.enable_grad():
+        (gx,) = torch.autograd.grad((mc.all_gather(x, mesh, "data") * w).sum(), [x])
+    rs = dict(mc.COUNTERS["reduce_scatter"])
+    if not (torch.equal(gx, w) and rs["calls"] == 1 and rs["staged_bytes"] == 0):
+        raise AssertionError(f"multi(a): the gather's backward on NCCL: {rs}, "
+                             f"|dg| {float((gx - w).abs().max())}")
+    ref_toks, ref_logits = _greedy(torch, engines["plain"], long_prompt, MULTI_NEW)
+    rec = {"backend": mesh.backend, "world": 1, "mesh": [1, 1], "arch": MULTI_ARCH,
+           "prompts": list(batch.shape), "new": MULTI_NEW, "bitwise": True,
+           "launches": sharded["launches"], "reduce_scatter": rs,
+           "collectives": {k: v for k, v in nccl.items() if v["calls"]},
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t0}
+    return rec, {"prompt": long_prompt, "tokens": ref_toks, "logits": ref_logits.numpy()}
+
+
+def _head_probe(torch, ops):
+    """Wrap the attention ops to record the (q heads, kv heads) of each call
+    and to hold its output to the plain version on the same inputs: the
+    largest |kernel - plain| / max(1, max |plain|) of each kernel, a 0-d
+    device tensor (no sync a call; a decode row of length 0 is left out,
+    where the plain version averages v). Returns (heads, errors, undo)."""
+    from repro_torch.kernels import ref
+
+    seen = {"flash_attention": collections.Counter(), "decode_attention": collections.Counter()}
+    errs = {}
+    orig = {"flash_attention": ops.flash_attention_op, "decode_attention": ops.decode_attention_op}
+
+    def plain(name, q, k, v, *a, **kw):
+        if name == "flash_attention":
+            return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), **kw).transpose(1, 2), None
+        lens = torch.as_tensor(a[0], device=q.device).reshape(-1).expand(q.shape[0])
+        return ref.decode_attention_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                                        lens)[:, None], lens > 0
+
+    def wrap(name):
+        def call(q, k, *a, **kw):
+            seen[name][(q.shape[2], k.shape[2])] += 1
+            o = orig[name](q, k, *a, **kw)
+            r, live = plain(name, q, k, *a, **kw)
+            d = (o.float() - r.float()).abs()
+            if live is not None:
+                d = d[live]
+            e = d.max() / r.float().abs().max().clamp(min=1.0)
+            errs[name] = torch.maximum(errs[name], e) if name in errs else e
+            return o
+        return call
+
+    ops.flash_attention_op = wrap("flash_attention")
+    ops.decode_attention_op = wrap("decode_attention")
+
+    def undo():
+        ops.flash_attention_op = orig["flash_attention"]
+        ops.decode_attention_op = orig["decode_attention"]
+
+    return seen, errs, undo
+
+
+def multi_rank(rank, world, ref):
+    """Phase 11(b)'s body on each of the four gloo ranks sharing the card
+    (module constants state each check); returns the rank's record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import mesh_compat as mc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.distributed.pipeline import pipeline_apply, sequential_reference
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.serve import arch_seed, engine_config
+    from repro_torch.models import lm, moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training.grad_compress import compressed_allreduce, ef_state_init
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.training.train_step import make_train_step, reduce_grads, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    kernels = _kernel_launchers()
+    out = {"device": str(torch.cuda.current_device()), "seconds": {}, "checks": {},
+           "errors": {}}
+
+    def gen(arch):
+        return torch.Generator(device="cuda").manual_seed(arch_seed(arch))
+
+    def timed(name):
+        lmesh.phase(name)
+        torch.cuda.synchronize()
+        out["seconds"][name] = -time.perf_counter()
+
+    def stop(name):
+        torch.cuda.synchronize()
+        out["seconds"][name] += time.perf_counter()
+
+    mc.reset_counters()
+    # tp_serve
+    timed("tp_serve")
+    mesh = lmesh.make_mesh((1, 4), ("data", "model"))
+    cfg = engine_config(MULTI_ARCH, full=True)
+    eng = Engine(cfg, lm.init_params(cfg, gen(MULTI_ARCH), "cuda"), mesh=mesh,
+                 profile=registry.get_sharding(MULTI_ARCH), device="cuda",
+                 max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8)
+    torch.cuda.empty_cache()
+    seen, kerr, undo = _head_probe(torch, ops)
+    _reset_counts(kernels)
+    try:
+        _, logits = _greedy(torch, eng, ref["prompt"], MULTI_NEW, forced=ref["tokens"])
+        launches = {n: kernels[n].launches for n in ("flash_attention", "decode_attention")}
+        free = eng.generate(ref["prompt"], MULTI_NEW)
+    finally:
+        undo()
+    ref_l = torch.from_numpy(ref["logits"])
+    err = float((logits - ref_l).abs().max() / ref_l.abs().max())
+    L = cfg.num_layers
+    want = {"flash_attention": L, "decode_attention": L * (MULTI_NEW - 1)}
+    local = (cfg.num_heads // 4, cfg.num_kv_heads // 4)
+    heads = {n: dict((f"{q}/{k}", c) for (q, k), c in s.items()) for n, s in seen.items()}
+    kerr = {n: float(e) for n, e in kerr.items()}
+    tol = TOL[cfg.dtype]
+    out["errors"]["tp_serve"] = err
+    out["errors"]["tp_kernels_vs_plain"] = kerr
+    out["checks"]["tp_serve"] = {
+        "launches": launches, "predicted": want, "heads": heads,
+        "kernel_vs_plain": kerr, "kernel_tol": tol,
+        "tokens_matching": int((free == ref["tokens"]).sum()), "tokens": int(free.size),
+        "ok": (err <= MULTI_TP_TOL and launches == want
+               and set(kerr) == {"flash_attention", "decode_attention"}
+               and all(e <= tol for e in kerr.values())
+               and set(heads["flash_attention"]) == {f"{local[0]}/{local[1]}"}
+               and set(heads["decode_attention"]) == {f"{local[0]}/{local[1]}"})}
+    del eng
+    torch.cuda.empty_cache()
+    stop("tp_serve")
+
+    # ep
+    timed("ep")
+    base = engine_config(MULTI_EP_ARCH, full=True)
+    cfg = dataclasses.replace(base, num_layers=MULTI_EP_LAYERS, dtype="float32",
+                              param_dtype="float32",
+                              moe=dataclasses.replace(base.moe, mode="ep", capacity_factor=8.0))
+    params = lm.init_params(cfg, gen(MULTI_EP_ARCH), "cuda")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(16, cfg.vocab_size, MULTI_EP_BATCH).astype(np.int32))
+    toks = toks.cuda()
+    want = lm.prefill(cfg, params, toks)[0] if rank == 0 else None
+    prof = registry.get_sharding(MULTI_EP_ARCH)
+    ctx = lm.ParallelCtx.from_profile(mesh, prof)
+    local_p = shd.shard_tree(params, shd.param_pspecs(params, prof, mesh), mesh)
+    del params
+    moe.moe_forward_ep.dropped = 0
+    got = lm.prefill(cfg, local_p, toks, ctx=ctx)[0]
+    dropped8 = int(moe.moe_forward_ep.dropped)
+    cfg125 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    moe.moe_forward_ep.dropped = 0
+    lm.prefill(cfg125, local_p, toks, ctx=ctx)
+    dropped = int(moe.moe_forward_ep.dropped)
+    pairs = MULTI_EP_BATCH[0] * MULTI_EP_BATCH[1] * cfg.moe.experts_per_token * MULTI_EP_LAYERS
+    rec = {"experts_a_rank": cfg.moe.num_experts // 4, "dropped_cf8": dropped8,
+           "dropped_cf1.25": dropped, "pairs": pairs}
+    if rank == 0:
+        out["errors"]["ep"] = float((got - want).abs().max() / want.abs().max())
+        rec["ok"] = out["errors"]["ep"] <= MULTI_EP_TOL and dropped8 == 0
+    else:
+        rec["ok"] = dropped8 == 0
+    out["checks"]["ep"] = rec
+    del local_p, got, want
+    torch.cuda.empty_cache()
+    stop("ep")
+
+    # train
+    timed("train")
+    cfg = dataclasses.replace(engine_config(MULTI_ARCH, full=True),
+                              num_layers=MULTI_TRAIN_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    params = lm.init_params(cfg, gen(MULTI_ARCH), "cuda")
+    B, S1 = MULTI_TRAIN_BATCH
+    seq = torch.from_numpy(np.random.default_rng(12).integers(
+        16, cfg.vocab_size, (B, S1)).astype(np.int64)).cuda()
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    opt_cfg = AdamWConfig(lr=1e-3)
+    one = None
+    if rank == 0:
+        p1, _, m1 = make_train_step(cfg, opt_cfg)(params, adamw_init(params, opt_cfg), batch)
+        g1 = value_and_grad(cfg, params, batch)[2]
+        one = (float(m1["loss"]), [t.cpu() for t in tree_leaves(p1)],
+               [t.cpu() for t in tree_leaves(g1)])
+        del p1, g1
+    mesh22 = lmesh.make_mesh((2, 2), ("data", "model"))
+    rec = {}
+    for kind in ("", "train"):
+        prof = registry.get_sharding(MULTI_ARCH, kind)
+        ctx = lm.ParallelCtx.from_profile(mesh22, prof)
+        specs = shd.param_pspecs(params, prof, mesh22)
+        local_p = shd.shard_tree(params, specs, mesh22)
+        b = ctx.mesh.axis_size(ctx.dp)
+        i = ctx.mesh.axis_index(ctx.dp)
+        lb = {k: v[i * B // b:(i + 1) * B // b] for k, v in batch.items()}
+        new, _, m = make_train_step(cfg, opt_cfg, ctx)(local_p, adamw_init(local_p, opt_cfg),
+                                                      lb)
+        # the step's parts on the shards: its gradients and their norm, and
+        # AdamW on the shards from them, which the step must equal bit for bit
+        g_sh, gnorm = reduce_grads(ctx, specs, value_and_grad(cfg, local_p, lb, ctx)[2])
+        new2 = adamw_update(local_p, g_sh, adamw_init(local_p, opt_cfg), opt_cfg,
+                            gnorm=gnorm)[0]
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(new2)))
+        del new2
+        whole = shd.unshard_tree(new, specs, mesh22)
+        grads = shd.unshard_tree(g_sh, specs, mesh22)
+        name = kind or "serve"
+        rec[name] = {"loss": float(m["loss"]), "step_is_its_parts": same}
+        if rank == 0:
+            # one-rank AdamW on the gathered sharded gradients and norm: the
+            # sharded update must equal it bit for bit (elementwise, the same
+            # operations), whatever |g|
+            exact = adamw_update(params, grads, adamw_init(params, opt_cfg), opt_cfg,
+                                 gnorm=gnorm)[0]
+            d_upd = max(float((a - b).abs().max())
+                        for a, b in zip(tree_leaves(whole), tree_leaves(exact)))
+            del exact
+            dl = abs(rec[name]["loss"] - one[0])
+            dg = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                     for a, b in zip(tree_leaves(grads), one[2]))
+            dp_cond, dp_all = 0.0, 0.0
+            for a, b, g in zip(tree_leaves(whole), one[1], one[2]):
+                d = (a.cpu() - b).abs()
+                dp_all = max(dp_all, float(d.max()))
+                cond = g.abs() >= MULTI_TRAIN_GMIN
+                if bool(cond.any()):
+                    dp_cond = max(dp_cond, float(d[cond].max()))
+            rec[name].update(loss_diff=dl, grad_rel_diff=dg, param_diff=dp_cond,
+                             param_diff_all=dp_all, update_vs_one_rank_adamw=d_upd)
+            out["errors"][f"train_{name}"] = {"loss": dl, "grad_rel": dg, "param": dp_cond,
+                                              "param_all": dp_all, "update": d_upd}
+        del new, whole, grads, g_sh
+    keep_specs = shd.param_pspecs(params, registry.get_sharding(MULTI_ARCH), mesh22)
+    keep = shd.shard_tree(params, keep_specs, mesh22)
+    rec["ok"] = all(rec[n]["step_is_its_parts"] for n in ("serve", "train")) and (
+        rank != 0 or all(
+            max(rec[n]["loss_diff"], rec[n]["grad_rel_diff"], rec[n]["param_diff"])
+            <= MULTI_TRAIN_TOL and rec[n]["update_vs_one_rank_adamw"] == 0.0
+            for n in ("serve", "train")))
+    out["checks"]["train"] = rec
+    torch.cuda.empty_cache()
+    stop("train")
+
+    # pipeline
+    timed("pipeline")
+    Lp, Dp, Bp = MULTI_PIPE
+    prng = np.random.default_rng(13)
+    ws = torch.from_numpy((prng.standard_normal((Lp, Dp, Dp)) * 0.05).astype(np.float32)).cuda()
+    xp = torch.from_numpy(prng.standard_normal((Bp, Dp)).astype(np.float32)).cuda()
+    pmesh = lmesh.make_mesh((4,), ("pipe",))
+
+    def layer_fn(w, h):
+        return torch.tanh(h @ w) + h
+
+    y = pipeline_apply(layer_fn, ws, xp, mesh=pmesh, axis="pipe", n_microbatches=4)
+    wl = ws.clone().requires_grad_(True)
+    ws2 = ws.clone().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(torch.sum(pipeline_apply(
+            layer_fn, wl, xp, mesh=pmesh, axis="pipe", n_microbatches=4) ** 2), [wl])
+        (gs,) = torch.autograd.grad(torch.sum(sequential_reference(layer_fn, ws2, xp) ** 2),
+                                    [ws2])
+    g = mc.psum(g, pmesh, "pipe")
+    ys = sequential_reference(layer_fn, ws, xp)
+    ef = float((y - ys).abs().max() / ys.abs().max().clamp(min=1))
+    eg = float((g - gs).abs().max() / gs.abs().max().clamp(min=1))
+    out["errors"]["pipeline"] = {"forward": ef, "gradient": eg}
+    out["checks"]["pipeline"] = {"ok": ef < 1e-5 and eg < 1e-3}
+    stop("pipeline")
+
+    # allreduce
+    timed("allreduce")
+    dmesh = lmesh.make_mesh((4,), ("data",))
+    grads = np.random.default_rng(14).standard_normal((4, MULTI_AR_N)).astype(np.float32)
+    g_cpu = torch.from_numpy(grads[rank:rank + 1])
+    ef0 = ef_state_init({"w": g_cpu})
+    red_cpu, ef_cpu = compressed_allreduce({"w": g_cpu}, ef0, dmesh, "data")
+    red_gpu, ef_gpu = compressed_allreduce({"w": g_cpu.cuda()},
+                                           {"w": ef0["w"].cuda()}, dmesh, "data")
+    mean = torch.from_numpy(grads.mean(0, keepdims=True))
+    rel = float((red_cpu["w"] - mean).abs().max() / mean.abs().max())
+    same = (torch.equal(red_gpu["w"].cpu(), red_cpu["w"])
+            and torch.equal(ef_gpu["w"].cpu(), ef_cpu["w"]))
+    out["errors"]["allreduce"] = rel
+    out["checks"]["allreduce"] = {"cuda_equals_cpu": same, "ok": same and rel < 0.02}
+    stop("allreduce")
+
+    # reshard
+    timed("reshard")
+    mesh12 = mc.Mesh((1, 2), ("data", "model"), ranks=[0, 1], device="cuda")
+    prof = registry.get_sharding(MULTI_ARCH)
+    moved = reshard_tree(keep, mesh12, prof, old_mesh=mesh22, old_specs=keep_specs)
+    rec = {"ok": True}
+    if mesh12.member:
+        back = shd.unshard_tree(moved, shd.param_pspecs(params, prof, mesh12), mesh12)
+        rec["ok"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                           tree_leaves(back)))
+    out["checks"]["reshard"] = rec
+    stop("reshard")
+    out["collectives"] = {k: dict(v) for k, v in mc.COUNTERS.items()}
+    out["backend"] = mesh.backend
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def multi_on_card(torch):
+    """Phase 11: (a) one NCCL rank at world size 1; (b) four gloo ranks
+    sharing the card (module constants); each in processes of its own
+    (``spawn_local``), killed at a sub-phase's timeout. Returns the
+    ``{"multi": ...}`` line's body."""
+    from repro_torch.launch.mesh import spawn_local
+
+    t0 = time.perf_counter()
+    [(nccl, ref)] = spawn_local(multi_nccl, 1, backend="nccl", device="cuda",
+                                timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+    nccl["spawn_s"] = time.perf_counter() - t0
+    log(f"[multi] (a) NCCL world 1: bitwise over {MULTI_PROMPTS} prompts x {MULTI_NEW} "
+        f"tokens; launches {nccl['launches']}; collectives {nccl['collectives']}")
+    t1 = time.perf_counter()
+    ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
+                        timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+    bad = {(r, name): rec for r, out in enumerate(ranks)
+           for name, rec in out["checks"].items() if not rec.get("ok")}
+    if bad:
+        raise AssertionError(f"multi(b): checks failed {bad}; errors "
+                             f"{[out['errors'] for out in ranks]}")
+    tp = ranks[0]["checks"]["tp_serve"]
+    gloo = {"backend": ranks[0]["backend"], "world": 4, "ranks": ranks,
+            "seconds": time.perf_counter() - t1}
+    log(f"[multi] (b) 4 gloo ranks on one card: errors {ranks[0]['errors']}; tp tokens "
+        f"matching {tp['tokens_matching']}/{tp['tokens']}; launches a rank {tp['launches']}; "
+        f"ep dropped at 1.25 {ranks[0]['checks']['ep']['dropped_cf1.25']} of "
+        f"{ranks[0]['checks']['ep']['pairs']} pairs; staged bytes "
+        f"{sum(v['staged_bytes'] for v in ranks[0]['collectives'].values())}; seconds "
+        f"{ranks[0]['seconds']}")
+    return {"nccl": nccl, "gloo": gloo, "tol": {"tp": MULTI_TP_TOL, "ep": MULTI_EP_TOL,
+                                                "train": MULTI_TRAIN_TOL},
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -2966,6 +3488,13 @@ def main() -> int:
     sim = sim_on_card(torch)
     done("10_sim")
     sim["phase_s"] = phase_s["10_sim"]
+
+    # phase 11: the multi-device layer, one NCCL rank, then four gloo ranks
+    # sharing the card
+    free_memory(torch)
+    multi = multi_on_card(torch)
+    done("11_multi")
+    multi["phase_s"] = phase_s["11_multi"]
     srv = {"init_s": init_s, "later_depths": LATER_DEPTHS,
            "max_memory_allocated_gib": max(peak.values()),
            "peak_memory_gib": peak, "prefix_families": prefix_families,
@@ -3006,6 +3535,10 @@ def main() -> int:
                                   if v.get("launches_per_task", {}).get(name)},
             **({"library": row["library"]} if "library" in row else {}),
             **({"sim_launches": sim["topk_launches"]} if name == "topk_cosine" else {}),
+            **({"multi_launches": {
+                "nccl_world1": multi["nccl"]["launches"][name],
+                "gloo_rank_tp4": multi["gloo"]["ranks"][0]["checks"]["tp_serve"]["launches"][
+                    name]}} if name in ("flash_attention", "decode_attention") else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
@@ -3017,6 +3550,7 @@ def main() -> int:
     print(json.dumps({"obs": obs}))
     print(json.dumps({"train": train}))
     print(json.dumps({"sim": sim}))
+    print(json.dumps({"multi": multi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
-"""Model configuration for the port: the fields of
+"""Configuration for the port: the fields of
 ``repro.configs.base.ModelConfig`` that the port's families read (dense,
-moe, ssm, hybrid, vlm and audio), its sub-configs and its smoke reduction.
+moe, ssm, hybrid, vlm and audio), its sub-configs and its smoke reduction;
+the four input shapes (``ShapeConfig``, ``SHAPES``); and the deployment
+layer, ``ShardingProfile`` (how a model is laid out on a mesh) and
+``DeploymentConfig``, with every field and default of the reference's.
 
 Frozen dataclasses, as in the reference, so configs hash and compare.
 """
@@ -8,8 +11,8 @@ Frozen dataclasses, as in the reference, so configs hash and compare.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -20,14 +23,15 @@ class MoEConfig:
     experts_per_token: int  # top-k
     d_ff_expert: int
     capacity_factor: float = 1.25
-    # "dense": GShard one-hot dispatch einsums. "ep": expert parallelism in
-    # the reference; without a mesh (the port's only case) the exact
-    # dropless grouped path.
+    # "dense": GShard one-hot dispatch einsums. "ep": expert parallelism
+    # over a mesh (all_to_all dispatch); without a mesh the exact dropless
+    # grouped path.
     mode: str = "dense"
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
-    # the reference's EP-path knobs, kept so configs compare equal; the port
-    # has no EP path yet
+    # the EP path's knobs: the dispatch payload's wire dtype (auto = x's |
+    # bfloat16 | float32 | float8_e4m3fn) and the token chunks a dispatch
+    # is split into
     a2a_dtype: str = "auto"
     dispatch_chunks: int = 1
 
@@ -103,6 +107,24 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.attn_every == 0
+
+    @property
+    def num_attn_layers(self) -> int:
+        """How many attention applications exist (KV-cache slots)."""
+        if self.attn_every == 0:
+            return 0
+        if self.encoder is not None:
+            return self.num_layers  # decoder self-attn layers
+        return self.num_layers // self.attn_every
+
+    @property
+    def supports_subquadratic_decode(self) -> bool:
+        """long_500k eligibility: SSM / hybrid / linear-attention families."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula
         (``repro.configs.base.ModelConfig.param_count``). The reference
@@ -145,6 +167,91 @@ class ModelConfig:
             n += self.encoder.num_layers * (4 * d * d + mlp_mats * d * self.d_ff)
             n += self.num_layers * 4 * d * d  # decoder cross-attention
         return n
+
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        mlp_mats = 3 if self.mlp_act == "swiglu" else 2
+        full_experts = e.num_experts * (mlp_mats * self.d_model * e.d_ff_expert)
+        active_experts = e.experts_per_token * (mlp_mats * self.d_model * e.d_ff_expert)
+        return self.param_count() - self.num_layers * (full_experts - active_experts)
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def supports_shape(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only for the sub-quadratic archs."""
+    if shape.name == "long_500k" and not model.supports_subquadratic_decode:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Sharding / deployment profile
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardingProfile:
+    """How a model is laid out on the mesh.
+
+    Axis names refer to mesh axes ("pod", "data", "model"). ``fsdp_axes``
+    shards parameters + optimizer state over those axes (ZeRO-3);
+    ``tp_axis`` applies Megatron-pattern tensor parallelism; MoE expert
+    weights shard over ``ep_axis`` when the MoE mode is "ep".
+    """
+
+    tp_axis: str = "model"
+    fsdp_axes: Tuple[str, ...] = ()  # e.g. ("data",) or ("pod", "data")
+    dp_axes: Tuple[str, ...] = ("data",)  # batch axes (pod is appended when present)
+    ep_axis: str = "model"
+    pipeline_axis: str = ""  # "" = no pipeline parallelism
+    pipeline_stages: int = 1
+    remat: str = "none"  # none | full | dots | offload
+    optimizer_dtype: str = "float32"  # float32 | bfloat16 (1T-scale models)
+    gradient_compression: str = "none"  # none | int8_ef
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8
+    # shard long KV caches over the TP axis by sequence when heads < tp size
+    shard_kv_seq: bool = False
+    # sequence parallelism: shard activations' seq dim over tp_axis
+    seq_parallel: bool = False
+    # shard K/V projections over tp (off where kv_dim/tp splits within heads)
+    shard_kv_proj: bool = True
+    # use these mesh axes as ADDITIONAL data-parallel axes (e.g. ("model",)
+    # for small models where TP is pure overhead; set tp_axis="" with it)
+    extra_dp_axes: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class DeploymentConfig:
+    """Full deployment = model + sharding + runtime knobs."""
+
+    model: ModelConfig
+    sharding: ShardingProfile = field(default_factory=ShardingProfile)
+    max_decode_steps: int = 64
+    microbatch: int = 0  # 0 = no gradient accumulation
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

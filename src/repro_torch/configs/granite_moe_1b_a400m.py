@@ -4,7 +4,7 @@
 (GQA kv=8) d_ff=512 vocab=49155, MoE 32e top-8.
 """
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import MoEConfig, ModelConfig, ShardingProfile
 
 CONFIG = ModelConfig(
     name="granite-moe-1b-a400m",
@@ -28,4 +28,25 @@ CONFIG = ModelConfig(
         mode="dense",  # small enough for GShard dense dispatch
     ),
     source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+)
+
+SHARDING = ShardingProfile(
+    tp_axis="model",
+    fsdp_axes=(),
+    remat="full",
+    # decode KV: kv_heads < TP would split head_dim and psum scores per
+    # layer; sequence-sharding the cache is cheaper (the reference's TPU dry run)
+    shard_kv_seq=True,
+)
+
+
+# Beyond-paper optimized TRAIN deployment (from the reference's TPU dry run):
+# at seq 4k / global batch 256 on a 256-chip pod, per-layer FSDP gathers
+# cost far less than Megatron activation all-reduces — every <=15B train
+# cell flips to compute-bound there.
+SHARDING_TRAIN = ShardingProfile(
+    tp_axis="",
+    fsdp_axes=("data", "model"),
+    extra_dp_axes=("model",),
+    remat="full",
 )

@@ -153,9 +153,23 @@ def mlp_init(cfg, generator, device, d_model: int, d_ff: int) -> Params:
     return p
 
 
-def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(cfg, p: Params, x: torch.Tensor, ctx=None, spec=None) -> torch.Tensor:
+    """The MLP block. Under a mesh (``ctx`` with the block's weight
+    ``spec``, ``models/parallel.py``) with ``w_down``'s rows split over tp:
+    the rank's columns of the up projections (Megatron column / row), then
+    a ``psum`` over tp; where the guard left d_ff whole, the block runs
+    whole on each rank."""
+    tp = ctx is not None and ctx.mesh is not None and ctx.tp and ctx.tp in (
+        (spec["w_down"][0],) if isinstance(spec["w_down"][0], str)
+        else tuple(spec["w_down"][0] or ()))
+    if tp:
+        from repro_torch.distributed import mesh_compat as mc
+
+        x = mc.fan_out(x, ctx.mesh, ctx.tp)
     if cfg.mlp_act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = mlp_act_fn(cfg.mlp_act)(x @ p["w_up"])
+    if tp:
+        return mc.psum(h @ p["w_down"], ctx.mesh, ctx.tp)
     return h @ p["w_down"]

@@ -14,6 +14,24 @@ family's one shared attention block is ``params["shared_attn"]``, a dense
 layer applied after every group. A moe layer holds ``moe`` (router and
 (E, D, F) experts, ``models/moe.py``) where a dense layer holds ``mlp``.
 
+Under a mesh (``ctx``, a ``ParallelCtx``; ``models/parallel.py``) every
+rank passes its shard of the parameters (``distributed.sharding.shard_tree``
+by ``param_pspecs``) and of the batch (its rows), and gets full-vocabulary
+logits for its rows. A layer's FSDP-sharded weights are all-gathered as the
+layer starts; attention and the MLP run Megatron-style on the rank's heads
+and columns, each ending in a ``psum`` over tp; the embedding is a masked
+lookup of the rank's vocabulary rows and a ``psum``; the head gives the
+rank's vocabulary columns, all-gathered over tp. The cache is the rank's
+block of the whole cache under ``cache_pspecs`` (batch over dp; kv heads,
+head dim or sequence over tp), with ``max_len`` (and audio's ``enc_len``)
+of the whole cache beside ``length``; the recurrent state is the rank's
+heads', the shift and conv carries its block of the whole ones. Every
+family runs tensor parallel (the recurrent families' mixers in
+``rwkv.py`` and ``mamba.py``). A moe in mode "ep" goes through
+``moe.moe_forward_ep``; in mode "dense" each rank runs every expert on its
+rows. Where a gradient is taken, the profile's ``remat`` applies to each
+layer as the reference's ``_maybe_remat`` does (``_remat``).
+
 Caches are dicts with a Python int ``length``:
 
 * dense, moe, vlm: ``kv_k``/``kv_v`` (L, B, M, Hkv, hd), bf16 when
@@ -46,10 +64,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.distributed import mesh_compat as mc
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel as par
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (
     Params,
@@ -61,6 +83,7 @@ from repro_torch.models.common import (
     norm_param_init,
     tree_map,
 )
+from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.rope import positions_for_rope
 
 Cache = Dict[str, Any]
@@ -193,6 +216,12 @@ def params_to(params: Params, device) -> Params:
     return tree_map(lambda t: t.to(device), params)
 
 
+def abstract_params(cfg) -> Params:
+    """The parameter tree on the meta device: shapes and dtypes, no storage
+    (the reference's ``eval_shape`` of ``init_params``)."""
+    return init_params(cfg, None, "meta")
+
+
 # ===========================================================================
 # Cache, embedding, logits
 # ===========================================================================
@@ -235,6 +264,11 @@ def init_cache(cfg, batch: int, max_len: int, device, *, enc_len: int = 0) -> Ca
     return c
 
 
+def abstract_cache(cfg, batch: int, max_len: int, **kw) -> Cache:
+    """``init_cache`` on the meta device."""
+    return init_cache(cfg, batch, max_len, "meta", **kw)
+
+
 def _check_ids(cfg, tokens: torch.Tensor) -> None:
     """Raise on an id outside [0, vocab_size): the reference's ``jnp.take``
     fills such rows with NaN. Called on prompts only (one device sync per
@@ -248,12 +282,22 @@ def _check_ids(cfg, tokens: torch.Tensor) -> None:
             )
 
 
-def _embed(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> x (B, S, D)."""
-    return params["embed"][tokens].to(dtype_of(cfg.dtype))
+def _embed(cfg, params: Params, tokens: torch.Tensor, ctx=None, spec=None) -> torch.Tensor:
+    """tokens (B, S) int -> x (B, S, D). Under a mesh with the vocabulary
+    split over tp: the rank's rows looked up (the others zero), then a
+    ``psum`` over tp."""
+    if ctx is None or not par.on_tp(ctx, spec[0]):
+        return params["embed"][tokens].to(dtype_of(cfg.dtype))
+    emb, dt = params["embed"], dtype_of(cfg.dtype)
+    n = emb.shape[0]
+    ids = tokens - ctx.tp_index * n
+    ok = (ids >= 0) & (ids < n)
+    x = emb[ids.clamp(0, n - 1)].to(dt)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=dt, device=x.device))
+    return mc.psum(x, ctx.mesh, ctx.tp)
 
 
-def _embed_inputs(cfg, params: Params, tokens, embeds, positions):
+def _embed_inputs(cfg, params: Params, tokens, embeds, positions, ctx=None, specs=None):
     """(x (B, S, D), positions) from token ids, or from the vlm stub
     frontend's precomputed ``embeds`` (B, S, D) with optional ``positions``
     ((B, S), or (3, B, S) for M-RoPE); positions default to 0..S-1."""
@@ -261,24 +305,142 @@ def _embed_inputs(cfg, params: Params, tokens, embeds, positions):
         x = embeds.to(dtype_of(cfg.dtype))
     else:
         _check_ids(cfg, tokens)
-        x = _embed(cfg, params, tokens)
+        x = _embed(cfg, params, tokens, ctx, None if specs is None else specs["embed"])
     if positions is None:
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     return x, positions
 
 
-def _ffn_block(cfg, p: Params, x: torch.Tensor):
+def _ffn_block(cfg, p: Params, x: torch.Tensor, ctx=None, spec=None):
     """The layer's MLP, or its MoE where it has one: (y, aux loss or None)."""
     if "moe" in p:
-        return moe_mod.moe_forward(cfg, p["moe"], x)
-    return mlp_forward(cfg, p["mlp"], x), None
+        return moe_mod.moe_forward(cfg, p["moe"], x, ctx=ctx)
+    return mlp_forward(cfg, p["mlp"], x, ctx, None if spec is None else spec["mlp"]), None
 
 
-def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg, params: Params, x: torch.Tensor, ctx=None, specs=None) -> torch.Tensor:
+    """Full-vocabulary logits; under a mesh with the vocabulary split over
+    tp, the rank's columns all-gathered."""
     x = apply_norm(cfg, params, "final", x)
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if cfg.tie_embeddings:
+        w, vocab = params["embed"].T, None if specs is None else specs["embed"][0]
+    else:
+        w, vocab = params["head"], None if specs is None else specs["head"][1]
+    if ctx is not None and par.on_tp(ctx, vocab):
+        return mc.all_gather(par.fan_out(ctx, x) @ w, ctx.mesh, ctx.tp, dim=-1, grad="slice")
     return x @ w
+
+
+# ===========================================================================
+# Under a mesh
+# ===========================================================================
+
+
+def _mesh(cfg, ctx, params: Params):
+    """(ctx or None, the whole model's specs, the non-layer weights with
+    their FSDP dims gathered). The layer stacks are gathered a layer at a
+    time by ``_layers``; the tp dims stay local."""
+    if not par.active(ctx):
+        return None, None, params
+    if ctx.seq_parallel:
+        raise NotImplementedError("sequence parallelism (seq_parallel) is not ported")
+    specs = ctx.param_specs(cfg)
+    keep = (ctx.tp,) if ctx.tp else ()
+    stacks = ("blocks", "enc_blocks", "dec_blocks", "shared_attn")
+    top = {k: par.gather_params(ctx, v, specs[k], keep) for k, v in params.items()
+           if k not in stacks}
+    if "shared_attn" in params:
+        top["shared_attn"] = par.gather_layer(ctx, cfg, params["shared_attn"],
+                                              specs["shared_attn"])
+    return ctx, specs, top
+
+
+def _layers(ctx, cfg, blocks, specs):
+    """(weights, spec) of each layer in turn, its FSDP dims gathered as it
+    comes (a hybrid group: a list of layers)."""
+    for i, p in enumerate(blocks):
+        if specs is None:
+            yield p, None
+        elif isinstance(p, list):
+            yield [q for q, _ in _layers(ctx, cfg, p, specs[i])], specs[i]
+        else:
+            yield par.gather_layer(ctx, cfg, p, specs[i]), specs[i]
+
+
+def _remat(ctx, fn):
+    """The reference's ``_maybe_remat`` for one layer's ``fn``: under a mesh
+    whose profile sets ``remat`` "full" (or "offload", which the reference
+    runs as "full"), and where a gradient is taken, the layer keeps only
+    its inputs and runs again in the backward (its collectives too, on
+    every rank alike). "dots" (keep the matrix products) is not ported."""
+    mode = ctx.remat if ctx is not None else "none"
+    if mode == "dots":
+        raise NotImplementedError("remat 'dots' is not ported; the profiles use 'full'")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
+def _n_dp(ctx) -> int:
+    return ctx.mesh.axis_size(ctx.dp) if ctx.dp else 1
+
+
+def _new_cache(cfg, ctx, batch: int, max_len: int, device, enc_len: int = 0):
+    """(zeroed cache, its specs). Under a mesh: the rank's block of the
+    cache of ``batch * n_dp`` rows (its ``batch``), with ``max_len`` (and
+    audio's ``enc_len``) beside ``length``; the specs are ``cache_pspecs``."""
+    if ctx is None:
+        return init_cache(cfg, batch, max_len, device, enc_len=enc_len), None
+    kw = {"enc_len": enc_len} if enc_len else {}
+    whole = abstract_cache(cfg, batch * _n_dp(ctx), max_len, **kw)
+    specs = ctx.cache_specs(cfg, batch * _n_dp(ctx), max_len, **kw)
+    c: Cache = {"length": 0, "max_len": max_len}
+    if enc_len:
+        c["enc_len"] = enc_len
+    for k, v in whole.items():
+        if isinstance(v, torch.Tensor):
+            shape = [n // ctx.mesh.axis_size(shd.entry_axes(e)) for n, e in zip(v.shape, specs[k])]
+            c[k] = torch.zeros(shape, dtype=v.dtype, device=device)
+    return c, specs
+
+
+def _cache_specs(cfg, ctx, cache: Cache):
+    """The specs of a cache ``_new_cache`` built under ``ctx``."""
+    if ctx is None:
+        return None
+    if cfg.family == "hybrid":
+        rows = cache["ssm_state"].shape[2]
+    elif cfg.family == "ssm":
+        rows = cache["ssm_state"].shape[1]
+    else:
+        rows = cache["kv_k"].shape[1]
+    kw = {"enc_len": cache["enc_len"]} if "enc_len" in cache else {}
+    return ctx.cache_specs(cfg, rows * _n_dp(ctx), cache["max_len"], **kw)
+
+
+def _kv_spec(cspecs, name: str = "kv_k"):
+    """A layer's (B, M, Hkv, hd) cache entries, the batch local."""
+    if cspecs is None or name not in cspecs:
+        return None
+    return (None,) + tuple(cspecs[name][2:])
+
+
+def _store_kv(cfg, ctx, cache: Cache, i: int, k, v, cspecs, names=("kv_k", "kv_v")):
+    """Write a layer's k and v (B, S, heads, hd) at positions [0, S): the
+    rank's own heads straight into its block (``attention.kv_local``), every
+    head through ``write_block``."""
+    for name, val in zip(names, (k, v)):
+        dst = cache[name][i]
+        spec = _kv_spec(cspecs, name)
+        if ctx is None or attn.kv_local(cfg, ctx, spec):
+            dst[:, :val.shape[1]] = val
+        else:
+            par.write_block(ctx, dst, val.to(dst.dtype), (0, 0, 0, 0), spec)
 
 
 # ===========================================================================
@@ -286,14 +448,60 @@ def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 
 
-def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin, use_kernels: bool):
+def _put(ctx, cache: Cache, name: str, idx, val: torch.Tensor, cspecs) -> None:
+    """Store a layer's recurrent state or carry: straight where it has the
+    block's shape (the rank's heads, or no mesh), else the rank's block of
+    the whole value."""
+    dst = cache[name][idx]
+    if tuple(val.shape) == tuple(dst.shape):
+        dst.copy_(val)
+    else:
+        spec = (None,) + tuple(cspecs[name][cspecs[name].__len__() - val.dim() + 1:])
+        par.write_block(ctx, dst, val.to(dst.dtype), (0,) * val.dim(), spec)
+
+
+def _get(ctx, cache: Cache, name: str, idx, cspecs) -> torch.Tensor:
+    """A layer's carry whole (gathered over tp from the rank's block)."""
+    blk = cache[name][idx]
+    if ctx is None:
+        return blk
+    spec = (None,) + tuple(cspecs[name][len(cspecs[name]) - blk.dim() + 1:])
+    return shd.gather_leaf(blk, spec, ctx.mesh)
+
+
+def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin, use_kernels: bool, ctx=None,
+                 spec=None, kv_spec=None):
     """One dense or moe layer (attention + MLP/MoE) over a sequence.
     Returns (x, k, v, aux or None)."""
     h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, ctx=ctx,
+                                   spec=None if spec is None else spec["attn"],
+                                   kv_spec=kv_spec)
     x = x + h
-    y, aux = _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))
+    y, aux = _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x), ctx, spec)
     return x + y, k, v, aux
+
+
+def _rwkv_layer(cfg, p: Params, x: torch.Tensor, use_kernels: bool, ctx, spec):
+    """One rwkv6 layer from a zero state: (x, state, time-mix shift,
+    channel-mix shift)."""
+    y, st, sh_tm = rwkv_mod.rwkv_time_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln1", x), None,
+                                          use_kernels=use_kernels, ctx=ctx, spec=spec)
+    x = x + y
+    y, sh_cm = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln2", x), None,
+                                         ctx=ctx, spec=spec)
+    return x + y, st, sh_tm, sh_cm
+
+
+def _mamba_layer(cfg, p: Params, x: torch.Tensor, use_kernels: bool, ctx, spec):
+    """One zamba2 mamba layer from a zero state: (x, state, conv carry)."""
+    y, st, cv = mam.mamba_forward(cfg, p["mamba"], apply_norm(cfg, p, "ln1", x), None,
+                                  use_kernels=use_kernels, ctx=ctx, spec=spec)
+    return x + y, st, cv
+
+
+def _sub(specs, key):
+    return None if specs is None else specs[key]
 
 
 def forward(
@@ -307,6 +515,7 @@ def forward(
     want_cache: bool = False,
     cache_len: Optional[int] = None,
     use_kernels: bool = True,
+    ctx: Optional[ParallelCtx] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """Full-sequence forward of ``tokens`` (B, S), or of the vlm stub
     frontend's ``embeds`` (B, S, D) with ``positions`` ((3, B, S) for
@@ -315,61 +524,61 @@ def forward(
     scalar), cache-or-None); the cache covers ``cache_len`` positions
     (default S) with S filled. The recurrent families start from a zero
     state (``lm.py:315-318`` and ``:387`` of the reference).
-    ``use_kernels=False`` runs the training path (module docstring)."""
+    ``use_kernels=False`` runs the training path (module docstring). Under
+    a mesh (``ctx``) the inputs and results are the rank's rows."""
     _check_family(cfg)
+    ctx, specs, top = _mesh(cfg, ctx, params)
     if cfg.family == "audio":
-        return _whisper_forward(cfg, params, tokens, frames, want_cache, cache_len,
-                                use_kernels)
-    x, pos = _embed_inputs(cfg, params, tokens, embeds, positions)
+        return _whisper_forward(cfg, params, top, tokens, frames, want_cache, cache_len,
+                                use_kernels, ctx, specs)
+    x, pos = _embed_inputs(cfg, top, tokens, embeds, positions, ctx, specs)
     B, S, _ = x.shape
-    cache = init_cache(cfg, B, cache_len or S, x.device) if want_cache else None
+    cache, cspecs = _new_cache(cfg, ctx, B, cache_len or S, x.device) if want_cache else (
+        None, None)
+    kvs = _kv_spec(cspecs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        x = apply_norm(cfg, params, "ln0", x)
-        for i, p in enumerate(params["blocks"]):
-            y, st, sh_tm = rwkv_mod.rwkv_time_mix(cfg, p["rwkv"],
-                                                  apply_norm(cfg, p, "ln1", x), None,
-                                                  use_kernels=use_kernels)
-            x = x + y
-            y, sh_cm = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"],
-                                                 apply_norm(cfg, p, "ln2", x), None)
-            x = x + y
+        x = apply_norm(cfg, top, "ln0", x)
+        for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"],
+                                            _sub(specs, "blocks"))):
+            x, st, sh_tm, sh_cm = _remat(ctx, _rwkv_layer)(cfg, p, x, use_kernels, ctx,
+                                                           _sub(sp, "rwkv"))
             if cache is not None:
-                cache["ssm_state"][i] = st
-                cache["shift_tm"][i] = sh_tm
-                cache["shift_cm"][i] = sh_cm
+                _put(ctx, cache, "ssm_state", i, st, cspecs)
+                _put(ctx, cache, "shift_tm", i, sh_tm, cspecs)
+                _put(ctx, cache, "shift_cm", i, sh_cm, cspecs)
     else:
         cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
         if cfg.family == "hybrid":
-            shared = params["shared_attn"]
-            for g, group in enumerate(params["blocks"]):
+            shared, sspec = top["shared_attn"], _sub(specs, "shared_attn")
+            for g, (group, gspec) in enumerate(_layers(ctx, cfg, params["blocks"],
+                                                       _sub(specs, "blocks"))):
                 for i, p in enumerate(group):
-                    y, st, cv = mam.mamba_forward(cfg, p["mamba"],
-                                                  apply_norm(cfg, p, "ln1", x), None,
-                                                  use_kernels=use_kernels)
-                    x = x + y
+                    x, st, cv = _remat(ctx, _mamba_layer)(
+                        cfg, p, x, use_kernels, ctx, None if gspec is None else gspec[i]["mamba"])
                     if cache is not None:
-                        cache["ssm_state"][g, i] = st
-                        cache["conv"][g, i] = cv
-                x, k, v, a = _dense_layer(cfg, shared, x, cos, sin, use_kernels)
+                        _put(ctx, cache, "ssm_state", (g, i), st, cspecs)
+                        _put(ctx, cache, "conv", (g, i), cv, cspecs)
+                x, k, v, a = _remat(ctx, _dense_layer)(cfg, shared, x, cos, sin, use_kernels,
+                                                       ctx, sspec, kvs)
                 aux = aux if a is None else aux + a
                 if cache is not None:
-                    cache["kv_k"][g, :, :S] = k
-                    cache["kv_v"][g, :, :S] = v
+                    _store_kv(cfg, ctx, cache, g, k, v, cspecs)
         else:
-            for i, p in enumerate(params["blocks"]):
-                x, k, v, a = _dense_layer(cfg, p, x, cos, sin, use_kernels)
+            for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"],
+                                                _sub(specs, "blocks"))):
+                x, k, v, a = _remat(ctx, _dense_layer)(cfg, p, x, cos, sin, use_kernels, ctx,
+                                                       sp, kvs)
                 aux = aux if a is None else aux + a
                 if cache is not None:
-                    cache["kv_k"][i, :, :S] = k
-                    cache["kv_v"][i, :, :S] = v
+                    _store_kv(cfg, ctx, cache, i, k, v, cspecs)
     if cache is not None:
         cache["length"] = S
-    return _logits(cfg, params, x), aux, cache
+    return _logits(cfg, top, x, ctx, specs), aux, cache
 
 
-def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len,
-                     use_kernels):
+def _whisper_forward(cfg, params: Params, top: Params, tokens, frames, want_cache, cache_len,
+                     use_kernels, ctx, specs):
     """Encoder over the stub frames (sinusoidal positions, bidirectional
     attention), then the decoder over ``tokens`` (learned positions,
     causal self-attention, cross-attention to the encoder output)."""
@@ -386,44 +595,65 @@ def _whisper_forward(cfg, params: Params, tokens, frames, want_cache, cache_len,
     freq = torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(frames.device)
     ang = torch.arange(T, dtype=torch.float32, device=frames.device)[:, None] * freq
     x = frames + torch.cat([torch.sin(ang), torch.cos(ang)], -1)[None].to(dt)
-    for p in params["enc_blocks"]:
-        h, _ = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None, None,
-                                  causal=False, use_kernels=use_kernels)
-        x = x + h
-        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x))
-    enc_out = apply_norm(cfg, params, "enc_final", x)
+    for p, sp in _layers(ctx, cfg, params["enc_blocks"], _sub(specs, "enc_blocks")):
+        x = _remat(ctx, _enc_layer)(cfg, p, x, use_kernels, ctx, sp)
+    enc_out = apply_norm(cfg, top, "enc_final", x)
 
-    x = _embed(cfg, params, tokens) + params["dec_pos"][:S][None].to(dt)
-    cache = init_cache(cfg, B, cache_len or S, x.device, enc_len=T) if want_cache else None
-    for i, p in enumerate(params["dec_blocks"]):
-        h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None,
-                                       None, use_kernels=use_kernels)
-        x = x + h
-        ck, cv = attn.cross_attention_kv(cfg, p["cross"], enc_out)
-        x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x), ck, cv)
-        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x))
+    x = _embed(cfg, top, tokens, ctx, _sub(specs, "embed")) + top["dec_pos"][:S][None].to(dt)
+    cache, cspecs = (_new_cache(cfg, ctx, B, cache_len or S, x.device, enc_len=T)
+                     if want_cache else (None, None))
+    kvs, cross_spec = _kv_spec(cspecs), _kv_spec(cspecs, "cross_k")
+    for i, (p, sp) in enumerate(_layers(ctx, cfg, params["dec_blocks"],
+                                        _sub(specs, "dec_blocks"))):
+        x, k, v, ck, cv = _remat(ctx, _dec_layer)(cfg, p, x, enc_out, use_kernels, ctx, sp,
+                                                  kvs, cross_spec)
         if cache is not None:
-            cache["kv_k"][i, :, :S] = k
-            cache["kv_v"][i, :, :S] = v
-            cache["cross_k"][i] = ck
-            cache["cross_v"][i] = cv
+            _store_kv(cfg, ctx, cache, i, k, v, cspecs)
+            _store_kv(cfg, ctx, cache, i, ck, cv, cspecs, names=("cross_k", "cross_v"))
     if cache is not None:
         cache["length"] = S
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device), cache
+    return (_logits(cfg, top, x, ctx, specs),
+            torch.zeros((), dtype=torch.float32, device=x.device), cache)
+
+
+def _enc_layer(cfg, p: Params, x: torch.Tensor, use_kernels: bool, ctx, sp):
+    """One whisper encoder layer (bidirectional self-attention, MLP)."""
+    h, _ = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None, None,
+                              causal=False, use_kernels=use_kernels, ctx=ctx,
+                              spec=_sub(sp, "attn"))
+    x = x + h
+    return x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln2", x), ctx, _sub(sp, "mlp"))
+
+
+def _dec_layer(cfg, p: Params, x: torch.Tensor, enc_out: torch.Tensor, use_kernels: bool,
+               ctx, sp, kvs, cross_spec):
+    """One whisper decoder layer: (x, self K, self V, cross K, cross V)."""
+    h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), None, None,
+                                   use_kernels=use_kernels, ctx=ctx, spec=_sub(sp, "attn"),
+                                   kv_spec=kvs)
+    x = x + h
+    ck, cv = attn.cross_attention_kv(cfg, p["cross"], enc_out, ctx=ctx,
+                                     spec=_sub(sp, "cross"), kv_spec=cross_spec)
+    x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x), ck, cv,
+                                 ctx=ctx, spec=_sub(sp, "cross"), kv_spec=cross_spec)
+    x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x), ctx, _sub(sp, "mlp"))
+    return x, k, v, ck, cv
 
 
 def prefill(cfg, params: Params, tokens: Optional[torch.Tensor] = None,
-            cache_len: Optional[int] = None, **inputs) -> Tuple[torch.Tensor, Cache]:
+            cache_len: Optional[int] = None, ctx: Optional[ParallelCtx] = None,
+            **inputs) -> Tuple[torch.Tensor, Cache]:
     """``forward`` with the cache, on the kernels; ``inputs`` are its
     ``embeds``, ``positions`` and ``frames``. Returns (logits, cache)."""
     logits, _, cache = forward(cfg, params, tokens, want_cache=True, cache_len=cache_len,
-                               **inputs)
+                               ctx=ctx, **inputs)
     return logits, cache
 
 
 def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Tensor,
                    prefix_v: torch.Tensor, prefix_len: int,
-                   cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+                   cache_len: Optional[int] = None,
+                   ctx: Optional[ParallelCtx] = None) -> Tuple[torch.Tensor, Cache]:
     """Prefill ONLY a suffix against an already-built prefix KV.
 
     The suffix tokens (B, S) run at positions ``[prefix_len, prefix_len +
@@ -435,13 +665,17 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     prefix_k/v: (L, B, Sp, Hkv, hd) post-RoPE (Sp >= prefix_len; the
     overhang is page padding). Families that carry recurrent state can't
     re-enter a stored prefix mid-stream: dense, moe and vlm only (vlm with
-    text positions, replicated over M-RoPE's three streams).
+    text positions, replicated over M-RoPE's three streams). The prefix
+    path under a mesh is not ported: a ``ctx`` with a mesh raises.
     """
     if cfg.family in ("audio", "ssm", "hybrid"):
         raise NotImplementedError(
             f"prefix extension requires a pure-KV cache; family "
             f"{cfg.family!r} carries recurrent state"
         )
+    if par.active(ctx):
+        raise NotImplementedError("prefill_extend under a mesh (the KV prefix path) is "
+                                  "not ported")
     _check_family(cfg)
     _check_ids(cfg, tokens)
     x = _embed(cfg, params, tokens)
@@ -466,8 +700,8 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     return _logits(cfg, params, x), cache
 
 
-def decode_step(cfg, params: Params, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
+                ctx: Optional[ParallelCtx] = None) -> Tuple[torch.Tensor, Cache]:
     """One decode step. tokens: (B, 1) int. Every row decodes at the one
     shared position ``cache["length"]`` (the reference's semantics,
     lm.py:601-604): its K/V goes to slot ``min(length, M - 1)`` (the
@@ -476,59 +710,74 @@ def decode_step(cfg, params: Params, cache: Cache,
     PyTorch (``wkv6_step``, ``ssd_step``), as the reference does; audio
     adds the learned position of ``length`` and attends over the cached
     cross K/V. Returns (logits (B, 1, V), cache) — the cache tensors are
-    updated in place and returned with ``length + 1``."""
+    updated in place and returned with ``length + 1``. Under a mesh the
+    tokens, cache and logits are the rank's rows (module docstring)."""
     _check_family(cfg)
+    ctx, specs, top = _mesh(cfg, ctx, params)
+    cspecs = _cache_specs(cfg, ctx, cache)
     length = int(cache["length"])
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, top, tokens, ctx, _sub(specs, "embed"))
     B = x.shape[0]
+    blocks, bspecs = params.get("blocks"), None if specs is None else specs.get("blocks")
     if cfg.family == "ssm":
-        x = apply_norm(cfg, params, "ln0", x)[:, 0]  # (B, D)
-        for i, p in enumerate(params["blocks"]):
+        x = apply_norm(cfg, top, "ln0", x)[:, 0]  # (B, D)
+        for i, (p, sp) in enumerate(_layers(ctx, cfg, blocks, bspecs)):
+            rs = _sub(sp, "rwkv")
             y, st, sh = rwkv_mod.rwkv_time_mix_step(
                 cfg, p["rwkv"], apply_norm(cfg, p, "ln1", x), cache["ssm_state"][i],
-                cache["shift_tm"][i])
-            cache["ssm_state"][i] = st
-            cache["shift_tm"][i] = sh
+                _get(ctx, cache, "shift_tm", i, cspecs), ctx=ctx, spec=rs)
+            _put(ctx, cache, "ssm_state", i, st, cspecs)
+            _put(ctx, cache, "shift_tm", i, sh, cspecs)
             x = x + y
             y, sh = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln2", x),
-                                              cache["shift_cm"][i])
-            cache["shift_cm"][i] = sh
+                                              _get(ctx, cache, "shift_cm", i, cspecs),
+                                              ctx=ctx, spec=rs)
+            _put(ctx, cache, "shift_cm", i, sh, cspecs)
             x = x + y
-        return _logits(cfg, params, x[:, None]), dict(cache, length=length + 1)
+        return _logits(cfg, top, x[:, None], ctx, specs), dict(cache, length=length + 1)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
-    slot = min(length, cache["kv_k"].shape[2] - 1)
+    M = cache["max_len"] if ctx is not None else cache["kv_k"].shape[2]
+    slot = min(length, M - 1)
     lengths = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
+    kvs = _kv_spec(cspecs)
 
-    def self_attn(p, x, i):
+    def self_attn(p, sp, x, i):
         return x + attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos,
                                          sin, cache["kv_k"][i], cache["kv_v"][i], slot,
-                                         lengths)
+                                         lengths, ctx, _sub(sp, "attn"), kvs)
 
-    def dense_layer(p, x, i):
-        x = self_attn(p, x, i)
-        return x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))[0]
+    def dense_layer(p, sp, x, i):
+        x = self_attn(p, sp, x, i)
+        return x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x), ctx, sp)[0]
 
     if cfg.family == "audio":
-        rows = params["dec_pos"].shape[0]
-        x = x + params["dec_pos"][min(length, rows - 1)].to(x.dtype)
-        for i, p in enumerate(params["dec_blocks"]):
-            x = self_attn(p, x, i)
+        rows = top["dec_pos"].shape[0]
+        x = x + top["dec_pos"][min(length, rows - 1)].to(x.dtype)
+        cross_spec = _kv_spec(cspecs, "cross_k")
+        for i, (p, sp) in enumerate(_layers(ctx, cfg, params["dec_blocks"],
+                                            _sub(specs, "dec_blocks"))):
+            x = self_attn(p, sp, x, i)
             x = x + attn.cross_attention(cfg, p["cross"], apply_norm(cfg, p, "ln2", x),
-                                         cache["cross_k"][i], cache["cross_v"][i])
-            x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x))
+                                         cache["cross_k"][i], cache["cross_v"][i], ctx=ctx,
+                                         spec=_sub(sp, "cross"), kv_spec=cross_spec,
+                                         block=True)
+            x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x), ctx,
+                                _sub(sp, "mlp"))
     elif cfg.family == "hybrid":
         x = x[:, 0]
-        for g, group in enumerate(params["blocks"]):
+        for g, (group, gspec) in enumerate(_layers(ctx, cfg, blocks, bspecs)):
             for i, p in enumerate(group):
                 y, st, cv = mam.mamba_step(cfg, p["mamba"], apply_norm(cfg, p, "ln1", x),
-                                           cache["ssm_state"][g, i], cache["conv"][g, i])
-                cache["ssm_state"][g, i] = st
-                cache["conv"][g, i] = cv
+                                           cache["ssm_state"][g, i],
+                                           _get(ctx, cache, "conv", (g, i), cspecs), ctx=ctx,
+                                           spec=None if gspec is None else gspec[i]["mamba"])
+                _put(ctx, cache, "ssm_state", (g, i), st, cspecs)
+                _put(ctx, cache, "conv", (g, i), cv, cspecs)
                 x = x + y
-            x = dense_layer(params["shared_attn"], x[:, None], g)[:, 0]
+            x = dense_layer(top["shared_attn"], _sub(specs, "shared_attn"), x[:, None], g)[:, 0]
         x = x[:, None]
     else:
-        for i, p in enumerate(params["blocks"]):
-            x = dense_layer(p, x, i)
-    return _logits(cfg, params, x), dict(cache, length=length + 1)
+        for i, (p, sp) in enumerate(_layers(ctx, cfg, blocks, bspecs)):
+            x = dense_layer(p, sp, x, i)
+    return _logits(cfg, top, x, ctx, specs), dict(cache, length=length + 1)

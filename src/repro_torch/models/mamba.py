@@ -13,6 +13,15 @@ Training (``use_kernels=False``) calls the chunked form itself,
 ``ref.ssd_chunked_ref``, the twin of the reference's model function
 ``ssd_chunked`` that the reference trains through, with autograd. A decode
 step is plain PyTorch (``ssd_step``), as in the reference.
+
+Under a mesh (``ctx`` and the layer's weight ``spec``; ``models/parallel.py``)
+the concatenated ``in_proj`` (z, x, B, C, dt) is column-split over tp at no
+head boundary, so its output is all-gathered over tp and each rank takes
+its heads' z, x and dt (B and C are shared by every head); the depthwise
+conv runs whole (its split weights gathered), the scan on the rank's heads
+(the kernel at the local head count), the gated RMSNorm over d_in sums its
+squares over tp, and ``out_proj``'s row shard ends in a ``psum``. The heads
+must split evenly.
 """
 
 from __future__ import annotations
@@ -22,8 +31,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh_compat as mc
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
+from repro_torch.models import parallel as par
 from repro_torch.models.common import Params, dense_init, dtype_of, rms_norm
 
 
@@ -95,21 +106,87 @@ def _split_proj(cfg, proj):
     return z, conv_in, dt_raw
 
 
+def _tp(ctx, spec) -> bool:
+    return par.active(ctx) and par.on_tp(ctx, spec["in_proj"][-1])
+
+
+class _TP:
+    """The rank's share of one mamba2 layer under tp: the whole in_proj
+    output and conv weights, its heads [h0, h1) and channels [c0, c1)."""
+
+    def __init__(self, cfg, p: Params, spec, x, ctx):
+        d_in, heads, _ = mamba_dims(cfg)
+        lh = par.local_heads(ctx, heads)
+        if lh is None:
+            raise NotImplementedError(f"{cfg.name}: {heads} mamba2 heads do not split over "
+                                      f"{ctx.tp_size} tp ranks")
+        self.ctx, self.h0, self.h1 = ctx, lh[0], lh[1]
+        P = cfg.ssm.head_dim
+        self.c0, self.c1 = self.h0 * P, self.h1 * P
+        self.proj = mc.all_gather(par.fan_out(ctx, x) @ p["in_proj"], ctx.mesh, ctx.tp,
+                                  dim=-1, grad="slice")
+        self.conv_w = self.whole(p["conv_w"], spec["conv_w"])
+        self.conv_b = self.whole(p["conv_b"], spec["conv_b"])
+
+    def whole(self, w, spec):
+        ctx = self.ctx
+        if par.on_tp(ctx, spec[-1]):
+            return mc.all_gather(w, ctx.mesh, ctx.tp, dim=-1, grad="slice")
+        return w
+
+    def mine(self, x, lo, hi):
+        """Channels [lo, hi) of a replicated value, for rank-specific use."""
+        return par.fan_out(self.ctx, x)[..., lo:hi]
+
+    def scan_inputs(self, cfg, p, conv_out, dt_raw):
+        s = cfg.ssm
+        d_in, _, _ = mamba_dims(cfg)
+        co = par.fan_out(self.ctx, conv_out)
+        xin = co[..., self.c0:self.c1]
+        Bc = co[..., d_in:d_in + s.state_dim]
+        Cc = co[..., d_in + s.state_dim:]
+        dt = F.softplus(self.mine(dt_raw.float(), self.h0, self.h1)
+                        + self.mine(p["dt_bias"], self.h0, self.h1))
+        A_log = self.mine(p["A_log"], self.h0, self.h1)
+        D = self.mine(p["D"], self.h0, self.h1)
+        return xin, Bc, Cc, dt, A_log, D
+
+    def out(self, p, y, z, x_dtype):
+        """Gated RMSNorm over the whole d_in (the squares summed over tp),
+        then out_proj's row shard and a ``psum``."""
+        ctx = self.ctx
+        h = (y.to(x_dtype) * F.silu(self.mine(z, self.c0, self.c1))).float()
+        d_in = z.shape[-1]
+        ss = mc.psum(h.square().sum(dim=-1, keepdim=True), ctx.mesh, ctx.tp)
+        h = (h * torch.rsqrt(ss / d_in + 1e-6) * p["norm_scale"].float()).to(x_dtype)
+        return mc.psum(h @ p["out_proj"], ctx.mesh, ctx.tp)
+
+
 def mamba_forward(cfg, p: Params, x: torch.Tensor,
-                  conv_prev: Optional[torch.Tensor] = None, *, use_kernels: bool = True):
+                  conv_prev: Optional[torch.Tensor] = None, *, use_kernels: bool = True,
+                  ctx=None, spec=None):
     """x: (B, S, D). The scan starts from a zero state, on the ssd kernel
     (``use_kernels``) or the chunked form. Returns (y, state (B, H, P, Ns)
-    fp32, conv carry (B, K-1, CH))."""
+    fp32, conv carry (B, K-1, CH)); under a mesh the state is the rank's
+    heads', the conv carry whole."""
     B, S, D = x.shape
     s = cfg.ssm
     d_in, heads, _ = mamba_dims(cfg)
+    scan = kops.ssd_op if use_kernels else ref.ssd_chunked_ref
+    if _tp(ctx, spec):
+        tp = _TP(cfg, p, spec, x, ctx)
+        z, conv_in, dt_raw = _split_proj(cfg, tp.proj)
+        conv_out, conv_carry = _causal_conv(conv_in, tp.conv_w, tp.conv_b, conv_prev)
+        xin, Bc, Cc, dt, A_log, Dh = tp.scan_inputs(cfg, p, conv_out, dt_raw)
+        y, state = scan(xin.reshape(B, S, tp.h1 - tp.h0, s.head_dim), dt, A_log, Bc, Cc, Dh,
+                        chunk=s.chunk_size)
+        return tp.out(p, y.reshape(B, S, -1), z, x.dtype), state, conv_carry
     z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
     conv_out, conv_carry = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_prev)
     xin = conv_out[..., :d_in]
     Bc = conv_out[..., d_in:d_in + s.state_dim]
     Cc = conv_out[..., d_in + s.state_dim:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
-    scan = kops.ssd_op if use_kernels else ref.ssd_chunked_ref
     y, state = scan(xin.reshape(B, S, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
                     chunk=s.chunk_size)
     y = rms_norm(y.reshape(B, S, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
@@ -117,16 +194,23 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
 
 
 def mamba_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
-               conv_prev: torch.Tensor):
-    """Decode step. x: (B, D); conv_prev: (B, K-1, CH). Returns (y (B, D),
-    state, new conv carry)."""
+               conv_prev: torch.Tensor, *, ctx=None, spec=None):
+    """Decode step. x: (B, D); conv_prev: (B, K-1, CH) whole. Returns (y (B,
+    D), state, new conv carry); under a mesh ``state`` is the rank's heads'."""
     B, D = x.shape
     s = cfg.ssm
     d_in, heads, _ = mamba_dims(cfg)
-    z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    tp = _TP(cfg, p, spec, x, ctx) if _tp(ctx, spec) else None
+    conv_w, conv_b = (p["conv_w"], p["conv_b"]) if tp is None else (tp.conv_w, tp.conv_b)
+    z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"] if tp is None else tp.proj)
     window = torch.cat([conv_prev.to(conv_in.dtype), conv_in[:, None]], dim=1)  # (B, K, CH)
-    conv_out = (window.float() * p["conv_w"][None]).sum(dim=1)
-    conv_out = F.silu(conv_out + p["conv_b"]).to(x.dtype)
+    conv_out = (window.float() * conv_w[None]).sum(dim=1)
+    conv_out = F.silu(conv_out + conv_b).to(x.dtype)
+    if tp is not None:
+        xin, Bc, Cc, dt, A_log, Dh = tp.scan_inputs(cfg, p, conv_out, dt_raw)
+        y, state = ssd_step(xin.reshape(B, tp.h1 - tp.h0, s.head_dim), dt, A_log, Bc, Cc, Dh,
+                            state)
+        return tp.out(p, y.reshape(B, -1), z, x.dtype), state, window[:, 1:]
     xin = conv_out[..., :d_in]
     Bc = conv_out[..., d_in:d_in + s.state_dim]
     Cc = conv_out[..., d_in + s.state_dim:]

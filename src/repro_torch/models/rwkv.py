@@ -12,6 +12,14 @@ CPU tensor. Training (``use_kernels=False``) calls the chunked form itself,
 ``ref.wkv6_chunked_ref``, the twin of the reference's model function
 ``wkv6_chunked`` that the reference trains through, with autograd. A decode
 step is plain PyTorch (``wkv6_step``), as in the reference.
+
+Under a mesh (``ctx`` and the layer's weight ``spec``; ``models/parallel.py``)
+with r/k/v/g column-split over tp, each rank runs the recurrence on its
+heads (the kernel at the local head count): its decay channels, bonus rows
+and group-norm affine are slices of the whole ones, and ``wo``'s row shard
+ends in a ``psum``. The channel mix is Megatron's column / row pair for
+``ck``/``cv``, with ``cr``'s column shard all-gathered. The shift carries
+stay whole (the layer input is replicated); the heads must split evenly.
 """
 
 from __future__ import annotations
@@ -21,8 +29,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import mesh_compat as mc
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
+from repro_torch.models import parallel as par
 from repro_torch.models.common import Params, dense_init, dtype_of, layer_norm, token_shift
 
 LORA_DIM = 64
@@ -113,40 +123,106 @@ def _out(p: Params, y: torch.Tensor, g: torch.Tensor, x_dtype) -> torch.Tensor:
     return (y.to(x_dtype) * g) @ p["wo"]
 
 
+def _tp(ctx, spec) -> bool:
+    return par.active(ctx) and par.on_tp(ctx, spec["wr"][-1])
+
+
+def _tp_heads(cfg, ctx) -> Tuple[int, int]:
+    H = cfg.d_model // cfg.ssm.head_dim
+    lh = par.local_heads(ctx, H)
+    if lh is None:
+        raise NotImplementedError(f"{cfg.name}: {H} rwkv heads do not split over "
+                                  f"{ctx.tp_size} tp ranks")
+    return lh
+
+
+def _projections_tp(cfg, p: Params, spec, x, xs, ctx):
+    """The rank's heads of r, k, v (..., Hl, N), its g (..., Hl * N) and
+    its decay channels."""
+    N = cfg.ssm.head_dim
+    H = cfg.d_model // N
+    h0, h1 = _tp_heads(cfg, ctx)
+    want = list(range(h0, h1))
+    mixed = [_ddlerp(x, xs, p[f"mix_{c}"]) for c in "rkvgw"]
+    r, k, v, g = (par.heads(ctx, xm, p[w], None, spec[w], want, H, N)
+                  for xm, w in zip(mixed, ("wr", "wk", "wv", "wg")))
+    g = F.silu(g.flatten(-2))
+    w_log = par.fan_out(ctx, _decay(p, mixed[4]))[..., h0 * N:h1 * N]
+    return r, k, v, g, w_log.unflatten(-1, (h1 - h0, N)).contiguous(), (h0, h1)
+
+
+def _out_tp(ctx, p: Params, spec, y, g, x_dtype, h01, N):
+    """``_out`` on the rank's heads: its slice of the affine, then ``wo``'s
+    row shard and a ``psum``."""
+    h0, h1 = h01
+    yh = layer_norm(y, None, None)
+    sl = slice(h0 * N, h1 * N)
+    aff = yh.flatten(-2) * par.fan_out(ctx, p["ln_x_scale"])[sl] + par.fan_out(
+        ctx, p["ln_x_bias"])[sl]
+    return mc.psum((aff.to(x_dtype) * g) @ p["wo"], ctx.mesh, ctx.tp)
+
+
 def rwkv_time_mix(cfg, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor], *,
-                  use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  use_kernels: bool = True, ctx=None,
+                  spec=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D); x_prev: (B, D) shift carry or None. The recurrence
     starts from a zero state, on the wkv6 kernel (``use_kernels``) or the
-    chunked form. Returns (y, state (B, H, N, N) fp32, new x_prev)."""
+    chunked form. Returns (y, state (B, H, N, N) fp32, new x_prev); under a
+    mesh the state is the rank's heads'."""
     B, S, D = x.shape
     s = cfg.ssm
     H, N = D // s.head_dim, s.head_dim
-    r, k, v, g, w_log = _projections(p, x, token_shift(x, x_prev))
     scan = kops.wkv6_op if use_kernels else ref.wkv6_chunked_ref
+    if _tp(ctx, spec):
+        r, k, v, g, w_log, h01 = _projections_tp(cfg, p, spec, x, token_shift(x, x_prev), ctx)
+        u = par.fan_out(ctx, p["bonus"])[h01[0]:h01[1]]
+        y, state = scan(r, k, v, w_log, u, chunk=s.chunk_size)
+        return _out_tp(ctx, p, spec, y, g, x.dtype, h01, N), state, x[:, -1]
+    r, k, v, g, w_log = _projections(p, x, token_shift(x, x_prev))
     y, state = scan(r.reshape(B, S, H, N), k.reshape(B, S, H, N), v.reshape(B, S, H, N),
                     w_log.reshape(B, S, H, N), p["bonus"], chunk=s.chunk_size)
     return _out(p, y, g, x.dtype), state, x[:, -1]
 
 
 def rwkv_time_mix_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
-                       x_prev: torch.Tensor):
-    """Decode step. x: (B, D). Returns (y (B, D), state, new x_prev)."""
+                       x_prev: torch.Tensor, *, ctx=None, spec=None):
+    """Decode step. x: (B, D). Returns (y (B, D), state, new x_prev); under
+    a mesh ``state`` is the rank's heads'."""
     B, D = x.shape
     s = cfg.ssm
     H, N = D // s.head_dim, s.head_dim
+    if _tp(ctx, spec):
+        r, k, v, g, w_log, h01 = _projections_tp(cfg, p, spec, x, x_prev, ctx)
+        u = par.fan_out(ctx, p["bonus"])[h01[0]:h01[1]]
+        y, state = wkv6_step(r, k, v, w_log, u, state)
+        return _out_tp(ctx, p, spec, y, g, x.dtype, h01, N), state, x
     r, k, v, g, w_log = _projections(p, x, x_prev)
     y, state = wkv6_step(r.reshape(B, H, N), k.reshape(B, H, N), v.reshape(B, H, N),
                          w_log.reshape(B, H, N), p["bonus"], state)
     return _out(p, y, g, x.dtype), state, x
 
 
-def rwkv_channel_mix(cfg, p: Params, x: torch.Tensor,
-                     x_prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def rwkv_channel_mix(cfg, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor], *,
+                     ctx=None, spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) (or (B, D) with x_prev for decode). Returns (y,
     new x_prev)."""
     xs = x_prev if x.dim() == 2 else token_shift(x, x_prev)
     xk = _ddlerp(x, xs, p["mix_ck"])
     xr = _ddlerp(x, xs, p["mix_cr"])
+    carry = x if x.dim() == 2 else x[:, -1]
+    if par.active(ctx):
+        if par.on_tp(ctx, spec["cv"][0]):
+            kk = torch.relu(par.fan_out(ctx, xk) @ p["ck"])
+            val = mc.psum((kk * kk) @ p["cv"], ctx.mesh, ctx.tp)
+        else:
+            kk = torch.relu(xk @ p["ck"])
+            val = (kk * kk) @ p["cv"]
+        if par.on_tp(ctx, spec["cr"][-1]):
+            gate = mc.all_gather(par.fan_out(ctx, xr) @ p["cr"], ctx.mesh, ctx.tp, dim=-1,
+                                 grad="slice")
+        else:
+            gate = xr @ p["cr"]
+        return torch.sigmoid(gate) * val, carry
     kk = torch.relu(xk @ p["ck"])
     y = torch.sigmoid(xr @ p["cr"]) * ((kk * kk) @ p["cv"])
-    return y, (x if x.dim() == 2 else x[:, -1])
+    return y, carry

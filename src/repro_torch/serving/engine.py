@@ -19,6 +19,16 @@ An engine serves token prompts, so it takes every family but audio:
 whisper's decoder needs the stub frontend's frames, and its entry points
 are ``lm.prefill(..., frames=)`` and ``lm.decode_step``.
 
+With ``mesh=`` (a live ``distributed.mesh_compat.Mesh``) and ``profile=``
+(a ``ShardingProfile``; default TP over "model", no FSDP) every rank of the
+mesh builds the engine from the whole parameters, keeps its shards
+(``param_pspecs``), and runs ``generate`` in lockstep with the others on the
+same prompts: each rank prefills and decodes its rows of the batch (split
+over the dp axes) on its shards, the logits are full-vocabulary on every
+rank, and the generated ids are all-gathered over dp, so every rank returns
+the whole batch's tokens. The KV prefix path under a mesh is not ported:
+``kv_prefix=`` with a mesh raises.
+
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
 measure device work, not kernel-launch time. Under a tracer
@@ -36,7 +46,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShardingProfile
+from repro_torch.distributed import mesh_compat as mc
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import trace_span
@@ -65,19 +77,49 @@ class EngineStats:
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int = 512,
+    def __init__(self, cfg: ModelConfig, params: Any, *, mesh=None,
+                 profile: Optional[ShardingProfile] = None, max_len: int = 512,
                  device=None, kv_prefix: Optional[KVPrefixCache] = None):
         if cfg.family == "audio":
             raise ValueError(
                 f"{cfg.name}: an Engine serves token prompts; the audio family also "
                 "needs the frontend's frames: call lm.prefill(cfg, params, tokens, "
                 "frames=...) and lm.decode_step instead")
+        if mesh is not None and kv_prefix is not None:
+            raise NotImplementedError("the KV prefix path under a mesh is not ported: "
+                                      "an Engine with mesh= takes no kv_prefix")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.ctx = None
+        if mesh is not None:
+            profile = profile or ShardingProfile()
+            self.ctx = lm.ParallelCtx.from_profile(mesh, profile)
+            specs = shd.param_pspecs(params, profile, mesh)
+            params = shd.shard_tree(params, specs, mesh)
         self.params = lm.params_to(params, self.device)
         self.max_len = max_len
         self.stats = EngineStats()
         self.kv_prefix = kv_prefix if cfg.family in _PREFIX_FAMILIES else None
+
+    def _rows(self, tokens: np.ndarray) -> np.ndarray:
+        """This rank's rows of a whole batch (all of them without a mesh)."""
+        if self.ctx is None or not self.ctx.dp:
+            return tokens
+        n = self.mesh.axis_size(self.ctx.dp)
+        if tokens.shape[0] % n:
+            raise ValueError(f"batch {tokens.shape[0]} does not split over {n} dp ranks")
+        b = tokens.shape[0] // n
+        i = self.mesh.axis_index(self.ctx.dp)
+        return tokens[i * b:(i + 1) * b]
+
+    def _whole(self, ids: np.ndarray) -> np.ndarray:
+        """The whole batch's generated ids from this rank's rows."""
+        if self.ctx is None or not self.ctx.dp:
+            return ids
+        out = mc.all_gather(torch.as_tensor(ids, device=self.device), self.mesh, self.ctx.dp,
+                            dim=0)
+        return out.cpu().numpy()
 
     def _clock(self) -> float:
         if self.device.type == "cuda":
@@ -92,7 +134,8 @@ class Engine:
         every element counts, padding included."""
         t0 = self._clock()
         toks = torch.as_tensor(np.asarray(tokens), device=self.device)
-        logits, cache = lm.prefill(self.cfg, self.params, toks, cache_len=self.max_len)
+        logits, cache = lm.prefill(self.cfg, self.params, toks, cache_len=self.max_len,
+                                   ctx=self.ctx)
         logits = logits[:, -1]
         self.stats.prefill_s += self._clock() - t0
         self.stats.prefill_tokens += int(tokens.size if n_valid is None else n_valid)
@@ -105,7 +148,7 @@ class Engine:
         the dense batch but must not inflate the decode tokens/s rate."""
         t0 = self._clock()
         toks = torch.as_tensor(np.asarray(tokens), device=self.device)
-        logits, cache = lm.decode_step(self.cfg, self.params, cache, toks)
+        logits, cache = lm.decode_step(self.cfg, self.params, cache, toks, ctx=self.ctx)
         logits = logits[:, -1]
         self.stats.decode_s += self._clock() - t0
         self.stats.decode_tokens += int(tokens.shape[0] if active is None else active)
@@ -194,6 +237,8 @@ class Engine:
                 f"past the cache"
             )
         n_valid = None if prompt_lengths is None else int(np.sum(prompt_lengths))
+        tokens = self._rows(tokens)  # under a mesh: this rank's rows
+        B = tokens.shape[0]
         with trace_span(SPAN_ENGINE_GENERATE, batch=B, prompt_len=S, max_new=max_new,
                         arch=self.cfg.name) as sp:
             res = None
@@ -222,14 +267,22 @@ class Engine:
                 out.append(tok)
                 if eos_id is not None:
                     done |= tok[:, 0] == eos_id
-                    if done.all():
+                    if self._all_done(done):
                         break
                 if i + 1 == max_new:
                     break  # the last token is emitted; skip the wasted decode
                 logits, cache = self.decode(cache, tok, active=int(B - done.sum()))
                 tok = sample_token(logits, temperature, gen).cpu().numpy()
             sp.set(new_tokens=len(out))
-            return np.concatenate(out, axis=1)
+            return self._whole(np.concatenate(out, axis=1))
+
+    def _all_done(self, done: np.ndarray) -> bool:
+        """Every row finished (under a mesh: on every dp rank, so the ranks
+        stop in lockstep)."""
+        if self.ctx is None or not self.ctx.dp:
+            return bool(done.all())
+        left = torch.tensor([int((~done).sum())], device=self.device)
+        return int(mc.psum(left, self.mesh, self.ctx.dp)) == 0
 
     def measured_rates(self) -> Dict[str, float]:
         r = self.stats.rates()

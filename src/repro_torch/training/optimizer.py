@@ -13,7 +13,7 @@ computes them (a Python float power would be fp64).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -58,10 +58,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: Dict[str, Any], cfg: AdamWConfig
+def adamw_update(params: Any, grads: Any, state: Dict[str, Any], cfg: AdamWConfig, *,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step with global-norm clipping. ``gnorm`` is the gradients'
+    global norm where the caller computed it (shards of a sharded model:
+    ``train_step``), else ``global_norm(grads)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     dt = _state_dtype(cfg)
     stepf = step.float()

@@ -62,5 +62,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
               "repro_torch.checkpoint.store", "repro_torch.memory.tiered",
               "repro_torch.core.fuzzy", "repro_torch.training.optimizer",
               "repro_torch.training.grad_compress", "repro_torch.training.train_step",
-              "repro_torch.distributed.fault", "repro_torch.launch.train"):
+              "repro_torch.distributed.fault", "repro_torch.launch.train",
+              "repro_torch.distributed.mesh_compat", "repro_torch.distributed.sharding",
+              "repro_torch.distributed.pipeline", "repro_torch.distributed.elastic",
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.models.parallel"):
         assert m in mods

@@ -155,7 +155,8 @@ def test_moe_forward_modes_and_activations_match_reference(mode, act):
 def test_moe_init_and_refusals():
     """moe_init: fp32 router, experts (E, D, F) / (E, F, D) in param_dtype
     drawn at 0.02 one expert at a time (the same generator state gives the
-    same experts); a mesh (expert parallelism) and an unknown mode raise."""
+    same experts); expert parallelism refuses experts that are not the
+    rank's share of the mesh, and an unknown mode raises."""
     _, tcfg = _cfgs(dtype="bfloat16")
     p = tmoe.moe_init(tcfg, torch.Generator().manual_seed(0), "cpu")
     e = tcfg.moe
@@ -169,8 +170,13 @@ def test_moe_init_and_refusals():
     assert torch.equal(p["w_down"], q["w_down"])
     assert not torch.equal(p["w_up"][0], p["w_up"][1])
     x = torch.zeros(1, 2, tcfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmoe.moe_forward(tcfg, p, x, mesh=object())
+    from repro_torch.distributed.mesh_compat import AbstractMesh
+    from repro_torch.models.parallel import ParallelCtx
+
+    ep = dataclasses.replace(tcfg, moe=dataclasses.replace(e, mode="ep"))
+    ctx = ParallelCtx(mesh=AbstractMesh((2,), ("model",)), dp_axes=())
+    with pytest.raises(ValueError, match="rank's"):
+        tmoe.moe_forward(ep, p, x, ctx=ctx)
     bad = dataclasses.replace(tcfg, moe=dataclasses.replace(e, mode="megablox"))
     with pytest.raises(ValueError, match="mode"):
         tmoe.moe_forward(bad, p, x)

@@ -208,8 +208,33 @@ def test_error_feedback_matches_reference():
 
 
 def test_compressed_allreduce_waits_for_multi_device():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tgc.compressed_allreduce({"g": torch.ones(3)}, {"g": torch.zeros(3)}, "data")
+    """The int8 all-reduce over a mesh axis of one rank (a gloo group of
+    one in this process) is the error-feedback round trip of
+    ``compress_with_ef``: the mean of one gradient through its int8 payload,
+    and its residual. The multi-rank cases are in test_torch_parallel.py."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_compat import Mesh
+
+    rng = np.random.default_rng(3)
+    g = {"a": torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32)),
+         "b": [torch.from_numpy(rng.standard_normal(7).astype(np.float32))]}
+    ef = {"a": torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32)) * 1e-3,
+          "b": [torch.zeros(7)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            out, new_ef = tgc.compressed_allreduce(g, ef, Mesh((1,), ("data",)), "data")
+        finally:
+            dist.destroy_process_group()
+    for gt, et, ot, nt in zip(tree_leaves(g), tree_leaves(ef), tree_leaves(out),
+                              tree_leaves(new_ef)):
+        payload, resid = tgc.compress_with_ef(gt, et)
+        assert torch.equal(ot, tgc.dequantize_int8(payload))
+        assert torch.equal(nt, resid)
 
 
 # -- loss and gradients of every family --------------------------------------------
