@@ -122,7 +122,14 @@ printing the ok line):
    the TP and FSDP profiles against the one-rank step and, bit for bit,
    against AdamW from its own gradients, the GPipe pipeline, the int8
    all-reduce on CUDA equal to the CPU's, and a reshard onto a smaller
-   mesh. Four ranks on one card check correctness and launch shapes, not
+   mesh. The KV prefix path under a mesh: (a) ``Engine(mesh=, kv_prefix=)``
+   bitwise equal to ``Engine(kv_prefix=)``; (b) ``tp_prefix``, each rank
+   over its own page pool (1/4 of the whole pool's bytes), flash and
+   decode at 4 local heads pinned, logits within ``MULTI_TP_TOL``, the
+   paged kernel over the rank's pool bitwise against dense decode; the
+   train step also under ``seq_parallel`` and remat "dots"; beside (b), a
+   dry-run (``launch/dryrun.py``) of ``MULTI_DRYRUN_CELLS`` on the host's
+   CPU. Four ranks on one card check correctness and launch shapes, not
    four-card speed.
 
 Output: a ``[phase]`` line as each phase ends, one ``{"kernels": [...]}``
@@ -304,12 +311,13 @@ FLAGSHIP_DEPTH = 1  # kimi-k2's 61 layers are ~2 TB in bf16; one card holds 80 G
 # published width and arch seed, to hold the script inside its time limit:
 # nemotron-4-15b the large planner (32 layers), qwen2.5-3b the actor (36),
 # and the recurrent run's rwkv6-3b (32) and zamba2-2.7b (54; 12 keeps two
-# applications of its shared block). Decode is host-bound, so a run's
+# applications of its shared block), the first three cut to 4 since phase
+# 11 grew. Decode is host-bound, so a run's
 # seconds follow its layers. Hits, accuracy, cost, the censuses and the
 # router's counters do not depend on depth; flash and decode launches per
 # task do
 HEADLINE = ("exact", "accuracy_optimal")
-LATER_DEPTHS = {"nemotron-4-15b": 8, "qwen2.5-3b": 8, "rwkv6-3b": 8, "zamba2-2.7b": 12}
+LATER_DEPTHS = {"nemotron-4-15b": 4, "qwen2.5-3b": 4, "rwkv6-3b": 4, "zamba2-2.7b": 12}
 # phase 4 checks kimi-k2 at its attention width with this many experts: 2
 # layers of all 384 are 135 GB in fp32
 MODEL_KIMI_EXPERTS = 16
@@ -506,6 +514,24 @@ SIM_REF_HASHES = {  # seed 0, by cell tag without its "s0-"
 #     within 0.02 of the mean relative to its largest |value|;
 #   reshard: the train step's (2, 2) shards resharded onto (1, 2) over the
 #     first two ranks, gathered back bit for bit.
+# The KV prefix path under a mesh: (a) also serves MULTI_PREFIX_PROMPTS (4
+# rows: the long prompt's first MULTI_PREFIX_LEN tokens as the template, a
+# 24-token suffix each) through Engine(mesh=, kv_prefix=) and Engine(
+# kv_prefix=): the registering prefill, then the suffix-only prefill from
+# the pool and MULTI_NEW - 1 greedy decode steps, tokens and logits bit for
+# bit and launches equal. (b)'s tp_prefix runs the same on (1, 4) in bf16,
+# each rank over its own pool (MULTI_PREFIX_PAGES pages of
+# MULTI_PREFIX_PAGE tokens, its 4 of the 16 kv heads: 1/4 of the whole
+# pool's bytes), under (a)'s greedy tokens: logits within MULTI_TP_TOL of
+# (a)'s unsharded prefix engine, flash (the registering prefill) and
+# decode at 4 / 4 heads pinned to the unit, each call held to its plain
+# version, and the paged kernel over the rank's pool bitwise equal to the
+# dense decode kernel on the gathered pages. (b)'s train also takes the
+# serving profile with seq_parallel and with remat "dots" (the sharded
+# gradients, their norm and AdamW on the shards, held to the one-rank step
+# as the TP profile's). A dry-run of MULTI_DRYRUN_CELLS (launch/dryrun.py:
+# the meta device, a fake process group at world 256 / 512) runs on the
+# host's CPU beside (b), in a process of its own.
 MULTI_ARCH = "olmo-1b"
 MULTI_PROMPTS, MULTI_NEW, MULTI_PROMPT_LEN = 4, 32, 152
 MULTI_TP_TOL = 2.0 ** -4
@@ -516,6 +542,10 @@ MULTI_TRAIN_GMIN = 1e-6
 MULTI_PIPE = (8, 256, 32)
 MULTI_AR_N = 1 << 20
 MULTI_TIMEOUT_S, MULTI_PHASE_TIMEOUT_S = 420, 150
+MULTI_PREFIX_LEN, MULTI_PREFIX_PAGE, MULTI_PREFIX_PAGES = 128, 32, 16
+MULTI_PREFIX_ROWS, MULTI_PREFIX_SUFFIX = 4, 24
+MULTI_DRYRUN_CELLS = (("olmo-1b", "prefill_32k", "single"), ("qwen3-4b", "decode_32k", "single"),
+                      ("olmo-1b", "train_4k", "multi"))
 
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
@@ -2918,13 +2948,38 @@ def multi_prompts():
     return batch, np.asarray([run], np.int32)
 
 
-def _greedy(torch, eng, prompts, n, forced=None):
-    """Prefill and n - 1 decode steps: (tokens (B, n), logits (n, B, V) fp32
-    on the host). ``forced`` (B, n) feeds those tokens instead of the
-    argmax (teacher forcing), so that logits compare step by step."""
+def multi_prefix_prompts(long_prompt):
+    """MULTI_PREFIX_ROWS rows of one template (the long prompt's first
+    MULTI_PREFIX_LEN tokens) and a MULTI_PREFIX_SUFFIX-token suffix each (the
+    prompt's next tokens, rotated by the row)."""
     import numpy as np
 
-    logits, cache = eng.prefill(prompts)
+    tpl = long_prompt[0, :MULTI_PREFIX_LEN]
+    tail = long_prompt[0, MULTI_PREFIX_LEN:MULTI_PREFIX_LEN + MULTI_PREFIX_SUFFIX]
+    return np.stack([np.concatenate([tpl, np.roll(tail, r)])
+                     for r in range(MULTI_PREFIX_ROWS)]).astype(np.int32)
+
+
+def _greedy(torch, eng, prompts, n, forced=None, prefix_len=0):
+    """Prefill and n - 1 decode steps: (tokens (B, n), logits (n, B, V) fp32
+    on the host). ``forced`` (B, n) feeds those tokens instead of the
+    argmax (teacher forcing), so that logits compare step by step. With
+    ``prefix_len`` the prefill that starts it is the KV prefix path's: a
+    full prefill registers the first ``prefix_len`` positions in the
+    engine's pool, and the suffix-only prefill from the pool follows."""
+    import numpy as np
+
+    if prefix_len:
+        _, cache = eng.prefill(prompts)
+        if not eng.register_prefix("tpl", cache, prefix_len):
+            raise AssertionError("multi: the template prefix did not register")
+        del cache
+        res = eng.prefill_with_prefix("tpl", prompts[:, prefix_len:], expected_len=prefix_len)
+        if res is None:
+            raise AssertionError("multi: the registered prefix missed")
+        logits, cache = res
+    else:
+        logits, cache = eng.prefill(prompts)
     toks, outs = [], [logits.float().cpu()]
     for i in range(n):
         tok = logits.argmax(-1).cpu().numpy()[:, None].astype(np.int32)
@@ -2950,6 +3005,7 @@ def multi_nccl(rank, world):
     from repro_torch.launch.serve import arch_seed, engine_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3001,13 +3057,50 @@ def multi_nccl(rank, world):
         raise AssertionError(f"multi(a): the gather's backward on NCCL: {rs}, "
                              f"|dg| {float((gx - w).abs().max())}")
     ref_toks, ref_logits = _greedy(torch, engines["plain"], long_prompt, MULTI_NEW)
+    del engines
+    torch.cuda.empty_cache()
+    # the KV prefix path: Engine(mesh=, kv_prefix=) against Engine(kv_prefix=)
+    prefix_prompts = multi_prefix_prompts(long_prompt)
+    prof = registry.get_sharding(MULTI_ARCH)
+    got = {}
+    for name, kw in (("plain", {}), ("mesh", {"mesh": mesh, "profile": prof})):
+        kv = KVPrefixCache(pool_for_config(cfg, num_pages=MULTI_PREFIX_PAGES,
+                                           page_size=MULTI_PREFIX_PAGE, device="cuda", **kw))
+        eng = Engine(cfg, params, max_len=max_len, device="cuda", kv_prefix=kv, **kw)
+        _reset_counts(kernels)
+        toks, logits = _greedy(torch, eng, prefix_prompts, MULTI_NEW,
+                               prefix_len=MULTI_PREFIX_LEN)
+        torch.cuda.synchronize()
+        got[name] = {"tokens": toks, "logits": logits, "reused": eng.stats.prefix_tokens_reused,
+                     "launches": {n: kernels[n].launches
+                                  for n in ("flash_attention", "decode_attention")},
+                     "pool": (kv.pool.nbytes, kv.pages_built, kv.pages_hit)}
+        del eng, kv
+        torch.cuda.empty_cache()
+    plain, sharded = got["plain"], got["mesh"]
+    if not (np.array_equal(plain["tokens"], sharded["tokens"])
+            and torch.equal(plain["logits"], sharded["logits"])
+            and plain["launches"] == sharded["launches"] and plain["pool"] == sharded["pool"]
+            and plain["reused"] == sharded["reused"] == MULTI_PREFIX_ROWS * MULTI_PREFIX_LEN):
+        d = float((plain["logits"] - sharded["logits"]).abs().max())
+        raise AssertionError(f"multi(a): Engine(mesh=, kv_prefix=) at world 1 differs: "
+                             f"|dlogit| {d}, launches {plain['launches']} vs "
+                             f"{sharded['launches']}, pools {plain['pool']} vs {sharded['pool']}")
+    L = cfg.num_layers
+    if plain["launches"] != {"flash_attention": L, "decode_attention": L * (MULTI_NEW - 1)}:
+        raise AssertionError(f"multi(a): prefix path launches {plain['launches']}")
     rec = {"backend": mesh.backend, "world": 1, "mesh": [1, 1], "arch": MULTI_ARCH,
            "prompts": list(batch.shape), "new": MULTI_NEW, "bitwise": True,
            "launches": sharded["launches"], "reduce_scatter": rs,
            "collectives": {k: v for k, v in nccl.items() if v["calls"]},
+           "prefix": {"prompts": list(prefix_prompts.shape), "prefix_len": MULTI_PREFIX_LEN,
+                      "bitwise": True, "launches": plain["launches"],
+                      "prefix_tokens_reused": plain["reused"], "pool_bytes": plain["pool"][0]},
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "seconds": time.perf_counter() - t0}
-    return rec, {"prompt": long_prompt, "tokens": ref_toks, "logits": ref_logits.numpy()}
+    return rec, {"prompt": long_prompt, "tokens": ref_toks, "logits": ref_logits.numpy(),
+                 "prefix_prompts": prefix_prompts, "prefix_tokens": plain["tokens"],
+                 "prefix_logits": plain["logits"].numpy(), "pool_bytes": plain["pool"][0]}
 
 
 def _head_probe(torch, ops):
@@ -3070,6 +3163,7 @@ def multi_rank(rank, world, ref):
     from repro_torch.models import lm, moe
     from repro_torch.models.common import tree_leaves
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
     from repro_torch.training.grad_compress import compressed_allreduce, ef_state_init
     from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
     from repro_torch.training.train_step import make_train_step, reduce_grads, value_and_grad
@@ -3133,6 +3227,50 @@ def multi_rank(rank, world, ref):
     torch.cuda.empty_cache()
     stop("tp_serve")
 
+    # tp_prefix: the KV prefix path on (1, 4), each rank over its own pool
+    timed("tp_prefix")
+    prof = registry.get_sharding(MULTI_ARCH)
+    kv = KVPrefixCache(pool_for_config(cfg, num_pages=MULTI_PREFIX_PAGES,
+                                       page_size=MULTI_PREFIX_PAGE, device="cuda", mesh=mesh,
+                                       profile=prof))
+    eng = Engine(cfg, lm.init_params(cfg, gen(MULTI_ARCH), "cuda"), mesh=mesh, profile=prof,
+                 device="cuda", max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8, kv_prefix=kv)
+    torch.cuda.empty_cache()
+    seen, kerr, undo = _head_probe(torch, ops)
+    _reset_counts(kernels)
+    try:
+        _, logits = _greedy(torch, eng, ref["prefix_prompts"], MULTI_NEW,
+                            forced=ref["prefix_tokens"], prefix_len=MULTI_PREFIX_LEN)
+        launches = {n: kernels[n].launches for n in ("flash_attention", "decode_attention")}
+    finally:
+        undo()
+    ref_l = torch.from_numpy(ref["prefix_logits"])
+    err = float((logits - ref_l).abs().max() / ref_l.abs().max())
+    want = {"flash_attention": L, "decode_attention": L * (MULTI_NEW - 1)}
+    heads = {n: dict((f"{q}/{k}", c) for (q, k), c in s.items()) for n, s in seen.items()}
+    kerr = {n: float(e) for n, e in kerr.items()}
+    # the paged kernel over the rank's pool, at its local heads
+    _reset_counts(kernels)
+    paged = paged_over_pool(torch, kv, dataclasses.replace(cfg, num_heads=local[0]), ["tpl"],
+                            seed=17)
+    paged_launches = kernels["paged_decode_attention"].launches
+    share = kv.pool.nbytes / ref["pool_bytes"]
+    out["errors"]["tp_prefix"] = err
+    out["checks"]["tp_prefix"] = {
+        "launches": launches, "predicted": want, "heads": heads, "kernel_vs_plain": kerr,
+        "paged_checks": paged, "paged_launches": paged_launches, "pool_bytes": kv.pool.nbytes,
+        "pool_share": share, "prefix_tokens_reused": eng.stats.prefix_tokens_reused,
+        "ok": (err <= MULTI_TP_TOL and launches == want and paged == L
+               and paged_launches == L and share == 0.25
+               and eng.stats.prefix_tokens_reused == MULTI_PREFIX_ROWS * MULTI_PREFIX_LEN
+               and set(kerr) == {"flash_attention", "decode_attention"}
+               and all(e <= tol for e in kerr.values())
+               and set(heads["flash_attention"]) == {f"{local[0]}/{local[1]}"}
+               and set(heads["decode_attention"]) == {f"{local[0]}/{local[1]}"})}
+    del eng, kv
+    torch.cuda.empty_cache()
+    stop("tp_prefix")
+
     # ep
     timed("ep")
     base = engine_config(MULTI_EP_ARCH, full=True)
@@ -3188,27 +3326,33 @@ def multi_rank(rank, world, ref):
         del p1, g1
     mesh22 = lmesh.make_mesh((2, 2), ("data", "model"))
     rec = {}
-    for kind in ("", "train"):
-        prof = registry.get_sharding(MULTI_ARCH, kind)
+    serving = registry.get_sharding(MULTI_ARCH)
+    for name, prof in (("serve", serving), ("train", registry.get_sharding(MULTI_ARCH, "train")),
+                       ("seq_parallel", dataclasses.replace(serving, seq_parallel=True)),
+                       ("remat_dots", dataclasses.replace(serving, remat="dots"))):
         ctx = lm.ParallelCtx.from_profile(mesh22, prof)
         specs = shd.param_pspecs(params, prof, mesh22)
         local_p = shd.shard_tree(params, specs, mesh22)
         b = ctx.mesh.axis_size(ctx.dp)
         i = ctx.mesh.axis_index(ctx.dp)
         lb = {k: v[i * B // b:(i + 1) * B // b] for k, v in batch.items()}
-        new, _, m = make_train_step(cfg, opt_cfg, ctx)(local_p, adamw_init(local_p, opt_cfg),
-                                                      lb)
         # the step's parts on the shards: its gradients and their norm, and
-        # AdamW on the shards from them, which the step must equal bit for bit
-        g_sh, gnorm = reduce_grads(ctx, specs, value_and_grad(cfg, local_p, lb, ctx)[2])
-        new2 = adamw_update(local_p, g_sh, adamw_init(local_p, opt_cfg), opt_cfg,
-                            gnorm=gnorm)[0]
-        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(new2)))
-        del new2
+        # AdamW on the shards from them, which the step must equal bit for
+        # bit (the two profiles the serving and training paths run; the
+        # seq_parallel and remat "dots" layouts are held by their parts)
+        loss, _, g_sh = value_and_grad(cfg, local_p, lb, ctx)
+        g_sh, gnorm = reduce_grads(ctx, specs, g_sh)
+        new = adamw_update(local_p, g_sh, adamw_init(local_p, opt_cfg), opt_cfg, gnorm=gnorm)[0]
+        same = None
+        if name in ("serve", "train"):
+            new2, _, m = make_train_step(cfg, opt_cfg, ctx)(local_p,
+                                                            adamw_init(local_p, opt_cfg), lb)
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(new2), tree_leaves(new)))
+            loss = m["loss"]
+            del new2
         whole = shd.unshard_tree(new, specs, mesh22)
         grads = shd.unshard_tree(g_sh, specs, mesh22)
-        name = kind or "serve"
-        rec[name] = {"loss": float(m["loss"]), "step_is_its_parts": same}
+        rec[name] = {"loss": float(loss), "step_is_its_parts": same}
         if rank == 0:
             # one-rank AdamW on the gathered sharded gradients and norm: the
             # sharded update must equal it bit for bit (elementwise, the same
@@ -3239,7 +3383,7 @@ def multi_rank(rank, world, ref):
         rank != 0 or all(
             max(rec[n]["loss_diff"], rec[n]["grad_rel_diff"], rec[n]["param_diff"])
             <= MULTI_TRAIN_TOL and rec[n]["update_vs_one_rank_adamw"] == 0.0
-            for n in ("serve", "train")))
+            for n in ("serve", "train", "seq_parallel", "remat_dots")))
     out["checks"]["train"] = rec
     torch.cuda.empty_cache()
     stop("train")
@@ -3306,11 +3450,68 @@ def multi_rank(rank, world, ref):
     return out
 
 
+DRYRUN_PROBE = r"""
+import json, sys, time
+import torch
+from repro_torch.launch import dryrun, roofline
+t0 = time.perf_counter()
+rows = []
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    rec = dryrun.run_cell(arch, shape, mesh, results=sys.argv[1])
+    row = {"cell": [arch, shape, mesh], "ok": rec["ok"], "error": rec.get("error"),
+           "seconds": rec["total_s"]}
+    if rec["ok"]:
+        r = roofline.analyze_cell(f"{sys.argv[1]}/{arch}__{shape}__{mesh}.json")
+        row.update({k: r[k] for k in ("meta_flops", "collective_bytes", "compute_s",
+                                      "memory_s", "collective_s", "dominant")})
+        row["argument_bytes"] = rec["memory"]["argument_bytes"]
+    rows.append(row)
+print(json.dumps({"torch": torch.__version__, "cells": rows,
+                  "seconds": time.perf_counter() - t0}))
+"""
+
+
+def start_dryrun():
+    """The dry-run of MULTI_DRYRUN_CELLS on the host's CPU in a process of
+    its own (no card: CUDA_VISIBLE_DEVICES is empty): (process, its records'
+    directory)."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_PROBE, out,
+                             json.dumps(MULTI_DRYRUN_CELLS)], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def finish_dryrun(proc, out):
+    """Wait for ``start_dryrun``'s process (killed past MULTI_TIMEOUT_S) and
+    read its cells; every cell must have run."""
+    import shutil
+
+    try:
+        stdout, stderr = proc.communicate(timeout=MULTI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(out, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"multi: the dry-run exited {proc.returncode}: {stderr[-3000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    bad = [c for c in got["cells"] if not c["ok"]]
+    if bad or len(got["cells"]) != len(MULTI_DRYRUN_CELLS):
+        raise AssertionError(f"multi: dry-run cells failed: {bad}")
+    return got
+
+
 def multi_on_card(torch):
     """Phase 11: (a) one NCCL rank at world size 1; (b) four gloo ranks
-    sharing the card (module constants); each in processes of its own
-    (``spawn_local``), killed at a sub-phase's timeout. Returns the
-    ``{"multi": ...}`` line's body."""
+    sharing the card (module constants), a dry-run on the host's CPU beside
+    them; each in processes of its own (``spawn_local``), killed at a
+    sub-phase's timeout. Returns the ``{"multi": ...}`` line's body."""
     from repro_torch.launch.mesh import spawn_local
 
     t0 = time.perf_counter()
@@ -3318,26 +3519,40 @@ def multi_on_card(torch):
                                 timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
     nccl["spawn_s"] = time.perf_counter() - t0
     log(f"[multi] (a) NCCL world 1: bitwise over {MULTI_PROMPTS} prompts x {MULTI_NEW} "
-        f"tokens; launches {nccl['launches']}; collectives {nccl['collectives']}")
+        f"tokens; launches {nccl['launches']}; collectives {nccl['collectives']}; prefix path "
+        f"{nccl['prefix']}")
     t1 = time.perf_counter()
-    ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
-                        timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+    dr_proc, dr_out = start_dryrun()
+    try:
+        ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
+                            timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+        dryrun = finish_dryrun(dr_proc, dr_out)
+    finally:
+        if dr_proc.poll() is None:
+            dr_proc.kill()
+            dr_proc.communicate()
+    log(f"[multi] dry-run on the host CPU (torch {dryrun['torch']}): "
+        f"{[(c['cell'], c['seconds'], c['dominant']) for c in dryrun['cells']]}")
     bad = {(r, name): rec for r, out in enumerate(ranks)
            for name, rec in out["checks"].items() if not rec.get("ok")}
     if bad:
         raise AssertionError(f"multi(b): checks failed {bad}; errors "
                              f"{[out['errors'] for out in ranks]}")
     tp = ranks[0]["checks"]["tp_serve"]
+    tpp = ranks[0]["checks"]["tp_prefix"]
     gloo = {"backend": ranks[0]["backend"], "world": 4, "ranks": ranks,
             "seconds": time.perf_counter() - t1}
+    log(f"[multi] (b) tp_prefix: |dlogit| {ranks[0]['errors']['tp_prefix']:.4g} of the largest; "
+        f"launches a rank {tpp['launches']}; paged {tpp['paged_launches']} bitwise; pool bytes "
+        f"a rank {tpp['pool_bytes']} ({tpp['pool_share']} of the whole)")
     log(f"[multi] (b) 4 gloo ranks on one card: errors {ranks[0]['errors']}; tp tokens "
         f"matching {tp['tokens_matching']}/{tp['tokens']}; launches a rank {tp['launches']}; "
         f"ep dropped at 1.25 {ranks[0]['checks']['ep']['dropped_cf1.25']} of "
         f"{ranks[0]['checks']['ep']['pairs']} pairs; staged bytes "
         f"{sum(v['staged_bytes'] for v in ranks[0]['collectives'].values())}; seconds "
         f"{ranks[0]['seconds']}")
-    return {"nccl": nccl, "gloo": gloo, "tol": {"tp": MULTI_TP_TOL, "ep": MULTI_EP_TOL,
-                                                "train": MULTI_TRAIN_TOL},
+    return {"nccl": nccl, "gloo": gloo, "dryrun": dryrun,
+            "tol": {"tp": MULTI_TP_TOL, "ep": MULTI_EP_TOL, "train": MULTI_TRAIN_TOL},
             "seconds": time.perf_counter() - t0}
 
 
@@ -3537,8 +3752,15 @@ def main() -> int:
             **({"sim_launches": sim["topk_launches"]} if name == "topk_cosine" else {}),
             **({"multi_launches": {
                 "nccl_world1": multi["nccl"]["launches"][name],
+                "nccl_world1_prefix": multi["nccl"]["prefix"]["launches"][name],
                 "gloo_rank_tp4": multi["gloo"]["ranks"][0]["checks"]["tp_serve"]["launches"][
-                    name]}} if name in ("flash_attention", "decode_attention") else {}),
+                    name],
+                "gloo_rank_tp4_prefix": multi["gloo"]["ranks"][0]["checks"]["tp_prefix"][
+                    "launches"][name]}} if name in ("flash_attention", "decode_attention")
+               else {}),
+            **({"multi_launches": {
+                "gloo_rank_tp4_pool": multi["gloo"]["ranks"][0]["checks"]["tp_prefix"][
+                    "paged_launches"]}} if name == "paged_decode_attention" else {}),
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")

@@ -71,6 +71,7 @@ class ModelConfig:
     # --- attention features ---
     qk_norm: bool = False
     qkv_bias: bool = False
+    attn_chunk: int = 2048  # the training path's attention block (flash_attention_chunked)
     rope_theta: float = 10_000.0
     rope_type: str = "rope"  # rope | mrope | none
     attn_logit_softcap: float = 0.0

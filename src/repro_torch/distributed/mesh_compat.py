@@ -46,13 +46,23 @@ carries its own):
   replicated, as the tensor-parallel logits are);
 * ``ppermute``: backward is the reverse permutation;
 * ``fan_out``: identity forward, ``psum`` backward: a replicated value
-  entering a computation that differs by rank (Megatron's "f").
+  entering a computation that differs by rank (Megatron's "f");
+* ``reduce_scatter``: sum over the group, each rank keeping its block of a
+  dim (partial sums in, a block of the sum out: sequence parallelism's
+  row-parallel output); backward all-gathers the blocks' cotangents;
+* ``scatter``: the rank's block of a dim of a replicated value, no
+  communication; backward all-gathers the blocks' cotangents.
+
+A mesh built with ``on_collective=fn`` calls ``fn(kind, nbytes, members)``
+for each of its collectives, with the operand's bytes and the global ranks
+of its group, in the order they run (the dry-run prices each collective by
+its group's span).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,8 +144,10 @@ class Mesh(AbstractMesh):
     rank's card, or the CPU."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *,
-                 ranks: Optional[Sequence[int]] = None, device=None):
+                 ranks: Optional[Sequence[int]] = None, device=None,
+                 on_collective: Optional[Callable[[str, int, List[int]], None]] = None):
         super().__init__(shape, axes)
+        self.on_collective = on_collective
         if not dist.is_initialized():
             raise RuntimeError("Mesh needs an initialised process group "
                                "(launch.mesh.spawn_local, or init_process_group)")
@@ -204,21 +216,25 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _count(kind: str, x: torch.Tensor, staged: bool, back: Optional[int] = None) -> None:
-    """One call of ``kind`` on operand ``x``; staged, the operand goes to the
-    host and ``back`` bytes (default: as many) come back to the card."""
+def _count(mesh: Mesh, kind: str, x: torch.Tensor, staged: bool, members: List[int],
+           back: Optional[int] = None) -> None:
+    """One call of ``kind`` on operand ``x`` over the group ``members``;
+    staged, the operand goes to the host and ``back`` bytes (default: as
+    many) come back to the card."""
     c = COUNTERS[kind]
     nbytes = _nbytes(x)
     c["calls"] += 1
     c["bytes"] += nbytes
     if staged:
         c["staged_bytes"] += nbytes + (nbytes if back is None else back)
+    if mesh.on_collective is not None:
+        mesh.on_collective(kind, nbytes, members)
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op, kind: str) -> torch.Tensor:
-    g, _ = mesh.group(axes)
+    g, members = mesh.group(axes)
     staged = _staged(mesh, x)
-    _count(kind, x, staged)
+    _count(mesh, kind, x, staged, members)
     buf = x.detach().to("cpu", copy=True) if staged else x.detach().clone()
     dist.all_reduce(buf, op=op, group=g)
     return buf.to(x.device) if staged else buf
@@ -227,7 +243,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op, kind: str) -> torch
 def _all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
     g, members = mesh.group(axes)
     staged = _staged(mesh, x)
-    _count("all_gather", x, staged, back=len(members) * _nbytes(x))
+    _count(mesh, "all_gather", x, staged, members, back=len(members) * _nbytes(x))
     src = _bytes_view((x.detach().to("cpu") if staged else x.detach()).contiguous())
     parts = [torch.empty_like(src) for _ in members]
     dist.all_gather(parts, src, group=g)
@@ -241,7 +257,7 @@ def _all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
         raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) does not split "
                          f"{len(members)} ways")
     staged = _staged(mesh, x)
-    _count("all_to_all", x, staged)
+    _count(mesh, "all_to_all", x, staged, members)
     src = _bytes_view((x.detach().to("cpu") if staged else x.detach()).contiguous())
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=g)
@@ -260,7 +276,7 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} ({x.shape[dim]}) does not split {n} ways")
     staged = _staged(mesh, x)
-    _count("reduce_scatter", x, staged, back=_nbytes(x) // n)
+    _count(mesh, "reduce_scatter", x, staged, members, back=_nbytes(x) // n)
     src = x.detach().movedim(dim, 0)
     src = (src.to("cpu") if staged else src).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
@@ -276,7 +292,7 @@ def _ppermute(x: torch.Tensor, mesh: Mesh, axes: Axes,
     _, members = mesh.group(axes)
     me = mesh.axis_index(axes)
     staged = _staged(mesh, x)
-    _count("ppermute", x, staged)
+    _count(mesh, "ppermute", x, staged, members)
     src = _bytes_view((x.detach().to("cpu") if staged else x.detach()).contiguous())
     out = torch.zeros_like(src)
     ops = []
@@ -335,6 +351,36 @@ class _AllGather(torch.autograd.Function):
             i = ctx.mesh.axis_index(ctx.axes)
             g = g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous()
         return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(x, mesh, axes, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def _block(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"scatter: dim {dim} ({x.shape[dim]}) does not split {n} ways")
+    b = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axes) * b, b)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -400,6 +446,25 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0, *,
     return _all_gather(x, mesh, axes, dim)
 
 
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> torch.Tensor:
+    """Sum over the group; each rank keeps its block of ``dim`` (axis-index
+    order). The backward all-gathers the blocks' cotangents."""
+    dim = dim % x.dim()
+    if _needs_grad(x):
+        return _ReduceScatter.apply(x, mesh, axes, dim)
+    return _reduce_scatter(x, mesh, axes, dim)
+
+
+def scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``dim`` of a value replicated over the group (no
+    communication). The backward all-gathers the blocks' cotangents, so the
+    replicated value gets its whole cotangent on every rank."""
+    dim = dim % x.dim()
+    if _needs_grad(x):
+        return _Scatter.apply(x, mesh, axes, dim)
+    return _block(x, mesh, axes, dim)
+
+
 def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
     """Tiled all-to-all: dim 0 splits into the group's size in chunks, chunk
     j goes to index j, and the received chunks concatenate on dim 0 in
@@ -431,6 +496,6 @@ def mesh_shape(mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
-__all__: List[str] = ["AbstractMesh", "COUNTERS", "Mesh", "P", "all_gather", "all_to_all",
-                      "axis_index", "axis_size", "fan_out", "mesh_shape", "pmax", "pmean",
-                      "ppermute", "psum", "reset_counters"]
+__all__: List[str] = ["AbstractMesh", "COUNTERS", "Mesh", "P", "all_gather",
+                      "all_to_all", "axis_index", "axis_size", "fan_out", "mesh_shape", "pmax",
+                      "pmean", "ppermute", "psum", "reduce_scatter", "reset_counters", "scatter"]

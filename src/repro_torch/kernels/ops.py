@@ -4,10 +4,14 @@
 Dispatch mirrors ``repro.kernels.ops._on_cpu``: a tensor on the CPU takes
 the plain PyTorch version (``ref``); any other tensor goes to the CUDA
 kernel, which launches or raises. There is no fallback from one to the
-other. No kernel has a backward (nor has any kernel of the reference), so
-a CUDA branch raises ``ValueError`` when grad mode is on and an input
-requires grad, instead of returning a result that autograd cannot see
-through; training runs ``lm.forward(..., use_kernels=False)``.
+other. A tensor on the meta device (the dry-run, ``launch/dryrun.py``,
+which counts FLOPs and bytes without computing) takes the plain version
+too: meta computes nothing, so no kernel is hidden by it, and the counts
+are the plain version's operations. No kernel has a backward (nor has any
+kernel of the reference), so a CUDA branch raises ``ValueError`` when grad
+mode is on and an input requires grad, instead of returning a result that
+autograd cannot see through; training runs ``lm.forward(...,
+use_kernels=False)``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,12 @@ from repro_torch.kernels.similarity import topk_cosine
 from repro_torch.kernels.ssd import ssd
 
 
+def _plain(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the plain version: on the CPU, or on the meta
+    device. Every other device goes to the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
                                        for t in tensors):
@@ -32,7 +42,7 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 def flash_attention_op(q, k, v, *, causal: bool = True, logit_softcap: float = 0.0):
     """Model layout: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)."""
-    if q.device.type == "cpu":
+    if _plain(q):
         o = ref.flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, logit_softcap=logit_softcap,
@@ -55,7 +65,7 @@ def decode_attention_op(q, cache_k, cache_v, lengths, *, logit_softcap: float = 
     """q (B,1,Hq,hd); cache (B,M,Hkv,hd); lengths () or (B,) int32
     per-sequence valid counts -> (B,1,Hq,hd). A row of length 0 gives
     zeros."""
-    if q.device.type == "cpu":
+    if _plain(q):
         o = ref.decode_attention_ref(
             q[:, 0], cache_k.transpose(1, 2), cache_v.transpose(1, 2), lengths,
             logit_softcap=logit_softcap,
@@ -74,7 +84,7 @@ def paged_decode_attention_op(q, k_pages, v_pages, page_table, lengths, *,
     hd) pool slabs; page_table (B, P) int32 pool rows (-1 past the end);
     lengths (B,) valid tokens -> (B,1,Hq,hd). A row of length 0 gives
     zeros."""
-    if q.device.type == "cpu":
+    if _plain(q):
         o = ref.paged_attention_ref(q[:, 0], k_pages, v_pages, page_table, lengths,
                                     logit_softcap=logit_softcap)
         return _zero_empty_rows(o, lengths)[:, None]
@@ -91,7 +101,7 @@ def wkv6_op(r, k, v, w_log, u, *, chunk: int = 64):
     (B, S, H, N), u (H, N) -> (y (B, S, H, N) float32, state (B, H, N, N)
     float32). On the CPU, the chunked plain version with chunk ``chunk``
     (the model passes its ``ssm.chunk_size``); the kernel has no chunk."""
-    if r.device.type == "cpu":
+    if _plain(r):
         return ref.wkv6_chunked_ref(r, k, v, w_log, u, chunk=chunk)
     _refuse_grad("wkv6", r, k, v, w_log, u)
     return wkv6(r, k, v, w_log, u)
@@ -102,7 +112,7 @@ def ssd_op(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
     (B, S, H), A_log and D (H,), B_/C_ (B, S, Ns) -> (y (B, S, H, P) float32,
     state (B, H, P, Ns) float32). On the CPU, the chunked plain version
     with chunk ``chunk``; the kernel has no chunk."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return ref.ssd_chunked_ref(x, dt, A_log, B_, C_, D, chunk=chunk)
     _refuse_grad("ssd", x, dt, A_log, B_, C_, D)
     return ssd(x, dt, A_log, B_, C_, D)
@@ -131,9 +141,9 @@ def resident_topk(queries: torch.Tensor, bank: torch.Tensor, *, k: int = 1):
                        device=queries.device),
             torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=queries.device),
         )
-    if queries.device.type == "cpu":
-        if bank.device.type != "cpu":
-            raise ValueError(f"resident_topk: queries on the CPU, bank on {bank.device}")
+    if _plain(queries):
+        if bank.device.type != queries.device.type:
+            raise ValueError(f"resident_topk: queries on {queries.device}, bank on {bank.device}")
         return ref.topk_cosine_ref(queries, bank, k)
     _refuse_grad("topk_cosine", queries, bank)
     return topk_cosine(queries, bank, k)

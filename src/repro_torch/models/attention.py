@@ -36,7 +36,7 @@ from repro_torch.models import parallel as par
 from repro_torch.models.common import Params, dense_init, dtype_of, rms_norm
 from repro_torch.models.rope import apply_rope
 
-ATTN_CHUNK = 2048  # the reference's attn_chunk (no config changes it)
+ATTN_CHUNK = 2048  # the default of the config's attn_chunk
 
 
 def attn_init(cfg, generator, device) -> Params:
@@ -135,11 +135,11 @@ def flash_attention_chunked(q, k, v, *, chunk: int = ATTN_CHUNK, causal: bool = 
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _attend(q, k, v, causal: bool, cap: float, use_kernels: bool):
+def _attend(q, k, v, causal: bool, cap: float, use_kernels: bool, chunk: int = ATTN_CHUNK):
     if use_kernels:
         return kops.flash_attention_op(q, k, v, causal=causal, logit_softcap=cap)
     if q.shape[1] > 512:
-        return flash_attention_chunked(q, k, v, causal=causal, logit_softcap=cap)
+        return flash_attention_chunked(q, k, v, chunk=chunk, causal=causal, logit_softcap=cap)
     return naive_attention(q, k, v, causal=causal, logit_softcap=cap)
 
 
@@ -158,7 +158,7 @@ def attention_seq(cfg, p: Params, x: torch.Tensor, cos, sin, *, causal: bool = T
     if not par.active(ctx):
         q, k, v = _project_qkv(cfg, p, x)
         q, k = _rope(q, k, cos, sin)
-        o = _attend(q, k, v, causal, cap, use_kernels)
+        o = _attend(q, k, v, causal, cap, use_kernels, cfg.attn_chunk)
         out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
         return out, (k, v)
     Q, K = tp_heads(cfg, ctx)
@@ -166,7 +166,7 @@ def attention_seq(cfg, p: Params, x: torch.Tensor, cos, sin, *, causal: bool = T
     q, k, v = _project_tp(cfg, p, spec, x, ctx, Q, K, local)
     q, k = _rope(q, k, cos, sin)
     ka, va = (k, v) if local else (_select(ctx, k, K), _select(ctx, v, K))
-    o = _attend(q, ka, va, causal, cap, use_kernels)
+    o = _attend(q, ka, va, causal, cap, use_kernels, cfg.attn_chunk)
     return par.row_out(ctx, o, p["wo"], spec["wo"], Q, cfg.num_heads, cfg.head_dim), (k, v)
 
 
@@ -283,7 +283,8 @@ def _decode_tp(cfg, p, x, cos, sin, cache_k, cache_v, pos, lengths, ctx, spec, k
 
 
 def attention_extend(cfg, p: Params, x: torch.Tensor, cos, sin,
-                     prefix_k: torch.Tensor, prefix_v: torch.Tensor, prefix_len: int):
+                     prefix_k: torch.Tensor, prefix_v: torch.Tensor, prefix_len: int, *,
+                     ctx=None, spec=None, kv_spec=None, prefix_spec=None):
     """Chunked-prefill continuation: the suffix attends over a prefilled
     prefix plus itself causally.
 
@@ -292,21 +293,47 @@ def attention_extend(cfg, p: Params, x: torch.Tensor, cos, sin,
     are page padding and are masked out). cos/sin are taken at positions
     offset by ``prefix_len``. Scores and softmax in fp32.
     Returns (out (B, S, D), (k_suf, v_suf)).
+
+    Under a mesh (``ctx``, the weight ``spec``, the cache's ``kv_spec``) the
+    rank attends over its local heads; prefix_k/v are the rank's block of
+    the pooled prefix under ``prefix_spec`` (``parallel.prefix_spec``), read
+    directly where it holds exactly the rank's kv heads and gathered over
+    tp otherwise; (k_suf, v_suf) are as ``attention_seq`` gives them for
+    ``kv_spec``.
     """
-    B, S, _ = x.shape
-    Sp = prefix_k.shape[1]
-    q, k, v = _project_qkv(cfg, p, x)
+    if not par.active(ctx):
+        q, k, v = _project_qkv(cfg, p, x)
+        q, k = _rope(q, k, cos, sin)
+        o = _extend_core(cfg, q, prefix_k, prefix_v, k, v, prefix_len)
+        return o.reshape(*o.shape[:2], cfg.q_dim).to(q.dtype) @ p["wo"], (k, v)
+    Q, K = tp_heads(cfg, ctx)
+    local = kv_local(cfg, ctx, kv_spec)
+    q, k, v = _project_tp(cfg, p, spec, x, ctx, Q, K, local)
     q, k = _rope(q, k, cos, sin)
+    ka, va = (k, v) if local else (_select(ctx, k, K), _select(ctx, v, K))
+    if kv_local(cfg, ctx, prefix_spec):
+        pk, pv = prefix_k, prefix_v
+    else:
+        pk, pv = (shd.gather_leaf(t, prefix_spec, ctx.mesh)[:, :, K] for t in (prefix_k, prefix_v))
+    o = _extend_core(cfg, q, pk, pv, ka, va, prefix_len).to(q.dtype)
+    return par.row_out(ctx, o, p["wo"], spec["wo"], Q, cfg.num_heads, cfg.head_dim), (k, v)
+
+
+def _extend_core(cfg, q, prefix_k, prefix_v, k, v, prefix_len: int):
+    """q (B, S, Hq, hd) over the prefix (B, Sp, Hkv, hd), the first
+    ``prefix_len`` positions visible, then the suffix k/v causally; GQA by
+    groups of Hq / Hkv. Returns (B, S, Hq, hd) fp32."""
+    B, S, Hq, hd = q.shape
+    Sp = prefix_k.shape[1]
     keys = torch.cat([prefix_k.to(q.dtype), k], dim=1)
     vals = torch.cat([prefix_v.to(q.dtype), v], dim=1)
     M = Sp + S
     Hkv = keys.shape[2]
-    hd = cfg.head_dim
-    G = cfg.num_heads // Hkv
+    G = Hq // Hkv
     # per-query mask: prefix keys below prefix_len are always visible;
     # suffix keys are causal relative to the suffix row
-    row = torch.arange(S, device=x.device)[:, None]
-    col = torch.arange(M, device=x.device)[None, :]
+    row = torch.arange(S, device=q.device)[:, None]
+    col = torch.arange(M, device=q.device)[None, :]
     visible = torch.where(col < Sp, col < prefix_len, (col - Sp) <= row)
     qg = q.reshape(B, S, Hkv, G, hd).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, keys.float()) / math.sqrt(hd)
@@ -316,8 +343,7 @@ def attention_extend(cfg, p: Params, x: torch.Tensor, cos, sin,
     s = s.masked_fill(~visible, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pr, vals.float())
-    out = o.reshape(B, S, cfg.q_dim).to(q.dtype) @ p["wo"]
-    return out, (k, v)
+    return o.reshape(B, S, Hq, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -171,5 +171,7 @@ def mlp_forward(cfg, p: Params, x: torch.Tensor, ctx=None, spec=None) -> torch.T
     else:
         h = mlp_act_fn(cfg.mlp_act)(x @ p["w_up"])
     if tp:
-        return mc.psum(h @ p["w_down"], ctx.mesh, ctx.tp)
+        from repro_torch.models.parallel import reduce_out
+
+        return reduce_out(ctx, h @ p["w_down"])
     return h @ p["w_down"]

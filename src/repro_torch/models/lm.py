@@ -30,7 +30,12 @@ family runs tensor parallel (the recurrent families' mixers in
 ``rwkv.py`` and ``mamba.py``). A moe in mode "ep" goes through
 ``moe.moe_forward_ep``; in mode "dense" each rank runs every expert on its
 rows. Where a gradient is taken, the profile's ``remat`` applies to each
-layer as the reference's ``_maybe_remat`` does (``_remat``).
+layer as the reference's ``_maybe_remat`` does (``_remat``: "full" keeps a
+layer's inputs, "dots" its matrix products too). With the profile's
+``seq_parallel`` a forward over more than one position keeps the residual
+stream sequence-sharded over tp between sublayers (``models/parallel.py``);
+the audio family runs without it, as the reference constrains no
+sequence there.
 
 Caches are dicts with a Python int ``length``:
 
@@ -65,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.distributed import mesh_compat as mc
 from repro_torch.distributed import sharding as shd
@@ -273,7 +279,7 @@ def _check_ids(cfg, tokens: torch.Tensor) -> None:
     """Raise on an id outside [0, vocab_size): the reference's ``jnp.take``
     fills such rows with NaN. Called on prompts only (one device sync per
     prefill); decode ids come from the model's own argmax over the vocab."""
-    if tokens.numel():
+    if tokens.numel() and tokens.device.type != "meta":  # meta: no values to check
         lo, hi = (int(t) for t in torch.aminmax(tokens))
         if lo < 0 or hi >= cfg.vocab_size:
             raise ValueError(
@@ -285,7 +291,8 @@ def _check_ids(cfg, tokens: torch.Tensor) -> None:
 def _embed(cfg, params: Params, tokens: torch.Tensor, ctx=None, spec=None) -> torch.Tensor:
     """tokens (B, S) int -> x (B, S, D). Under a mesh with the vocabulary
     split over tp: the rank's rows looked up (the others zero), then a
-    ``psum`` over tp."""
+    ``psum`` over tp (under sequence parallelism a reduce-scatter: the
+    rank's sequence block)."""
     if ctx is None or not par.on_tp(ctx, spec[0]):
         return params["embed"][tokens].to(dtype_of(cfg.dtype))
     emb, dt = params["embed"], dtype_of(cfg.dtype)
@@ -294,20 +301,23 @@ def _embed(cfg, params: Params, tokens: torch.Tensor, ctx=None, spec=None) -> to
     ok = (ids >= 0) & (ids < n)
     x = emb[ids.clamp(0, n - 1)].to(dt)
     x = torch.where(ok[..., None], x, torch.zeros((), dtype=dt, device=x.device))
-    return mc.psum(x, ctx.mesh, ctx.tp)
+    return par.reduce_out(ctx, x)
 
 
 def _embed_inputs(cfg, params: Params, tokens, embeds, positions, ctx=None, specs=None):
     """(x (B, S, D), positions) from token ids, or from the vlm stub
     frontend's precomputed ``embeds`` (B, S, D) with optional ``positions``
-    ((B, S), or (3, B, S) for M-RoPE); positions default to 0..S-1."""
+    ((B, S), or (3, B, S) for M-RoPE); positions default to 0..S-1. Under
+    sequence parallelism x is the rank's sequence block."""
     if embeds is not None:
         x = embeds.to(dtype_of(cfg.dtype))
+        B, S = embeds.shape[:2]
     else:
         _check_ids(cfg, tokens)
         x = _embed(cfg, params, tokens, ctx, None if specs is None else specs["embed"])
+        B, S = tokens.shape
+    x = par.seq_shard(ctx, x)
     if positions is None:
-        B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     return x, positions
 
@@ -343,8 +353,6 @@ def _mesh(cfg, ctx, params: Params):
     time by ``_layers``; the tp dims stay local."""
     if not par.active(ctx):
         return None, None, params
-    if ctx.seq_parallel:
-        raise NotImplementedError("sequence parallelism (seq_parallel) is not ported")
     specs = ctx.param_specs(cfg)
     keep = (ctx.tp,) if ctx.tp else ()
     stacks = ("blocks", "enc_blocks", "dec_blocks", "shared_attn")
@@ -368,20 +376,39 @@ def _layers(ctx, cfg, blocks, specs):
             yield par.gather_layer(ctx, cfg, p, specs[i]), specs[i]
 
 
+# the matrix products "dots" keeps (``jax.checkpoint_policies.checkpoint_dots``
+# saves every dot_general's result): the aten ops that ``@``, ``matmul`` and
+# ``einsum`` lower to
+_DOTS = tuple(getattr(torch.ops.aten, n).default
+              for n in ("mm", "bmm", "addmm", "baddbmm", "addbmm"))
+
+
+def _dots_policy(_, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(ctx, fn):
-    """The reference's ``_maybe_remat`` for one layer's ``fn``: under a mesh
-    whose profile sets ``remat`` "full" (or "offload", which the reference
-    runs as "full"), and where a gradient is taken, the layer keeps only
-    its inputs and runs again in the backward (its collectives too, on
-    every rank alike). "dots" (keep the matrix products) is not ported."""
+    """The reference's ``_maybe_remat`` for one layer's ``fn``, under a mesh
+    and where a gradient is taken. "full" (and "offload", which the
+    reference runs as "full"): the layer keeps only its inputs and runs
+    again in the backward, its collectives too, on every rank alike.
+    "dots": the same rerun, but the results of its matrix products (mm,
+    bmm, addmm, ...) are kept from the forward and everything else is
+    recomputed (``torch.utils.checkpoint``'s selective policy). The
+    collectives are ``autograd.Function``s whose forwards run again in the
+    rerun like any other code, so every rank repeats the same ones; a
+    product's kept result is read back in place of its recomputation."""
     mode = ctx.remat if ctx is not None else "none"
-    if mode == "dots":
-        raise NotImplementedError("remat 'dots' is not ported; the profiles use 'full'")
     if mode == "none" or not torch.is_grad_enabled():
         return fn
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
 
     def run(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return run
 
@@ -430,17 +457,18 @@ def _kv_spec(cspecs, name: str = "kv_k"):
     return (None,) + tuple(cspecs[name][2:])
 
 
-def _store_kv(cfg, ctx, cache: Cache, i: int, k, v, cspecs, names=("kv_k", "kv_v")):
-    """Write a layer's k and v (B, S, heads, hd) at positions [0, S): the
-    rank's own heads straight into its block (``attention.kv_local``), every
-    head through ``write_block``."""
+def _store_kv(cfg, ctx, cache: Cache, i: int, k, v, cspecs, names=("kv_k", "kv_v"),
+              offset: int = 0):
+    """Write a layer's k and v (B, S, heads, hd) at positions [offset,
+    offset + S): the rank's own heads straight into its block
+    (``attention.kv_local``), every head through ``write_block``."""
     for name, val in zip(names, (k, v)):
         dst = cache[name][i]
         spec = _kv_spec(cspecs, name)
         if ctx is None or attn.kv_local(cfg, ctx, spec):
-            dst[:, :val.shape[1]] = val
+            dst[:, offset:offset + val.shape[1]] = val
         else:
-            par.write_block(ctx, dst, val.to(dst.dtype), (0, 0, 0, 0), spec)
+            par.write_block(ctx, dst, val.to(dst.dtype), (0, offset, 0, 0), spec)
 
 
 # ===========================================================================
@@ -472,31 +500,40 @@ def _get(ctx, cache: Cache, name: str, idx, cspecs) -> torch.Tensor:
 def _dense_layer(cfg, p: Params, x: torch.Tensor, cos, sin, use_kernels: bool, ctx=None,
                  spec=None, kv_spec=None):
     """One dense or moe layer (attention + MLP/MoE) over a sequence.
-    Returns (x, k, v, aux or None)."""
-    h, (k, v) = attn.attention_seq(cfg, p["attn"], apply_norm(cfg, p, "ln1", x), cos, sin,
-                                   use_kernels=use_kernels, ctx=ctx,
-                                   spec=None if spec is None else spec["attn"],
-                                   kv_spec=kv_spec)
+    Returns (x, k, v, aux or None). Under sequence parallelism x is the
+    rank's sequence block (``par.sublayer``); k and v cover the sequence."""
+    h, (k, v) = par.sublayer(
+        ctx, lambda xn: attn.attention_seq(cfg, p["attn"], xn, cos, sin,
+                                           use_kernels=use_kernels, ctx=ctx,
+                                           spec=None if spec is None else spec["attn"],
+                                           kv_spec=kv_spec),
+        par.shard_norm(ctx, cfg, p, "ln1", x))
     x = x + h
-    y, aux = _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x), ctx, spec)
+    y, aux = par.sublayer(ctx, lambda xn: _ffn_block(cfg, p, xn, ctx, spec),
+                          par.shard_norm(ctx, cfg, p, "ln2", x))
     return x + y, k, v, aux
 
 
 def _rwkv_layer(cfg, p: Params, x: torch.Tensor, use_kernels: bool, ctx, spec):
     """One rwkv6 layer from a zero state: (x, state, time-mix shift,
     channel-mix shift)."""
-    y, st, sh_tm = rwkv_mod.rwkv_time_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln1", x), None,
-                                          use_kernels=use_kernels, ctx=ctx, spec=spec)
+    y, st, sh_tm = par.sublayer(
+        ctx, lambda xn: rwkv_mod.rwkv_time_mix(cfg, p["rwkv"], xn, None,
+                                               use_kernels=use_kernels, ctx=ctx, spec=spec),
+        par.shard_norm(ctx, cfg, p, "ln1", x))
     x = x + y
-    y, sh_cm = rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"], apply_norm(cfg, p, "ln2", x), None,
-                                         ctx=ctx, spec=spec)
+    y, sh_cm = par.sublayer(
+        ctx, lambda xn: rwkv_mod.rwkv_channel_mix(cfg, p["rwkv"], xn, None, ctx=ctx, spec=spec),
+        par.shard_norm(ctx, cfg, p, "ln2", x))
     return x + y, st, sh_tm, sh_cm
 
 
 def _mamba_layer(cfg, p: Params, x: torch.Tensor, use_kernels: bool, ctx, spec):
     """One zamba2 mamba layer from a zero state: (x, state, conv carry)."""
-    y, st, cv = mam.mamba_forward(cfg, p["mamba"], apply_norm(cfg, p, "ln1", x), None,
-                                  use_kernels=use_kernels, ctx=ctx, spec=spec)
+    y, st, cv = par.sublayer(
+        ctx, lambda xn: mam.mamba_forward(cfg, p["mamba"], xn, None, use_kernels=use_kernels,
+                                          ctx=ctx, spec=spec),
+        par.shard_norm(ctx, cfg, p, "ln1", x))
     return x + y, st, cv
 
 
@@ -531,17 +568,18 @@ def forward(
     if cfg.family == "audio":
         return _whisper_forward(cfg, params, top, tokens, frames, want_cache, cache_len,
                                 use_kernels, ctx, specs)
-    x, pos = _embed_inputs(cfg, top, tokens, embeds, positions, ctx, specs)
-    B, S, _ = x.shape
+    B, S = (tokens if embeds is None else embeds).shape[:2]
+    lctx = par.seq_ctx(ctx, S)  # the layers' ctx: the stream sequence-sharded, or ctx
+    x, pos = _embed_inputs(cfg, top, tokens, embeds, positions, lctx, specs)
     cache, cspecs = _new_cache(cfg, ctx, B, cache_len or S, x.device) if want_cache else (
         None, None)
     kvs = _kv_spec(cspecs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        x = apply_norm(cfg, top, "ln0", x)
+        x = par.shard_norm(lctx, cfg, top, "ln0", x)
         for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"],
                                             _sub(specs, "blocks"))):
-            x, st, sh_tm, sh_cm = _remat(ctx, _rwkv_layer)(cfg, p, x, use_kernels, ctx,
+            x, st, sh_tm, sh_cm = _remat(ctx, _rwkv_layer)(cfg, p, x, use_kernels, lctx,
                                                            _sub(sp, "rwkv"))
             if cache is not None:
                 _put(ctx, cache, "ssm_state", i, st, cspecs)
@@ -555,26 +593,26 @@ def forward(
                                                        _sub(specs, "blocks"))):
                 for i, p in enumerate(group):
                     x, st, cv = _remat(ctx, _mamba_layer)(
-                        cfg, p, x, use_kernels, ctx, None if gspec is None else gspec[i]["mamba"])
+                        cfg, p, x, use_kernels, lctx, None if gspec is None else gspec[i]["mamba"])
                     if cache is not None:
                         _put(ctx, cache, "ssm_state", (g, i), st, cspecs)
                         _put(ctx, cache, "conv", (g, i), cv, cspecs)
                 x, k, v, a = _remat(ctx, _dense_layer)(cfg, shared, x, cos, sin, use_kernels,
-                                                       ctx, sspec, kvs)
+                                                       lctx, sspec, kvs)
                 aux = aux if a is None else aux + a
                 if cache is not None:
                     _store_kv(cfg, ctx, cache, g, k, v, cspecs)
         else:
             for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"],
                                                 _sub(specs, "blocks"))):
-                x, k, v, a = _remat(ctx, _dense_layer)(cfg, p, x, cos, sin, use_kernels, ctx,
+                x, k, v, a = _remat(ctx, _dense_layer)(cfg, p, x, cos, sin, use_kernels, lctx,
                                                        sp, kvs)
                 aux = aux if a is None else aux + a
                 if cache is not None:
                     _store_kv(cfg, ctx, cache, i, k, v, cspecs)
     if cache is not None:
         cache["length"] = S
-    return _logits(cfg, top, x, ctx, specs), aux, cache
+    return _logits(cfg, top, par.seq_gather(lctx, x), ctx, specs), aux, cache
 
 
 def _whisper_forward(cfg, params: Params, top: Params, tokens, frames, want_cache, cache_len,
@@ -665,39 +703,81 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     prefix_k/v: (L, B, Sp, Hkv, hd) post-RoPE (Sp >= prefix_len; the
     overhang is page padding). Families that carry recurrent state can't
     re-enter a stored prefix mid-stream: dense, moe and vlm only (vlm with
-    text positions, replicated over M-RoPE's three streams). The prefix
-    path under a mesh is not ported: a ``ctx`` with a mesh raises.
+    text positions, replicated over M-RoPE's three streams).
+
+    Under a mesh (``ctx``) the tokens are the rank's rows, prefix_k/v the
+    rank's block of the pooled prefix (``parallel.prefix_spec``: kv heads,
+    else head dim, over tp), and the cache the rank's block with
+    ``max_len``, as ``prefill`` builds it; the moe layers run as in
+    ``forward`` (mode "ep" through ``moe_forward_ep``), and sequence
+    parallelism applies as there.
     """
     if cfg.family in ("audio", "ssm", "hybrid"):
         raise NotImplementedError(
             f"prefix extension requires a pure-KV cache; family "
             f"{cfg.family!r} carries recurrent state"
         )
-    if par.active(ctx):
-        raise NotImplementedError("prefill_extend under a mesh (the KV prefix path) is "
-                                  "not ported")
     _check_family(cfg)
     _check_ids(cfg, tokens)
-    x = _embed(cfg, params, tokens)
-    B, S, _ = x.shape
+    ctx, specs, top = _mesh(cfg, ctx, params)
+    B, S = tokens.shape
+    lctx = par.seq_ctx(ctx, S)
+    x = par.seq_shard(lctx, _embed(cfg, top, tokens, lctx, _sub(specs, "embed")))
     total = prefix_len + S
     M = cache_len or total
     if M < total:
         raise ValueError(f"cache_len {M} < prefix_len + suffix {total}")
     pos = prefix_len + torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
-    cache = init_cache(cfg, B, M, x.device)
-    cache["kv_k"][:, :, :prefix_len] = prefix_k[:, :, :prefix_len]
-    cache["kv_v"][:, :, :prefix_len] = prefix_v[:, :, :prefix_len]
-    for i, p in enumerate(params["blocks"]):
-        h, (k, v) = attn.attention_extend(cfg, p["attn"], apply_norm(cfg, p, "ln1", x),
-                                          cos, sin, prefix_k[i], prefix_v[i], prefix_len)
+    cache, cspecs = _new_cache(cfg, ctx, B, M, x.device)
+    kvs = _kv_spec(cspecs)
+    pspec = None if ctx is None else par.prefix_spec(cfg, ctx)
+    for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"], _sub(specs, "blocks"))):
+        pk, pv = prefix_k[i], prefix_v[i]
+        _put_prefix(ctx, cache, i, pk, pv, prefix_len, kvs, pspec)
+        h, (k, v) = par.sublayer(
+            lctx, lambda xn: attn.attention_extend(cfg, p["attn"], xn, cos, sin, pk, pv,
+                                                   prefix_len, ctx=lctx, spec=_sub(sp, "attn"),
+                                                   kv_spec=kvs, prefix_spec=pspec),
+            par.shard_norm(lctx, cfg, p, "ln1", x))
         x = x + h
-        x = x + _ffn_block(cfg, p, apply_norm(cfg, p, "ln2", x))[0]
-        cache["kv_k"][i, :, prefix_len:total] = k
-        cache["kv_v"][i, :, prefix_len:total] = v
+        x = x + par.sublayer(lctx, lambda xn: _ffn_block(cfg, p, xn, lctx, sp),
+                             par.shard_norm(lctx, cfg, p, "ln2", x))[0]
+        _store_kv(cfg, ctx, cache, i, k, v, cspecs, offset=prefix_len)
     cache["length"] = total
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, top, par.seq_gather(lctx, x), ctx, specs), cache
+
+
+def _put_prefix(ctx, cache: Cache, i: int, pk, pv, prefix_len: int, kvs, pspec) -> None:
+    """Copy layer i's pooled prefix (B, Sp, ...) positions [0, prefix_len)
+    into the cache: straight where the cache's block has the pool's layout,
+    else gathered whole and written into the block."""
+    for name, val in (("kv_k", pk), ("kv_v", pv)):
+        dst = cache[name][i]
+        if ctx is None or tuple(kvs[1:]) == tuple(pspec[1:]):
+            dst[:, :prefix_len] = val[:, :prefix_len]
+        else:
+            whole = shd.gather_leaf(val[:, :prefix_len], pspec, ctx.mesh)
+            par.write_block(ctx, dst, whole.to(dst.dtype), (0, 0, 0, 0), kvs)
+
+
+def prefix_of(cfg, cache: Cache, ctx: Optional[ParallelCtx] = None):
+    """Batch row 0 of a dense cache's K and V, (L, M, Hkv, hd) each, in the
+    prefix pool's layout: under a mesh the rank's block under
+    ``parallel.prefix_spec`` (the cache's block where the layouts agree,
+    else gathered over the cache's tp dims and the rank's block taken)."""
+    if not par.active(ctx):
+        return cache["kv_k"][:, 0], cache["kv_v"][:, 0]
+    kvs = _kv_spec(_cache_specs(cfg, ctx, cache))
+    pspec = par.prefix_spec(cfg, ctx)
+    out = []
+    for name in ("kv_k", "kv_v"):
+        blk = cache[name][:, 0]  # (L, M', H', hd')
+        if tuple(kvs[1:]) != tuple(pspec[1:]):
+            blk = shd.gather_leaf(blk, (None,) + tuple(kvs[1:]), ctx.mesh)
+            blk = shd.local_slice(blk, (None,) + tuple(pspec[1:]), ctx.mesh)
+        out.append(blk)
+    return out[0], out[1]
 
 
 def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,

@@ -157,9 +157,11 @@ class _TP:
         ctx = self.ctx
         h = (y.to(x_dtype) * F.silu(self.mine(z, self.c0, self.c1))).float()
         d_in = z.shape[-1]
-        ss = mc.psum(h.square().sum(dim=-1, keepdim=True), ctx.mesh, ctx.tp)
+        # the whole sum of squares is used by each rank on its own channels:
+        # fanned out, so each rank's partial sum gets the whole cotangent
+        ss = par.fan_out(ctx, mc.psum(h.square().sum(dim=-1, keepdim=True), ctx.mesh, ctx.tp))
         h = (h * torch.rsqrt(ss / d_in + 1e-6) * p["norm_scale"].float()).to(x_dtype)
-        return mc.psum(h @ p["out_proj"], ctx.mesh, ctx.tp)
+        return par.reduce_out(ctx, h @ p["out_proj"])
 
 
 def mamba_forward(cfg, p: Params, x: torch.Tensor,

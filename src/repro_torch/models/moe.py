@@ -6,7 +6,9 @@ Two execution paths, one parameterization:
     pairs sorted by expert, each expert's rows through its FFN. The
     reference runs ``jax.lax.ragged_dot`` (an XLA op, not a Pallas kernel);
     here a loop of ``torch.matmul`` over the experts that received rows.
-    It reads the group sizes on the host (one device sync a call).
+    It reads the group sizes on the host (one device sync a call); on the
+    meta device, which has no values to read (the dry-run), the pairs run
+    as an even load over the experts, which gives the same products' work.
   * ``moe_forward_dense`` — GShard-style capacity-factor dispatch with
     one-hot einsums; a (token, k) pair past its expert's capacity is
     dropped, exactly as the reference drops it.
@@ -81,7 +83,9 @@ def _routing(cfg, p: Params, x2d: torch.Tensor, ctx=None):
     topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     # load-balancing aux loss
     T = x2d.shape[0]
-    routed = torch.bincount(topk_idx.reshape(-1), minlength=e.num_experts).float()
+    idx = topk_idx.reshape(-1)  # counted by index_add: exact, and it runs on meta too
+    routed = torch.zeros(e.num_experts, dtype=torch.float32, device=idx.device).index_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
     if par.active(ctx) and ctx.dp:
         n = ctx.mesh.axis_size(ctx.dp)
         routed = mc.psum(routed, ctx.mesh, ctx.dp)
@@ -113,6 +117,16 @@ def _expert_ffn(cfg, p: Params, h: torch.Tensor, group_sizes) -> torch.Tensor:
     return torch.cat(outs)
 
 
+def _even_ffn(cfg, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """The grouped FFN on meta rows h (M, D): ceil(M / E) rows an expert as
+    one batched product (no host read of the group sizes), trimmed to M."""
+    E = p["w_up"].shape[0]
+    M, D = h.shape
+    r = -(-M // E)
+    hp = torch.cat([h, h.new_zeros((E * r - M, D))]).reshape(E, r, D)
+    return _ffn(cfg, hp, p.get("w_gate"), p["w_up"], p["w_down"]).reshape(E * r, D)[:M]
+
+
 def moe_forward_grouped(cfg, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless: every routed (token, expert) pair is computed."""
     e = cfg.moe
@@ -124,8 +138,11 @@ def moe_forward_grouped(cfg, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, 
     flat_token = torch.arange(T, device=x.device).repeat_interleave(K)
     order = torch.argsort(flat_expert, stable=True)
     sorted_tokens = flat_token[order]
-    group_sizes = torch.bincount(flat_expert, minlength=e.num_experts).tolist()
-    out_sorted = _expert_ffn(cfg, p, x2d[sorted_tokens], group_sizes)  # (T*K, D)
+    if x.device.type == "meta":
+        out_sorted = _even_ffn(cfg, p, x2d[sorted_tokens])
+    else:
+        group_sizes = torch.bincount(flat_expert, minlength=e.num_experts).tolist()
+        out_sorted = _expert_ffn(cfg, p, x2d[sorted_tokens], group_sizes)  # (T*K, D)
     w_sorted = topk_w.reshape(-1)[order]
     contrib = out_sorted * w_sorted[:, None].to(out_sorted.dtype)
     y2d = torch.zeros((T, D), dtype=contrib.dtype, device=x.device)

@@ -18,10 +18,23 @@ Gradient convention (``distributed/mesh_compat.py``): a value replicated
 over a group carries the whole cotangent on each rank, so ``fan_out``
 marks each place where such a value (activation or weight) enters a
 computation that differs by rank, and ``psum`` passes cotangents through.
+
+Sequence parallelism (``profile.seq_parallel``, Megatron's): in a forward
+over S > 1 positions the residual stream between sublayers is the rank's
+1/tp of the sequence (padded to a multiple of tp; ``seq_ctx``). Norms and
+residual adds run on that shard; a sublayer's input is all-gathered over
+the sequence (``seq_gather``: its backward takes the rank's block of the
+whole cotangent the sublayer's ``fan_out``s build), and where the
+sublayer ends in the row-parallel ``psum`` a reduce-scatter over the
+sequence takes its place (``reduce_out``; backward an all-gather). A
+sublayer whose output is replicated (weights the guard left whole, the
+experts) gives the rank its block (``seq_shard``). Decode (S = 1) runs as
+without it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -31,6 +44,7 @@ from repro_torch.configs.base import ShardingProfile
 from repro_torch.distributed import mesh_compat as mc
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import entry_axes
+from repro_torch.models.common import apply_norm
 
 
 @dataclass(frozen=True)
@@ -44,6 +58,9 @@ class ParallelCtx:
     mesh: Any = None
     dp_axes: Tuple[str, ...] = ("data",)
     profile: ShardingProfile = ShardingProfile()
+    # the true sequence length while the residual stream is sequence-
+    # sharded (a forward under seq_parallel; ``seq_ctx``), else 0
+    seq_len: int = 0
 
     @classmethod
     def from_profile(cls, mesh, profile: ShardingProfile) -> "ParallelCtx":
@@ -191,16 +208,17 @@ def heads(ctx: ParallelCtx, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.
 def row_out(ctx: ParallelCtx, o: torch.Tensor, wo: torch.Tensor, wo_spec,
             have: Sequence[int], n_heads: int, hd: int) -> torch.Tensor:
     """o (..., len(have), hd), the heads ``have``, through the row-parallel
-    W_o (rows = n_heads * hd): the rank's rows, then ``psum`` over tp."""
+    W_o (rows = n_heads * hd): the rank's rows, then ``psum`` over tp
+    (``reduce_out``)."""
     lead = o.shape[:-2]
     o = o.reshape(*lead, len(have) * hd)
     if not on_tp(ctx, wo_spec[0]):  # whole W_o: whole heads on every rank
         return o @ wo
     if list(have) != list(range(n_heads)):  # the rank's heads: its rows of W_o
-        return mc.psum(o @ wo, ctx.mesh, ctx.tp)
+        return reduce_out(ctx, o @ wo)
     rows = wo.shape[0]
     lo = ctx.tp_index * rows
-    return mc.psum(fan_out(ctx, o)[..., lo:lo + rows] @ wo, ctx.mesh, ctx.tp)
+    return reduce_out(ctx, fan_out(ctx, o)[..., lo:lo + rows] @ wo)
 
 
 def share_grad(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -220,6 +238,108 @@ class _ShareGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+def seq_ctx(ctx: Optional[ParallelCtx], S: int) -> Optional[ParallelCtx]:
+    """``ctx`` with the residual stream of an S-position forward sharded over
+    the sequence, where the profile asks for it, the mesh has a tp axis of
+    more than one rank and S > 1 (then a shard, ceil(S / tp) positions, is
+    shorter than the sequence); else ``ctx`` itself."""
+    if not active(ctx) or not ctx.seq_parallel or ctx.tp_size == 1 or S <= 1:
+        return ctx
+    return dataclasses.replace(ctx, seq_len=S)
+
+
+def _padded(ctx: ParallelCtx, x: torch.Tensor) -> torch.Tensor:
+    pad = (-x.shape[1]) % ctx.tp_size
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))], dim=1)
+
+
+def reduce_out(ctx: ParallelCtx, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output's partial sums (B, S, ...) combined over tp: a
+    ``psum``, or under sequence parallelism a reduce-scatter over the
+    (padded) sequence, the rank's block of the sum."""
+    if not ctx.seq_len:
+        return mc.psum(y, ctx.mesh, ctx.tp)
+    return mc.reduce_scatter(_padded(ctx, y), ctx.mesh, ctx.tp, dim=1)
+
+
+def seq_shard(ctx: Optional[ParallelCtx], y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output as the rank's sequence block: already one where
+    ``reduce_out`` scattered it (fewer positions than the sequence), else
+    the block of the replicated whole; ``y`` itself without sequence
+    parallelism."""
+    if ctx is None or not ctx.seq_len or y.shape[1] != ctx.seq_len:
+        return y
+    return mc.scatter(_padded(ctx, y), ctx.mesh, ctx.tp, dim=1)
+
+
+def seq_gather(ctx: Optional[ParallelCtx], x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence (trimmed to ``seq_len``) from each rank's block;
+    ``x`` itself without sequence parallelism."""
+    if ctx is None or not ctx.seq_len:
+        return x
+    return mc.all_gather(x, ctx.mesh, ctx.tp, dim=1, grad="slice")[:, :ctx.seq_len]
+
+
+def shard_norm(ctx: Optional[ParallelCtx], cfg, p, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``apply_norm`` of the residual stream. Under sequence parallelism x
+    is the rank's sequence block, so the norm's replicated weights enter a
+    computation that differs by rank: fanned out (their gradients summed
+    over tp, as Megatron all-reduces its sequence-parallel norms')."""
+    if ctx is not None and ctx.seq_len:
+        p = {k: fan_out(ctx, p[k]) for k in (f"{name}_scale", f"{name}_bias") if k in p}
+    return apply_norm(cfg, p, name, x)
+
+
+def sublayer(ctx: Optional[ParallelCtx], fn, x: torch.Tensor, *args, **kw):
+    """``fn(x, ...)``'s first result as a residual-stream update: under
+    sequence parallelism ``x`` (the shard) is gathered first and the result
+    given back as the rank's block; other results pass through."""
+    if ctx is None or not ctx.seq_len:
+        return fn(x, *args, **kw)
+    out = fn(seq_gather(ctx, x), *args, **kw)
+    if isinstance(out, tuple):
+        return (seq_shard(ctx, out[0]),) + tuple(out[1:])
+    return seq_shard(ctx, out)
+
+
+# ---------------------------------------------------------------------------
+# The pooled KV prefix under a mesh
+# ---------------------------------------------------------------------------
+
+
+def prefix_spec(cfg, ctx: ParallelCtx):
+    """The layout of a layer's pooled prefix K or V (B, Sp, Hkv, hd) under a
+    mesh: the kv heads over tp where they split evenly, else the head dim,
+    else whole (``cache_pspecs``'s rule without its sequence option: a page
+    holds every position of its span on every rank)."""
+    none = mc.P(None, None, None, None)
+    if not ctx.tp:
+        return none
+    T = ctx.tp_size
+    if cfg.num_kv_heads % T == 0:
+        return mc.P(None, None, ctx.tp, None)
+    if cfg.head_dim % T == 0:
+        return mc.P(None, None, None, ctx.tp)
+    return none
+
+
+def prefix_dims(cfg, ctx: Optional[ParallelCtx]) -> Tuple[int, int]:
+    """(kv heads, head dim) of the rank's pooled prefix (whole without a
+    mesh)."""
+    if not active(ctx):
+        return cfg.num_kv_heads, cfg.head_dim
+    spec = prefix_spec(cfg, ctx)
+    T = ctx.tp_size
+    return (cfg.num_kv_heads // (T if spec[2] else 1), cfg.head_dim // (T if spec[3] else 1))
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,12 @@ Under a mesh (``ctx`` and the layer's weight ``spec``; ``models/parallel.py``)
 with r/k/v/g column-split over tp, each rank runs the recurrence on its
 heads (the kernel at the local head count): its decay channels, bonus rows
 and group-norm affine are slices of the whole ones, and ``wo``'s row shard
-ends in a ``psum``. The channel mix is Megatron's column / row pair for
-``ck``/``cv``, with ``cr``'s column shard all-gathered. The shift carries
-stay whole (the layer input is replicated); the heads must split evenly.
+ends in a ``psum``. Where the heads do not split evenly over tp
+(rwkv6-3b's 40 over 16), every rank runs every head, and ``wo``'s row shard
+takes the rank's rows of the whole output before the ``psum``. The channel
+mix is Megatron's column / row pair for ``ck``/``cv``, with ``cr``'s column
+shard all-gathered. The shift carries stay whole (the layer input is
+replicated).
 """
 
 from __future__ import annotations
@@ -128,12 +131,18 @@ def _tp(ctx, spec) -> bool:
 
 
 def _tp_heads(cfg, ctx) -> Tuple[int, int]:
+    """[h0, h1) of the heads this rank runs: its tp share where they split
+    evenly, else all of them."""
     H = cfg.d_model // cfg.ssm.head_dim
-    lh = par.local_heads(ctx, H)
-    if lh is None:
-        raise NotImplementedError(f"{cfg.name}: {H} rwkv heads do not split over "
-                                  f"{ctx.tp_size} tp ranks")
-    return lh
+    return par.local_heads(ctx, H) or (0, H)
+
+
+def _mine(ctx, t: torch.Tensor, lo: int, hi: int, whole: int, dim: int = -1) -> torch.Tensor:
+    """[lo, hi) of ``dim`` of a replicated value, fanned out where it is the
+    rank's own share of ``whole``; all of it is used alike on every rank."""
+    if hi - lo == whole:
+        return t
+    return par.fan_out(ctx, t).narrow(dim, lo, hi - lo)
 
 
 def _projections_tp(cfg, p: Params, spec, x, xs, ctx):
@@ -147,19 +156,25 @@ def _projections_tp(cfg, p: Params, spec, x, xs, ctx):
     r, k, v, g = (par.heads(ctx, xm, p[w], None, spec[w], want, H, N)
                   for xm, w in zip(mixed, ("wr", "wk", "wv", "wg")))
     g = F.silu(g.flatten(-2))
-    w_log = par.fan_out(ctx, _decay(p, mixed[4]))[..., h0 * N:h1 * N]
+    w_log = _mine(ctx, _decay(p, mixed[4]), h0 * N, h1 * N, H * N)
     return r, k, v, g, w_log.unflatten(-1, (h1 - h0, N)).contiguous(), (h0, h1)
 
 
 def _out_tp(ctx, p: Params, spec, y, g, x_dtype, h01, N):
     """``_out`` on the rank's heads: its slice of the affine, then ``wo``'s
-    row shard and a ``psum``."""
+    row shard and a ``psum`` (every head run: the rank's rows of the whole
+    output, as ``parallel.row_out``)."""
     h0, h1 = h01
     yh = layer_norm(y, None, None)
-    sl = slice(h0 * N, h1 * N)
-    aff = yh.flatten(-2) * par.fan_out(ctx, p["ln_x_scale"])[sl] + par.fan_out(
-        ctx, p["ln_x_bias"])[sl]
-    return mc.psum((aff.to(x_dtype) * g) @ p["wo"], ctx.mesh, ctx.tp)
+    D = p["ln_x_scale"].shape[-1]
+    aff = (yh.flatten(-2) * _mine(ctx, p["ln_x_scale"], h0 * N, h1 * N, D)
+           + _mine(ctx, p["ln_x_bias"], h0 * N, h1 * N, D))
+    o = aff.to(x_dtype) * g
+    wo = p["wo"]  # rows split over tp exactly where wr's columns are (both D % tp)
+    if h1 - h0 != D // N:
+        return par.reduce_out(ctx, o @ wo)
+    lo = ctx.tp_index * wo.shape[0]
+    return par.reduce_out(ctx, par.fan_out(ctx, o)[..., lo:lo + wo.shape[0]] @ wo)
 
 
 def rwkv_time_mix(cfg, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor], *,
@@ -175,7 +190,7 @@ def rwkv_time_mix(cfg, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor
     scan = kops.wkv6_op if use_kernels else ref.wkv6_chunked_ref
     if _tp(ctx, spec):
         r, k, v, g, w_log, h01 = _projections_tp(cfg, p, spec, x, token_shift(x, x_prev), ctx)
-        u = par.fan_out(ctx, p["bonus"])[h01[0]:h01[1]]
+        u = _mine(ctx, p["bonus"], h01[0], h01[1], H, dim=0)
         y, state = scan(r, k, v, w_log, u, chunk=s.chunk_size)
         return _out_tp(ctx, p, spec, y, g, x.dtype, h01, N), state, x[:, -1]
     r, k, v, g, w_log = _projections(p, x, token_shift(x, x_prev))
@@ -193,7 +208,7 @@ def rwkv_time_mix_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
     H, N = D // s.head_dim, s.head_dim
     if _tp(ctx, spec):
         r, k, v, g, w_log, h01 = _projections_tp(cfg, p, spec, x, x_prev, ctx)
-        u = par.fan_out(ctx, p["bonus"])[h01[0]:h01[1]]
+        u = _mine(ctx, p["bonus"], h01[0], h01[1], H, dim=0)
         y, state = wkv6_step(r, k, v, w_log, u, state)
         return _out_tp(ctx, p, spec, y, g, x.dtype, h01, N), state, x
     r, k, v, g, w_log = _projections(p, x, x_prev)

@@ -26,8 +26,12 @@ mesh builds the engine from the whole parameters, keeps its shards
 same prompts: each rank prefills and decodes its rows of the batch (split
 over the dp axes) on its shards, the logits are full-vocabulary on every
 rank, and the generated ids are all-gathered over dp, so every rank returns
-the whole batch's tokens. The KV prefix path under a mesh is not ported:
-``kv_prefix=`` with a mesh raises.
+the whole batch's tokens. With ``kv_prefix=`` as well, each rank keeps its
+own prefix cache over a pool of its layout (``kv_cache.pool_for_config(cfg,
+mesh=, profile=)``): a registered prefix is batch row 0 of the rank's cache
+block, taken to the pool's layout (``lm.prefix_of``), and a hit extends the
+rank's rows from the rank's pages (``lm.prefill_extend(ctx=)``). The ranks
+call their caches in lockstep, so they hit, miss and evict alike.
 
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
@@ -50,6 +54,7 @@ from repro_torch.configs.base import ModelConfig, ShardingProfile
 from repro_torch.distributed import mesh_compat as mc
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
+from repro_torch.models import parallel as par
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import trace_span
 from repro_torch.obs.names import SPAN_ENGINE_GENERATE
@@ -85,9 +90,6 @@ class Engine:
                 f"{cfg.name}: an Engine serves token prompts; the audio family also "
                 "needs the frontend's frames: call lm.prefill(cfg, params, tokens, "
                 "frames=...) and lm.decode_step instead")
-        if mesh is not None and kv_prefix is not None:
-            raise NotImplementedError("the KV prefix path under a mesh is not ported: "
-                                      "an Engine with mesh= takes no kv_prefix")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -101,17 +103,30 @@ class Engine:
         self.max_len = max_len
         self.stats = EngineStats()
         self.kv_prefix = kv_prefix if cfg.family in _PREFIX_FAMILIES else None
+        if self.kv_prefix is not None:
+            want = par.prefix_dims(cfg, self.ctx)
+            if self.kv_prefix.pool.page_layout != want:
+                raise ValueError(
+                    f"kv_prefix's pool holds pages of {self.kv_prefix.pool.page_layout} (kv "
+                    f"heads, head dim); this engine's rank needs {want}: build it with "
+                    f"pool_for_config(cfg, mesh=, profile=) as the engine's")
 
     def _rows(self, tokens: np.ndarray) -> np.ndarray:
         """This rank's rows of a whole batch (all of them without a mesh)."""
         if self.ctx is None or not self.ctx.dp:
             return tokens
-        n = self.mesh.axis_size(self.ctx.dp)
+        n = self._n_dp()
         if tokens.shape[0] % n:
             raise ValueError(f"batch {tokens.shape[0]} does not split over {n} dp ranks")
         b = tokens.shape[0] // n
         i = self.mesh.axis_index(self.ctx.dp)
         return tokens[i * b:(i + 1) * b]
+
+    def _n_dp(self) -> int:
+        """The dp ranks a whole batch splits over (1 without a mesh)."""
+        if self.ctx is None or not self.ctx.dp:
+            return 1
+        return self.mesh.axis_size(self.ctx.dp)
 
     def _whole(self, ids: np.ndarray) -> np.ndarray:
         """The whole batch's generated ids from this rank's rows."""
@@ -160,12 +175,13 @@ class Engine:
         """Copy the first ``prefix_len`` cached positions of batch row 0 (the
         template prefix is identical across rows by construction) into the
         page pool under ``template_id``. Call right after the full prefill
-        that built ``cache``, before decode writes into it."""
+        that built ``cache``, before decode writes into it. Under a mesh:
+        row 0 of the rank's rows, the rank's block of it."""
         if self.kv_prefix is None:
             return False
+        k, v = lm.prefix_of(self.cfg, cache, self.ctx)
         try:
-            self.kv_prefix.put(template_id, cache["kv_k"][:, 0], cache["kv_v"][:, 0],
-                               length=prefix_len)
+            self.kv_prefix.put(template_id, k, v, length=prefix_len)
         except PagePoolExhausted:
             # registration is best-effort: the full prefill already served
             # this request; a pool too small (or a still-leased stale
@@ -199,12 +215,12 @@ class Engine:
             pk, pv, plen = self.kv_prefix.gather(lease, batch=B)
             toks = torch.as_tensor(np.asarray(suffix_tokens), device=self.device)
             logits, cache = lm.prefill_extend(self.cfg, self.params, toks, pk, pv, plen,
-                                              cache_len=self.max_len)
+                                              cache_len=self.max_len, ctx=self.ctx)
             logits = logits[:, -1]
             self.stats.prefill_s += self._clock() - t0
             self.stats.prefill_tokens += int(
                 suffix_tokens.size if n_valid is None else n_valid)
-            self.stats.prefix_tokens_reused += B * plen
+            self.stats.prefix_tokens_reused += B * self._n_dp() * plen
             return logits, cache
         finally:
             self.kv_prefix.release_lease(lease)

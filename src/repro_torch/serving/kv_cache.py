@@ -115,6 +115,16 @@ class PagePool:
         idx = self._rows(rows)
         return self._k.index_select(1, idx), self._v.index_select(1, idx)
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the K and V slabs."""
+        return 2 * self._k.numel() * self._k.element_size()
+
+    @property
+    def page_layout(self) -> Tuple[int, int]:
+        """(kv heads, head dim) a page holds."""
+        return int(self._k.shape[3]), int(self._k.shape[4])
+
     def kernel_view(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (N, page_size, Hkv, hd) slabs one layer of the paged decode
         kernel reads through its page table (views, not copies)."""
@@ -122,11 +132,26 @@ class PagePool:
 
 
 def pool_for_config(cfg, *, num_pages: int = 64, page_size: int = 16,
-                    device=None) -> PagePool:
+                    device=None, mesh=None, profile=None) -> PagePool:
     """Size a pool to a model config (dense-family cache geometry), in the
-    config's cache dtype, on ``device`` (CUDA unless asked otherwise)."""
+    config's cache dtype, on ``device`` (CUDA unless asked otherwise).
+
+    With ``mesh=`` (and the engine's ``profile=``, default as ``Engine``'s)
+    the pool is one rank's: its pages hold the rank's block of each prefix
+    (``models.parallel.prefix_spec``: kv heads over tp where they split,
+    else the head dim), so a rank's pool holds 1/tp of the whole pool's
+    bytes where either splits. Every rank keeps its own pool and calls it
+    in lockstep with the others, so all make the same alloc, evict and
+    lease decisions."""
+    heads, hd = cfg.num_kv_heads, cfg.head_dim
+    if mesh is not None:
+        from repro_torch.configs.base import ShardingProfile
+        from repro_torch.models import parallel as par
+
+        ctx = par.ParallelCtx.from_profile(mesh, profile or ShardingProfile())
+        heads, hd = par.prefix_dims(cfg, ctx)
     return PagePool(
-        cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
+        cfg.num_layers, num_pages, page_size, heads, hd,
         dtype=dtype_of(cfg.dtype), device=device,
     )
 

@@ -14,6 +14,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.rwkv6 import wkv6  # noqa: E402
+from repro_torch.kernels.ssd import ssd  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -251,8 +255,10 @@ def test_softcap_plain_path_matches_model_reference():
 
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     """Dispatch is by the tensor's device: a CPU tensor takes the plain
-    version and never asks for the CUDA library; a non-CPU tensor goes to
-    the kernel launcher, which refuses a device it cannot launch on."""
+    version and never asks for the CUDA library, and so does a meta tensor
+    (the dry-run's; shapes only); any other tensor goes to the kernel
+    launcher, which refuses a device it cannot launch on (here called on
+    meta tensors directly, the one non-CPU device this container has)."""
     def no_build(name):
         raise AssertionError(f"CPU tensors must not build {name}")
 
@@ -271,13 +277,22 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
                        torch.ones(4), chunk=4)
     assert y.shape == (1, 5, 4, 32) and st.shape == (1, 4, 32, 32)
     meta = torch.empty(1, 5, 4, 32, device="meta")
+    mu = torch.empty(4, 32, device="meta")
+    mdt, mh = torch.empty(1, 5, 4, device="meta"), torch.empty(4, device="meta")
+    o = ops.flash_attention_op(meta, meta[:, :, :2], meta[:, :, :2])
+    assert o.device.type == "meta" and o.shape == (1, 5, 4, 32)
+    o = ops.decode_attention_op(meta[:, :1], meta, meta, torch.tensor(5, device="meta"))
+    assert o.device.type == "meta" and o.shape == (1, 1, 4, 32)
+    y, st = ops.wkv6_op(meta, meta, meta, meta.float(), mu, chunk=4)
+    assert y.device.type == "meta" and st.shape == (1, 4, 32, 32)
+    y, st = ops.ssd_op(meta, mdt, mh, meta[:, :, 0], meta[:, :, 0], mh, chunk=4)
+    assert y.device.type == "meta" and st.shape == (1, 4, 32, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention_op(meta, meta[:, :, :2], meta[:, :, :2])
+        flash_attention(meta, meta[:, :, :2], meta[:, :, :2])
     with pytest.raises(ValueError, match="CUDA"):
-        ops.wkv6_op(meta, meta, meta, meta.float(), torch.empty(4, 32, device="meta"))
+        wkv6(meta, meta, meta, meta.float(), mu)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssd_op(meta, torch.empty(1, 5, 4, device="meta"), torch.empty(4, device="meta"),
-                   meta[:, :, 0], meta[:, :, 0], torch.empty(4, device="meta"))
+        ssd(meta, mdt, mh, meta[:, :, 0], meta[:, :, 0], mh)
 
 
 def _page_table(B, P, npages, ps, lengths, seed=0):
@@ -346,8 +361,8 @@ def test_paged_plain_equals_dense_plain_on_gathered_cache(ps):
 
 def test_paged_op_softcap_on_cpu_and_refusals():
     """A nonzero softcap is applied by the plain paged path as by the plain
-    decode path; a non-CPU tensor goes to the launcher, which refuses a
-    device it cannot launch on."""
+    decode path; a meta tensor takes the plain path too; the launcher
+    refuses a device it cannot launch on."""
     q = torch.randn(2, 1, 4, 32)
     pages = torch.randn(6, 8, 2, 32)
     table = torch.tensor([[3, 1, -1], [0, 5, 2]], dtype=torch.int32)
@@ -359,8 +374,11 @@ def test_paged_op_softcap_on_cpu_and_refusals():
     assert torch.equal(o, od)
     meta = torch.empty(2, 1, 4, 32, device="meta")
     mpages = torch.empty(6, 8, 2, 32, device="meta")
+    mtable, mlens = table.to("meta"), lens.to("meta")
+    o = ops.paged_decode_attention_op(meta, mpages, mpages, mtable, mlens)
+    assert o.device.type == "meta" and o.shape == (2, 1, 4, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.paged_decode_attention_op(meta, mpages, mpages, table, lens)
+        paged_decode_attention(meta, mpages, mpages, mtable, mlens)
 
 
 # tolerances of tests/test_kernels.py's sweeps: the chunked and sequential
