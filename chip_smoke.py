@@ -130,7 +130,19 @@ printing the ok line):
    train step also under ``seq_parallel`` and remat "dots"; beside (b), a
    dry-run (``launch/dryrun.py``) of ``MULTI_DRYRUN_CELLS`` on the host's
    CPU. Four ranks on one card check correctness and launch shapes, not
-   four-card speed.
+   four-card speed. (c) the dry-run's memory on the card
+   (``dryrun --device cuda``) of ``CARD_DRYRUN_CELLS`` in a process of its
+   own, its meta runs beside (b) and its card runs after (b)'s ranks have
+   exited: each cell's peak inside 80 GB with temporaries above 0, flash
+   once a layer at S = 32,768 for the prefill cell, decode once a layer
+   over a 32,768-token cache for the decode cell;
+12. the example drivers' twins (``repro_torch.examples``; constants
+   ``QUICKSTART_LINES`` to ``EXAMPLE_TRAIN_STEPS``) through their entry
+   points: ``quickstart`` and ``distributed_cache_demo`` print the
+   reference's lines, ``serve_agent --full`` serves at published widths
+   with the reference example's per-task lines, hits, accuracy, cost and
+   tokens, launching flash and decode, and ``train_small`` trains through
+   one NaN rollback to a falling loss.
 
 Output: a ``[phase]`` line as each phase ends, one ``{"kernels": [...]}``
 line, one ``{"serve": {...}}`` line, one ``{"baselines": {...}}`` line, one
@@ -142,7 +154,9 @@ and served-logits errors, the cold runs), one ``{"sim": {...}}`` line
 (phase 10: cells, hash checks, audit trips, top-k launches, the soak,
 seconds), one ``{"multi": {...}}`` line (phase 11: backends, each check's
 error, launches a rank, collective calls and bytes by kind, staged bytes,
-seconds, peak memory), the nvidia-smi line, and last
+seconds, peak memory; (c) the card's dry-run cells), one ``{"examples":
+{...}}`` line (phase 12: each twin's printed lines, serve_agent's launches
+and wall), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
 ``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -162,6 +176,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch import kernels as kernel_table  # noqa: E402  (imports nothing at load)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
@@ -546,6 +562,79 @@ MULTI_PREFIX_LEN, MULTI_PREFIX_PAGE, MULTI_PREFIX_PAGES = 128, 32, 16
 MULTI_PREFIX_ROWS, MULTI_PREFIX_SUFFIX = 4, 24
 MULTI_DRYRUN_CELLS = (("olmo-1b", "prefill_32k", "single"), ("qwen3-4b", "decode_32k", "single"),
                       ("olmo-1b", "train_4k", "multi"))
+# (c) the dry-run's memory on the card (dryrun --device cuda) after (b)'s
+# ranks have exited, in a process of its own: the two serving cells of
+# MULTI_DRYRUN_CELLS and olmo-1b's train cell on the single-pod mesh. Its
+# multi-pod train cell runs all 256 rows x 4,096 tokens on every rank (256
+# rows do not split over 512 ranks): 16 remat checkpoints of 4.3 GB each
+# pass 80 GB before the loss, so the sweep records it out of memory. The
+# prefill cell runs flash once a layer (S = 32,768), the decode cell decode
+# once a layer (a 32,768-token cache), the train step no kernel.
+CARD_DRYRUN_CELLS = (("olmo-1b", "prefill_32k", "single"), ("qwen3-4b", "decode_32k", "single"),
+                     ("olmo-1b", "train_4k", "single"))
+CARD_DRYRUN_KERNEL = {"prefill_32k": "flash_attention", "decode_32k": "decode_attention"}
+
+# phase 12: the example drivers' twins (repro_torch.examples), each through
+# its entry point on the card. quickstart and distributed_cache_demo are
+# host-only: their lines are the reference's (examples/*.py on the CPU). A
+# quickstart row's latency is a simulated latency plus the cache lookups'
+# measured time, which no pin can hold: the twin prints the two parts to
+# stderr, the simulated part is pinned (QUICKSTART_SIMULATED_S, the twin's
+# on the CPU, within QUICKSTART_SIMULATED_TOL), and the row's printed
+# latency is held to the sum (QUICKSTART_LINES' latency column is the
+# reference's CPU reading, lookups included). serve_agent runs at published
+# widths; its hits, accuracy, cost and tokens served come from the
+# simulated behavioural layer and do not depend on the widths, so they are
+# the reference example's at --n EXAMPLE_SERVE_N (its per-task lines and
+# summary but the wall). train_small runs EXAMPLE_TRAIN_STEPS steps with
+# the NaN at half of them.
+QUICKSTART_LINES = (
+    "method                accuracy   cost $  latency s   hit%",
+    "accuracy_optimal         0.892    2.438     2769.8   0.0%",
+    "cost_optimal             0.433    0.126     1362.4   0.0%",
+    "semantic                 0.550    1.471     1670.1  39.2%",
+    "full_history             0.808    1.524     2013.0  38.3%",
+    "apc                      0.867    1.535     2218.0  38.3%",
+    "cascade                  0.792    1.388     2052.8  45.0%",
+    "speculative              0.867    1.534     2212.5  40.0%",
+    "",
+    "APC vs accuracy-optimal: cost -37.1%, latency -19.9%, accuracy kept 97.2% "
+    "(paper: -50.31%, -27.28%, 96.61%)",
+)
+QUICKSTART_SIMULATED_S = {
+    "accuracy_optimal": 2769.803243678161, "cost_optimal": 1362.443909090909,
+    "semantic": 1670.1077988505747, "full_history": 2013.012364367816,
+    "apc": 2218.0361749738768, "cascade": 2052.821645088819,
+    "speculative": 2212.5088445141064,
+}
+QUICKSTART_SIMULATED_TOL = 1e-6  # (latency + lookup) - lookup, summed over 120 tasks
+DCACHE_DEMO_LINES = (
+    "== populate a 6-node replicated cache from a real APC run ==",
+    "run: accuracy=0.87 hit_rate=0.38 entries=72",
+    "load by node: {'cache-0': 37, 'cache-1': 28, 'cache-2': 31, 'cache-3': 13, "
+    "'cache-4': 19, 'cache-5': 16}",
+    "",
+    "== crash one node: replicas keep serving ==",
+    "after cache-3 down: 72/72 keys still served",
+    "",
+    "== elastic scale-out: add two nodes ==",
+    "load by node: {'cache-0': 19, 'cache-1': 21, 'cache-2': 26, 'cache-3': 8, "
+    "'cache-4': 15, 'cache-5': 13, 'cache-6': 22, 'cache-7': 20}",
+    "all keys reachable after rescale: 72/72",
+    "",
+    "== graceful decommission (keys re-homed, not lost) ==",
+    "after removing cache-0: 72/72 keys reachable",
+)
+EXAMPLE_SERVE_N = 2  # at 4 the script took about 800 s on the card (PERF.md)
+SERVE_AGENT_LINES = (  # after the tiers line; the summary's wall left out
+    "  [  1] MISS kw=weekly total                         correct=True",
+    "  [  2] MISS kw=discounted price                     correct=True",
+    "",
+    "n=2  accuracy=1.00  hit_rate=0.00  cost=$0.037",
+    "engine tokens served: {'large_planner': 260, 'small_planner': 56, 'actor': 98, "
+    "'keyword_extractor': 56}",
+)
+EXAMPLE_TRAIN_STEPS = 60
 
 
 # the prefix phase's router run: the 16 tasks in route_batch waves of 4 over
@@ -1683,7 +1772,7 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census
     from repro_torch.envs.workloads import get_env
     from repro_torch.serving.torch_backend import TorchBackend
 
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     backend = TorchBackend(engines, seed=0)
     ledger = CostLedger(pricing_map=dict(DEFAULT.pricing))
     agent = make_agent(backend, ledger)
@@ -1691,7 +1780,7 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census
     uniq = {id(e): e for e in engines.values()}.values()
     before = {id(e): dataclasses.replace(e.stats) for e in uniq}
 
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     t0 = time.perf_counter()
     recs = [agent.run_task(t) for t in tasks]
     torch.cuda.synchronize()
@@ -1895,8 +1984,8 @@ def serve_prefix(torch, engines):
     from repro_torch.serving.kv_cache import KVPrefixCache, plan_cache_point, pool_for_config
     from repro_torch.serving.router import TwoTierRouter
 
-    kernels = _kernel_launchers()
-    _reset_counts(kernels)
+    kernels = kernel_table.launchers()
+    kernel_table.reset_counts(kernels)
     t_phase = time.perf_counter()
     olmo, nemo = engines["small_planner"], engines["large_planner"]
     kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"))
@@ -2043,7 +2132,7 @@ def serve_dcache(torch, engines):
     from repro_torch.obs.names import EVENT_NAMES, SPAN_NAMES
     from repro_torch.serving.router import TwoTierRouter
 
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     tok = HashTokenizer()
     nemo, olmo = engines["large_planner"], engines["small_planner"]
     tasks = get_env("financebench").generate(N_TASKS, seed=0)
@@ -2081,7 +2170,7 @@ def serve_dcache(torch, engines):
     mem = InMemoryExporter()
     tracer = Tracer(exporters=[mem, JsonlExporter(os.path.join(out_dir, "trace.jsonl"))])
     waves = dcache_waves(tasks)
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     t0 = time.perf_counter()
     with use_tracer(tracer):
         repaired, mem_before, mem_after = drive_dcache(router, cache, waves, probe=allocated)
@@ -2300,8 +2389,8 @@ def serve_prefix_families(torch, fam):
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
 
-    kernels = _kernel_launchers()
-    _reset_counts(kernels)
+    kernels = kernel_table.launchers()
+    kernel_table.reset_counts(kernels)
     t0 = time.perf_counter()
     out = {}
     for i, role in enumerate(("small_planner", "actor")):  # granite, qwen2-vl
@@ -2381,7 +2470,7 @@ def check_whisper(torch):
     from repro_torch.configs import registry
     from repro_torch.models import lm
 
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     flash, decode = kernels["flash_attention"], kernels["decode_attention"]
     full = registry.get("whisper-tiny")
     cpu_gen = torch.Generator().manual_seed(51)
@@ -2392,7 +2481,7 @@ def check_whisper(torch):
     for dname in ("float32", "bfloat16"):
         cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
         p_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(52), "cuda")
-        _reset_counts(kernels)
+        kernel_table.reset_counts(kernels)
         t0 = time.perf_counter()
         lg, c = lm.prefill(cfg, p_gpu, prompt.cuda(), cache_len=64, frames=frames.cuda())
         torch.cuda.synchronize()
@@ -2593,8 +2682,8 @@ def check_grad_refusals(torch):
     input that requires grad (none has a backward)."""
     from repro_torch.kernels import ops
 
-    kernels = _kernel_launchers()
-    _reset_counts(kernels)
+    kernels = kernel_table.launchers()
+    kernel_table.reset_counts(kernels)
     f32 = dict(device="cuda", dtype=torch.float32)
     bf = dict(device="cuda", dtype=torch.bfloat16)
 
@@ -2645,11 +2734,11 @@ def serve_trained(torch, cfg, params):
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
 
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     eng = Engine(cfg, params, max_len=SERVED_PROMPT + SERVED_NEW + 8, device="cuda")
     prompt = np.random.RandomState(71).randint(16, min(cfg.vocab_size, 4096),
                                                (1, SERVED_PROMPT)).astype(np.int32)
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     logits, cache = eng.prefill(prompt)
     flash_n = kernels["flash_attention"].launches
     steps = []
@@ -2728,7 +2817,7 @@ def cold_on_card(torch, root):
     from repro_torch.core.cache import PlanCache
     from repro_torch.core.distributed_cache import DistributedPlanCache
 
-    topk = _kernel_launchers()["topk_cosine"]
+    topk = kernel_table.launchers()["topk_cosine"]
     out = {}
     for name, want in COLD_EXPECT.items():
         topk.launches = 0
@@ -2773,7 +2862,7 @@ def sim_on_card(torch):
     from repro_torch.sim.__main__ import matrix_cells
 
     t0 = time.perf_counter()
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     out = {"fuzzy": {}, "other": {}, "audit_trips": {}}
     cells = [(tag, cfg) for seed in range(SIM_SEEDS) for tag, cfg in sum(matrix_cells(seed), [])]
     soak = SimConfig(**SIM_SOAK)
@@ -2781,7 +2870,7 @@ def sim_on_card(torch):
                              initializer=torch.set_num_threads, initargs=(1,)) as pool:
         on_cpu = {tag: pool.submit(run_sim, cfg, device="cpu", index_backend="device")
                   for tag, cfg in cells + [("soak", soak)] if cfg.normalized().fuzzy}
-        _reset_counts(kernels)
+        kernel_table.reset_counts(kernels)
         hash_checks = _sim_card_cells(cells, soak, on_cpu, kernels["topk_cosine"], out)
         launches = {n: fn.launches for n, fn in kernels.items()}
     if set(n for n, v in launches.items() if v) != {"topk_cosine"}:
@@ -2893,29 +2982,6 @@ def free_memory(torch):
     torch.cuda.empty_cache()
 
 
-def _reset_counts(kernels):
-    """Every launch counter of ``kernels`` to 0 (the totals and the
-    ``launches_by_*`` breakdowns)."""
-    for fn in kernels.values():
-        fn.launches = 0
-        for name in ("launches_by_hd", "launches_by_causal"):
-            if hasattr(fn, name):
-                getattr(fn, name).clear()
-
-
-def _kernel_launchers():
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.rwkv6 import wkv6
-    from repro_torch.kernels.similarity import topk_cosine
-    from repro_torch.kernels.ssd import ssd
-
-    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "paged_decode_attention": paged_decode_attention, "topk_cosine": topk_cosine,
-            "wkv6": wkv6, "ssd": ssd}
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3011,7 +3077,7 @@ def multi_nccl(rank, world):
     torch.backends.cudnn.allow_tf32 = False
     lmesh.phase("nccl")
     t0 = time.perf_counter()
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     cfg = engine_config(MULTI_ARCH, full=True)
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         arch_seed(MULTI_ARCH)), "cuda")
@@ -3023,7 +3089,7 @@ def multi_nccl(rank, world):
                               profile=registry.get_sharding(MULTI_ARCH))}
     got = {}
     for name, eng in engines.items():
-        _reset_counts(kernels)
+        kernel_table.reset_counts(kernels)
         mc.reset_counters()
         toks, logits = _greedy(torch, eng, batch, MULTI_NEW)
         gen = eng.generate(batch, MULTI_NEW)
@@ -3067,7 +3133,7 @@ def multi_nccl(rank, world):
         kv = KVPrefixCache(pool_for_config(cfg, num_pages=MULTI_PREFIX_PAGES,
                                            page_size=MULTI_PREFIX_PAGE, device="cuda", **kw))
         eng = Engine(cfg, params, max_len=max_len, device="cuda", kv_prefix=kv, **kw)
-        _reset_counts(kernels)
+        kernel_table.reset_counts(kernels)
         toks, logits = _greedy(torch, eng, prefix_prompts, MULTI_NEW,
                                prefix_len=MULTI_PREFIX_LEN)
         torch.cuda.synchronize()
@@ -3171,7 +3237,7 @@ def multi_rank(rank, world, ref):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
-    kernels = _kernel_launchers()
+    kernels = kernel_table.launchers()
     out = {"device": str(torch.cuda.current_device()), "seconds": {}, "checks": {},
            "errors": {}}
 
@@ -3197,7 +3263,7 @@ def multi_rank(rank, world, ref):
                  max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8)
     torch.cuda.empty_cache()
     seen, kerr, undo = _head_probe(torch, ops)
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     try:
         _, logits = _greedy(torch, eng, ref["prompt"], MULTI_NEW, forced=ref["tokens"])
         launches = {n: kernels[n].launches for n in ("flash_attention", "decode_attention")}
@@ -3237,7 +3303,7 @@ def multi_rank(rank, world, ref):
                  device="cuda", max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8, kv_prefix=kv)
     torch.cuda.empty_cache()
     seen, kerr, undo = _head_probe(torch, ops)
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     try:
         _, logits = _greedy(torch, eng, ref["prefix_prompts"], MULTI_NEW,
                             forced=ref["prefix_tokens"], prefix_len=MULTI_PREFIX_LEN)
@@ -3250,7 +3316,7 @@ def multi_rank(rank, world, ref):
     heads = {n: dict((f"{q}/{k}", c) for (q, k), c in s.items()) for n, s in seen.items()}
     kerr = {n: float(e) for n, e in kerr.items()}
     # the paged kernel over the rank's pool, at its local heads
-    _reset_counts(kernels)
+    kernel_table.reset_counts(kernels)
     paged = paged_over_pool(torch, kv, dataclasses.replace(cfg, num_heads=local[0]), ["tpl"],
                             seed=17)
     paged_launches = kernels["paged_decode_attention"].launches
@@ -3455,38 +3521,51 @@ import json, sys, time
 import torch
 from repro_torch.launch import dryrun, roofline
 t0 = time.perf_counter()
+device = sys.argv[3]
+if device == "cuda":
+    torch.empty(1, device="cuda")  # the CUDA context before the card lock is free
 rows = []
 for arch, shape, mesh in json.loads(sys.argv[2]):
-    rec = dryrun.run_cell(arch, shape, mesh, results=sys.argv[1])
+    rec = dryrun.run_cell(arch, shape, mesh, results=sys.argv[1], device=device)
     row = {"cell": [arch, shape, mesh], "ok": rec["ok"], "error": rec.get("error"),
            "seconds": rec["total_s"]}
     if rec["ok"]:
         r = roofline.analyze_cell(f"{sys.argv[1]}/{arch}__{shape}__{mesh}.json")
         row.update({k: r[k] for k in ("meta_flops", "collective_bytes", "compute_s",
-                                      "memory_s", "collective_s", "dominant")})
-        row["argument_bytes"] = rec["memory"]["argument_bytes"]
+                                      "memory_s", "collective_s", "dominant", "fits_hbm_80g",
+                                      "fits_hbm_80g_est")})
+        mem = rec["memory"]
+        row["argument_bytes"] = mem["argument_bytes"]
+        if device == "cuda":
+            row.update({k: mem.get(k) for k in ("peak_bytes", "base_bytes", "temp_bytes",
+                                                "launches", "measured_on", "oom")})
+            row["card_s"] = rec.get("card_s")
     rows.append(row)
 print(json.dumps({"torch": torch.__version__, "cells": rows,
                   "seconds": time.perf_counter() - t0}))
 """
 
 
-def start_dryrun():
-    """The dry-run of MULTI_DRYRUN_CELLS on the host's CPU in a process of
-    its own (no card: CUDA_VISIBLE_DEVICES is empty): (process, its records'
-    directory)."""
+def start_dryrun(cells, device="meta", out=None):
+    """A dry-run of ``cells`` in a process of its own: on the host's CPU (no
+    card: CUDA_VISIBLE_DEVICES is empty) with ``device="meta"``; with
+    ``"cuda"`` each cell's memory also measured on the card once its lock
+    (``dryrun.card_lock`` on the records' directory) is free. Returns
+    (process, its records' directory: ``out`` or a new one)."""
     import tempfile
 
-    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+    out = out or tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_PROBE, out,
-                             json.dumps(MULTI_DRYRUN_CELLS)], env=env, cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    if device == "meta":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_PROBE, out, json.dumps(cells), device],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
     return proc, out
 
 
-def finish_dryrun(proc, out):
+def finish_dryrun(proc, out, cells):
     """Wait for ``start_dryrun``'s process (killed past MULTI_TIMEOUT_S) and
     read its cells; every cell must have run."""
     import shutil
@@ -3502,16 +3581,38 @@ def finish_dryrun(proc, out):
         raise AssertionError(f"multi: the dry-run exited {proc.returncode}: {stderr[-3000:]}")
     got = json.loads(stdout.strip().splitlines()[-1])
     bad = [c for c in got["cells"] if not c["ok"]]
-    if bad or len(got["cells"]) != len(MULTI_DRYRUN_CELLS):
+    if bad or len(got["cells"]) != len(cells):
         raise AssertionError(f"multi: dry-run cells failed: {bad}")
     return got
+
+
+def check_card_dryrun(card):
+    """Phase 11(c): every cell measured on the card, with temporaries, inside
+    80 GB, and the path's kernel launched once a layer (no kernel in the
+    train step)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    for c in card["cells"]:
+        arch, shape, _ = c["cell"]
+        if not (not c["oom"] and c["temp_bytes"] > 0 and c["peak_bytes"] <= HBM_BYTES
+                and c["fits_hbm_80g"] is True):
+            raise AssertionError(f"multi(c): {c['cell']} on the card: {c}")
+        want = {k: 0 for k in c["launches"]}
+        if shape in CARD_DRYRUN_KERNEL:
+            want[CARD_DRYRUN_KERNEL[shape]] = registry.get(arch).num_layers
+        if c["launches"] != want:
+            raise AssertionError(f"multi(c): {c['cell']} launched {c['launches']}, "
+                                 f"expected {want}")
 
 
 def multi_on_card(torch):
     """Phase 11: (a) one NCCL rank at world size 1; (b) four gloo ranks
     sharing the card (module constants), a dry-run on the host's CPU beside
     them; each in processes of its own (``spawn_local``), killed at a
-    sub-phase's timeout. Returns the ``{"multi": ...}`` line's body."""
+    sub-phase's timeout; (c) the dry-run's memory on the card, its meta
+    cells beside (b) and its card runs after (b)'s ranks have exited.
+    Returns the ``{"multi": ...}`` line's body."""
     from repro_torch.launch.mesh import spawn_local
 
     t0 = time.perf_counter()
@@ -3521,18 +3622,40 @@ def multi_on_card(torch):
     log(f"[multi] (a) NCCL world 1: bitwise over {MULTI_PROMPTS} prompts x {MULTI_NEW} "
         f"tokens; launches {nccl['launches']}; collectives {nccl['collectives']}; prefix path "
         f"{nccl['prefix']}")
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.launch.dryrun import card_lock
+
     t1 = time.perf_counter()
-    dr_proc, dr_out = start_dryrun()
+    dr_proc, dr_out = start_dryrun(MULTI_DRYRUN_CELLS)
+    card_out, card_proc = tempfile.mkdtemp(prefix="chip_smoke_dryrun_"), None
     try:
-        ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
-                            timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
-        dryrun = finish_dryrun(dr_proc, dr_out)
+        # (c) runs its meta cells beside (b); its card runs wait on this lock
+        # until (b)'s ranks have exited
+        with card_lock(Path(card_out)):
+            card_proc, _ = start_dryrun(CARD_DRYRUN_CELLS, "cuda", card_out)
+            ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
+                                timeout_s=MULTI_TIMEOUT_S,
+                                phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+        t_card = time.perf_counter()
+        dryrun = finish_dryrun(dr_proc, dr_out, MULTI_DRYRUN_CELLS)
+        card = finish_dryrun(card_proc, card_out, CARD_DRYRUN_CELLS)
+        card["after_ranks_s"] = time.perf_counter() - t_card
     finally:
-        if dr_proc.poll() is None:
-            dr_proc.kill()
-            dr_proc.communicate()
+        for proc in (dr_proc, card_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     log(f"[multi] dry-run on the host CPU (torch {dryrun['torch']}): "
         f"{[(c['cell'], c['seconds'], c['dominant']) for c in dryrun['cells']]}")
+    check_card_dryrun(card)
+    cells = [(c["cell"], round(c["peak_bytes"] / 2**30, 3), round(c["temp_bytes"] / 2**30, 3),
+              c["launches"]) for c in card["cells"]]
+    log(f"[multi] (c) dry-run memory on the card ({card['cells'][0]['measured_on']}): "
+        f"(cell, peak GiB, temp GiB, launches) {cells}; {card['after_ranks_s']:.1f}s after the "
+        f"ranks")
+    dryrun["card"] = card
     bad = {(r, name): rec for r, out in enumerate(ranks)
            for name, rec in out["checks"].items() if not rec.get("ok")}
     if bad:
@@ -3553,6 +3676,118 @@ def multi_on_card(torch):
         f"{ranks[0]['seconds']}")
     return {"nccl": nccl, "gloo": gloo, "dryrun": dryrun,
             "tol": {"tp": MULTI_TP_TOL, "ep": MULTI_EP_TOL, "train": MULTI_TRAIN_TOL},
+            "seconds": time.perf_counter() - t0}
+
+
+def _start_example(name, *argv):
+    """``python -m repro_torch.examples.<name>`` in a process of its own (on
+    the card: no ``--device`` given)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen([sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish_example(name, proc):
+    """(stdout's lines, stderr) of ``_start_example``'s process."""
+    stdout, stderr = proc.communicate(timeout=MULTI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"examples: {name} exited {proc.returncode}: {stderr[-3000:]}")
+    return stdout.splitlines(), stderr
+
+
+def check_example_lines(name, got, want):
+    """``got`` equal to ``want`` line by line."""
+    if list(got) != list(want):
+        raise AssertionError(f"examples: {name} printed\n" + "\n".join(got)
+                             + "\nexpected\n" + "\n".join(want))
+
+
+def check_quickstart(got, stderr):
+    """quickstart's lines ``got`` equal to QUICKSTART_LINES but for each
+    row's latency, and its ``latency split:`` line (stderr): each method's
+    simulated part within QUICKSTART_SIMULATED_TOL of its pin, and the row's
+    printed latency (one decimal) the simulated part plus the lookups'
+    measured time. Returns the split."""
+    split = [json.loads(x.split(": ", 1)[1]) for x in stderr.splitlines()
+             if x.startswith("latency split: ")]
+    ok = (len(split) == 1 and set(split[0]) == set(QUICKSTART_SIMULATED_S)
+          and len(got) == len(QUICKSTART_LINES))
+    for g, w in (zip(got, QUICKSTART_LINES) if ok else ()):
+        gs, ws = g.split(), w.split()
+        if len(ws) != 5 or ws[0] not in QUICKSTART_SIMULATED_S:
+            ok &= g == w
+            continue
+        part = split[0][ws[0]]
+        ok &= (gs[:3] + gs[4:] == ws[:3] + ws[4:]
+               and abs(part["simulated_s"] - QUICKSTART_SIMULATED_S[ws[0]])
+               <= QUICKSTART_SIMULATED_TOL
+               and abs(float(gs[3]) - part["simulated_s"] - part["lookup_s"])
+               <= 0.05 + QUICKSTART_SIMULATED_TOL)
+    if not ok:
+        raise AssertionError("examples: quickstart printed\n" + "\n".join(got) + "\n"
+                             + stderr[-2000:] + "\nexpected\n" + "\n".join(QUICKSTART_LINES)
+                             + f"\nsimulated latency {QUICKSTART_SIMULATED_S}")
+    return split[0]
+
+
+def examples_on_card(torch):
+    """Phase 12: the example drivers' twins through their entry points, on
+    the card. quickstart, distributed_cache_demo and train_small run as
+    processes of their own beside serve_agent, which runs here at published
+    widths with the kernels' launch counters set to 0 just before it and
+    read just after. Returns the ``{"examples": ...}`` line's body."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.examples import serve_agent
+
+    t0 = time.perf_counter()
+    procs = {"quickstart": _start_example("quickstart"),
+             "distributed_cache_demo": _start_example("distributed_cache_demo"),
+             "train_small": _start_example("train_small", "--steps", str(EXAMPLE_TRAIN_STEPS))}
+    try:
+        kernels = kernel_table.launchers()
+        kernel_table.reset_counts(kernels)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_agent.main(["--full", "--n", str(EXAMPLE_SERVE_N)])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        serve_s = time.perf_counter() - t0
+        served = buf.getvalue().splitlines()
+        outs = {name: _finish_example(name, proc) for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = re.search(r"wall=([0-9.]+)s", served[-2])
+    check_example_lines("serve_agent", [re.sub(r"  wall=[0-9.]+s$", "", x) for x in served[1:]],
+                        SERVE_AGENT_LINES)
+    if not (launches["flash_attention"] and launches["decode_attention"]):
+        raise AssertionError(f"examples: serve_agent launched {launches}")
+    split = check_quickstart(*outs["quickstart"])
+    check_example_lines("distributed_cache_demo", outs["distributed_cache_demo"][0],
+                        DCACHE_DEMO_LINES)
+    train = outs["train_small"][0]
+    steps = EXAMPLE_TRAIN_STEPS
+    if (train[0] != "training qwen2.5-3b-smoke: 0.4M params"
+            or train[-2] != f"completed {steps} steps; injected faults handled: "
+                            f"[({steps // 2}, 'nan')]"
+            or not train[-1].endswith("(OK: decreased)")):
+        raise AssertionError("examples: train_small printed\n" + "\n".join(train))
+    log(f"[examples] serve_agent --full --n {EXAMPLE_SERVE_N}: {served[1:]}, launches "
+        f"{launches}; train_small: {train[-2:]}; quickstart and distributed_cache_demo as "
+        f"the reference's, quickstart's measured lookup s in its latency "
+        f"{ {m: round(v['lookup_s'], 4) for m, v in split.items()} }")
+    return {"serve_agent": {"lines": served, "launches": launches, "wall_s": float(wall[1]),
+                            "seconds": serve_s},
+            "train_small": train, "quickstart": outs["quickstart"][0],
+            "quickstart_latency_split": split,
+            "distributed_cache_demo": outs["distributed_cache_demo"][0],
             "seconds": time.perf_counter() - t0}
 
 
@@ -3710,6 +3945,12 @@ def main() -> int:
     multi = multi_on_card(torch)
     done("11_multi")
     multi["phase_s"] = phase_s["11_multi"]
+
+    # phase 12: the example drivers' twins, through their entry points
+    free_memory(torch)
+    examples = examples_on_card(torch)
+    free_memory(torch)
+    done("12_examples")
     srv = {"init_s": init_s, "later_depths": LATER_DEPTHS,
            "max_memory_allocated_gib": max(peak.values()),
            "peak_memory_gib": peak, "prefix_families": prefix_families,
@@ -3761,6 +4002,9 @@ def main() -> int:
             **({"multi_launches": {
                 "gloo_rank_tp4_pool": multi["gloo"]["ranks"][0]["checks"]["tp_prefix"][
                     "paged_launches"]}} if name == "paged_decode_attention" else {}),
+            "dryrun_card_launches": {"-".join(c["cell"]): c["launches"][name]
+                                     for c in multi["dryrun"]["card"]["cells"]},
+            "example_launches": examples["serve_agent"]["launches"][name],
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
@@ -3773,6 +4017,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"sim": sim}))
     print(json.dumps({"multi": multi}))
+    print(json.dumps({"examples": examples}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

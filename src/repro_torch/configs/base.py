@@ -11,6 +11,7 @@ Frozen dataclasses, as in the reference, so configs hash and compare.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -179,6 +180,25 @@ class ModelConfig:
         full_experts = e.num_experts * (mlp_mats * self.d_model * e.d_ff_expert)
         active_experts = e.experts_per_token * (mlp_mats * self.d_model * e.d_ff_expert)
         return self.param_count() - self.num_layers * (full_experts - active_experts)
+
+    def to_json(self) -> str:
+        """The reference's ``ModelConfig.to_json``, byte for byte: its fields
+        in its order. Every field of the port is one of the reference's; the
+        three it does not keep are derived: ``use_pallas`` is False (the
+        port picks a kernel by the tensor's device, not by a config flag),
+        ``shared_attention`` holds for the hybrid family (zamba2's one
+        shared block) and ``ssm.kind`` is "rwkv6" for the ssm family and
+        "mamba2" for the hybrid one."""
+        out: Dict[str, Any] = {}
+        for k, v in dataclasses.asdict(self).items():
+            if k == "ssm" and v is not None:
+                v = {"kind": "rwkv6" if self.family == "ssm" else "mamba2", **v}
+            out[k] = v
+            if k == "attn_chunk":
+                out["use_pallas"] = False
+            elif k == "attn_every":
+                out["shared_attention"] = self.family == "hybrid"
+        return json.dumps(out, indent=2, default=str)
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,9 @@ Matching is a :class:`~repro_torch.memory.pipeline.MatchPipeline`: exact
 dict membership by default, exact -> fuzzy with ``fuzzy=True`` (the paper's
 Tables 5-6 configuration, searched by the ``index_backend``: ``brute`` |
 ``bucketed`` | ``auto`` on the host, ``pallas`` | ``device`` on ``device``),
-or any cascade of stage names via ``pipeline=("exact", "fuzzy",
-"semantic")``. Stage indexes are kept up to date under the cache lock on
-insert, eviction and TTL expiry.
+or any cascade of stage names or pre-built ``MatchStage`` instances via
+``pipeline=("exact", "fuzzy", "semantic")``. Stage indexes are kept up to
+date under the cache lock on insert, eviction and TTL expiry.
 
 Eviction is an :class:`~repro_torch.memory.policies.EvictionPolicy`
 (``eviction="lru" | "lfu" | "cost"`` or an instance); ``ttl_s`` wraps the
@@ -40,7 +40,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple, Union
 
-from repro_torch.memory.pipeline import build_pipeline
+from repro_torch.memory.pipeline import MatchStage, build_pipeline
 from repro_torch.memory.policies import CacheEntry, EvictionPolicy, make_policy
 from repro_torch.memory.protocol import CacheStats, PlanStoreBase, V
 from repro_torch.memory.tiered import ColdTier
@@ -72,7 +72,7 @@ class PlanCache(PlanStoreBase, Generic[V]):
         index_backend: str = "auto",
         ttl_s: Optional[float] = None,
         eviction: Union[str, EvictionPolicy] = "lru",
-        pipeline: Optional[Sequence[str]] = None,
+        pipeline: Optional[Sequence[Union[str, MatchStage]]] = None,
         clock: Optional[Callable[[], float]] = None,
         device=None,
         cold_dir: Optional[str] = None,
@@ -394,6 +394,15 @@ class PlanCache(PlanStoreBase, Generic[V]):
                 "capacity": self.capacity,
                 "entries": [(k, e.value) for k, e in self._store.items()],
             }
+
+    @classmethod
+    def from_state(cls, state: Dict[str, Any], **kw) -> "PlanCache":
+        """A cache of ``state["capacity"]`` holding ``state["entries"]``,
+        admitted as one wave in their order (``to_state()`` of either
+        package; ``kw`` go to the constructor)."""
+        c = cls(capacity=state["capacity"], **kw)
+        c.insert_batch(state["entries"])
+        return c
 
 
 __all__ = ["CacheStats", "PlanCache"]

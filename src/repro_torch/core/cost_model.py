@@ -86,6 +86,15 @@ class CostLedger:
             }
         return out
 
+    def merge(self, other: "CostLedger") -> None:
+        """Add ``other``'s usage role by role (tokens, calls, latency); the
+        pricing stays this ledger's."""
+        for role, u in other.usage.items():
+            self.usage[role].input_tokens += u.input_tokens
+            self.usage[role].output_tokens += u.output_tokens
+            self.usage[role].calls += u.calls
+            self.usage[role].latency_s += u.latency_s
+
 
 def estimate_tokens(text: str) -> int:
     """chars/4 heuristic (matches OpenAI's rule of thumb)."""

@@ -49,7 +49,12 @@ class SimilarityIndex:
     ``device`` is where the ``pallas`` and ``device`` backends search:
     CUDA unless the caller asks for another (the tests pass ``"cpu"``,
     which runs the plain version). ``brute``, ``bucketed`` and ``auto``
-    always search on the host and ignore ``device``. ``obs`` is the
+    always search on the host and ignore ``device``. ``bank`` is an
+    existing ``EmbeddingBank`` to index (a fresh one of
+    ``initial_capacity`` rows otherwise): the LSH tables hash its rows, and
+    the ``device`` backend uploads them once. ``n_tables``, ``n_bits``
+    (None: adaptive), ``lsh_seed`` and ``probe_hamming`` shape the
+    ``bucketed``/``auto`` backends' LSH tables (``BucketedIndex``). ``obs`` is the
     registry where the backend's telemetry (LSH counters, the device bank's
     upload counters) registers, labelled ``obs_labels``; a private one
     otherwise.
@@ -59,7 +64,12 @@ class SimilarityIndex:
         self,
         *,
         backend: str = "auto",
+        bank: Optional[EmbeddingBank] = None,
         initial_capacity: int = 64,
+        n_tables: int = 4,
+        n_bits: Optional[int] = None,
+        lsh_seed: int = 0,
+        probe_hamming: int = 1,
         auto_bucketed_min: int = 4096,
         device=None,
         obs: Optional[MetricsRegistry] = None,
@@ -68,7 +78,7 @@ class SimilarityIndex:
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.backend = backend
-        self.bank = EmbeddingBank(initial_capacity)
+        self.bank = bank if bank is not None else EmbeddingBank(initial_capacity)
         self.obs_labels = dict(obs_labels or {})
         self.device: Optional[torch.device] = None
         self._bucketed: Optional[BucketedIndex] = None
@@ -76,6 +86,10 @@ class SimilarityIndex:
         if backend in ("bucketed", "auto"):
             self._bucketed = BucketedIndex(
                 self.bank,
+                n_tables=n_tables,
+                n_bits=n_bits,
+                seed=lsh_seed,
+                probe_hamming=probe_hamming,
                 scan_threshold=auto_bucketed_min if backend == "auto" else 2048,
                 obs=obs,
                 obs_labels=self.obs_labels,
@@ -85,8 +99,12 @@ class SimilarityIndex:
 
             self.device = resolve_device(device)
         if backend == "device":
-            self._device = DeviceBank(self.bank.arena().shape[0], device=self.device,
-                                      obs=obs, obs_labels=self.obs_labels)
+            with self.bank.lock:
+                self._device = DeviceBank(self.bank.arena().shape[0], device=self.device,
+                                          obs=obs, obs_labels=self.obs_labels)
+                if len(self.bank):  # the existing rows, uploaded once
+                    slots = [self.bank.slot_of(k) for k in self.bank.keys()]
+                    self._device.set_rows(slots, self.bank.arena()[slots])
 
     # -- mutation ---------------------------------------------------------
 

@@ -28,8 +28,11 @@ datasheet; NVIDIA DGX H100 system architecture):
 
 The memory term is the reference's analytic model (``analytic_memory_bytes``,
 copied unchanged with the port's configs); the counted bytes are reported
-as an upper bound. Every figure here is an estimate from peaks, not a
-measurement.
+as an upper bound. Every time here is an estimate from peaks, not a
+measurement. The fit to the card's 80 GB is: ``fits_hbm_80g`` from a record
+measured on the card (``dryrun --device cuda``: the allocator's peak over
+the step, or an out-of-memory reading), None on a meta-only record; and
+``fits_hbm_80g_est``, the reference's residency estimate.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh single|multi] [--tag T]
 """
@@ -298,6 +301,10 @@ def analyze_cell(json_path: Path) -> Dict:
     mem = rec.get("memory", {})
     temp = mem.get("temp_bytes")
     hbm_resident = mem.get("argument_bytes", 0) + (temp or 0)
+    peak = mem.get("peak_bytes")
+    # measured on the card (dryrun --device cuda): the allocator's peak over
+    # the step, or out of memory; a meta-only record leaves the fit unknown
+    fits = False if mem.get("oom") else (None if peak is None else peak <= HBM_BYTES)
     resident_est = analytic_resident_bytes(rec["arch"], rec["shape"], rec["mesh_shape"])
     mem_parts = analytic_memory_bytes(rec["arch"], rec["shape"], rec["mesh_shape"])
     mem_bytes = sum(mem_parts.values())
@@ -326,10 +333,10 @@ def analyze_cell(json_path: Path) -> Dict:
             "model_flops_per_device": mf,
             "useful_flops_ratio": mf / c["flops"] if c["flops"] else 0.0,
             "roofline_fraction": (mf / PEAK_FLOPS) / step_s if step_s else 0.0,
-            # the rank's argument bytes; the temporaries are not measured on
-            # meta, so the fit is unknown (None) unless the record has them
             "hbm_resident_bytes": hbm_resident,
-            "fits_hbm_80g": None if temp is None else hbm_resident <= HBM_BYTES,
+            "peak_bytes": peak,
+            "measured_on": mem.get("measured_on"),
+            "fits_hbm_80g": fits,
             "resident_est_bytes": sum(resident_est.values()),
             "resident_est_parts": {k: round(v) for k, v in resident_est.items()},
             "fits_hbm_80g_est": sum(resident_est.values()) <= HBM_BYTES,
@@ -362,19 +369,21 @@ def main():
     out = Path(args.out) if args.out else outdir / f"roofline_{args.mesh}{args.tag}.json"
     out.write_text(json.dumps(rows, indent=2))
     print("| arch | shape | compute_s | memory_s | collective_s | dominant | "
-          "useful% | roofline% | fits80G |")
-    print("|---|---|---|---|---|---|---|---|---|")
+          "useful% | roofline% | fits80G est | peak GiB | fits80G |")
+    print("|---|---|---|---|---|---|---|---|---|---|---|")
+    yn = {True: "Y", False: "N", None: "-"}
     for r in rows:
         if "compute_s" not in r:
             print(f"| {r.get('arch', '?')} | {r.get('shape', '?')} | FAILED: "
-                  f"{str(r.get('error'))[:40]} | | | | | | |")
+                  f"{str(r.get('error'))[:40]} | | | | | | | | |")
             continue
+        peak = "-" if r["peak_bytes"] is None else f"{r['peak_bytes'] / 2**30:.2f}"
         print(
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.3e} | "
             f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | {r['dominant']} | "
             f"{100 * r['useful_flops_ratio']:.0f}% | "
             f"{100 * r['roofline_fraction']:.1f}% | "
-            f"{'Y' if r['fits_hbm_80g_est'] else 'N'} |"
+            f"{yn[r['fits_hbm_80g_est']]} | {peak} | {yn[r['fits_hbm_80g']]} |"
         )
     print(f"\nwritten: {out}")
 

@@ -21,7 +21,7 @@ their :class:`~repro_torch.index.SimilarityIndex`.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 
 class MatchStage:
@@ -30,13 +30,25 @@ class MatchStage:
 
     name = "stage"
 
+    def on_insert(
+        self,
+        key: str,
+        value: Any,
+        context: Optional[str] = None,
+        vector: Optional[Any] = None,
+    ) -> None:
+        pass
+
     def on_insert_batch(
         self,
         items: Sequence[Tuple[str, Any]],
         contexts: Sequence[Optional[str]],
         vectors: Optional[Any] = None,
     ) -> None:
-        pass
+        """One admission wave; by default ``on_insert`` per item, so a
+        stage that overrides only ``on_insert`` sees every insert."""
+        for j, (key, value) in enumerate(items):
+            self.on_insert(key, value, contexts[j], None if vectors is None else vectors[j])
 
     def on_remove(self, key: str) -> None:
         pass
@@ -78,6 +90,9 @@ class FuzzyStage(MatchStage):
         self.threshold = threshold
         self.index = SimilarityIndex(backend=backend, **index_kw)
 
+    def on_insert(self, key, value, context=None, vector=None):
+        self.index.add(key, vector)
+
     def on_insert_batch(self, items, contexts, vectors=None):
         # an admission wave is one embedding batch and, on the ``device``
         # backend, one multi-slot device write
@@ -115,6 +130,13 @@ class SemanticStage(MatchStage):
 
         self.threshold = threshold
         self.index = SimilarityIndex(backend=backend, **index_kw)
+
+    def on_insert(self, key, value, context=None, vector=None):
+        # `vector` is a KEY embedding (for key-matching stages); this stage
+        # matches on context text, so it embeds the context itself
+        from repro_torch.index import embed
+
+        self.index.add(key, None if context is None or context == key else embed(context))
 
     def on_insert_batch(self, items, contexts, vectors=None):
         # `vectors` are KEY embeddings (for key-matching stages); this stage
@@ -171,7 +193,7 @@ class MatchPipeline:
 
 
 def build_pipeline(
-    spec: Sequence[str],
+    spec: Sequence[Union[str, MatchStage]],
     *,
     fuzzy_threshold: float = 0.8,
     semantic_threshold: float = 0.85,
@@ -181,7 +203,8 @@ def build_pipeline(
     obs_labels: Optional[dict] = None,
 ) -> MatchPipeline:
     """Build a pipeline from stage names (``exact`` | ``fuzzy`` |
-    ``semantic``), in cascade order.
+    ``semantic``) and/or pre-built stage instances (taken as they are), in
+    cascade order.
     ``device`` is where a ``pallas``/``device`` index searches (CUDA unless
     the caller asks for another). ``obs`` (a
     :class:`repro_torch.obs.MetricsRegistry`) and ``obs_labels`` ride down
@@ -197,7 +220,9 @@ def build_pipeline(
 
     stages: List[MatchStage] = []
     for item in spec:
-        if item == "exact":
+        if isinstance(item, MatchStage):
+            stages.append(item)
+        elif item == "exact":
             stages.append(ExactStage())
         elif item == "fuzzy":
             stages.append(FuzzyStage(fuzzy_threshold, index_backend, **stage_kw("fuzzy")))
@@ -207,7 +232,7 @@ def build_pipeline(
         else:
             raise ValueError(
                 f"unknown pipeline stage {item!r} "
-                "(expected 'exact' | 'fuzzy' | 'semantic')"
+                "(expected 'exact' | 'fuzzy' | 'semantic' | MatchStage)"
             )
     return MatchPipeline(stages)
 

@@ -15,7 +15,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, TypeVar
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple, TypeVar, runtime_checkable
 
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs import names as _names
@@ -112,6 +112,55 @@ class CacheStats:
         }
 
 
+@runtime_checkable
+class PlanStore(Protocol):
+    """Batch-native keyword -> plan store: :class:`repro_torch.core.cache.PlanCache`
+    and :class:`repro_torch.core.distributed_cache.DistributedPlanCache`.
+    Consumers (router, agent methods, harness) program against this
+    protocol; ``isinstance`` checks that the methods are there."""
+
+    stats: CacheStats
+
+    def lookup_batch(
+        self,
+        keywords: Sequence[str],
+        *,
+        contexts: Optional[Sequence[Optional[str]]] = None,
+    ) -> List[Optional[Any]]: ...
+
+    def insert_batch(
+        self,
+        items: Sequence[Tuple[str, Any]],
+        *,
+        contexts: Optional[Sequence[Optional[str]]] = None,
+        vectors: Optional[Any] = None,
+        unless_written_since: Optional[float] = None,
+    ) -> None: ...
+
+    def now(self) -> float: ...
+
+    def lookup(self, keyword: str, *, context: Optional[str] = None) -> Optional[Any]: ...
+
+    def insert(
+        self,
+        keyword: str,
+        value: Any,
+        *,
+        context: Optional[str] = None,
+        vector: Optional[Any] = None,
+    ) -> None: ...
+
+    def remove(self, keyword: str) -> bool: ...
+
+    def keys(self) -> List[str]: ...
+
+    def clear(self) -> None: ...
+
+    def __contains__(self, keyword: str) -> bool: ...
+
+    def __len__(self) -> int: ...
+
+
 class PlanStoreBase:
     """Singular ``lookup``/``insert`` as thin wrappers over the batch
     primitives — inherit this and implement ``lookup_batch`` /
@@ -137,4 +186,4 @@ class PlanStoreBase:
         )
 
 
-__all__ = ["CacheStats", "PlanStoreBase", "V"]
+__all__ = ["CacheStats", "PlanStore", "PlanStoreBase", "V"]

@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
@@ -150,3 +151,160 @@ def test_meta_skips_host_reads_and_cpu_does_not(monkeypatch):
     lm._check_ids(cfg, torch.full((1, 3), cfg.vocab_size, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="outside the vocabulary"):
         lm._check_ids(cfg, torch.full((1, 3), cfg.vocab_size, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The card run's pieces on the CPU: the shard materialiser, the record's
+# measured fit, the refusal without a card
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.distributed.mesh_compat import Mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+
+SMALL_SHAPES = {"train_4k": ShapeConfig("train_4k", 16, 8, "train"),
+                "prefill_32k": ShapeConfig("prefill_32k", 32, 4, "prefill"),
+                "decode_32k": ShapeConfig("decode_32k", 32, 8, "decode")}
+MATERIALISED = [(a, s) for a in ("olmo-1b", "qwen2-vl-7b", "kimi-k2-1t-a32b", "zamba2-2.7b",
+                                 "whisper-tiny") for s in SMALL_SHAPES]
+
+
+@pytest.fixture
+def smoke_cells(monkeypatch):
+    """``build_cell`` on the smoke configs and small shapes (the production
+    ones cannot run on a CPU)."""
+    smoke = {a: registry.get_smoke(a) for a in registry.ARCH_NAMES}
+    monkeypatch.setattr(registry, "get", smoke.__getitem__)
+    for name, shape in SMALL_SHAPES.items():
+        monkeypatch.setitem(SHAPES, name, shape)
+    return smoke
+
+
+@pytest.mark.parametrize("cell", MATERIALISED, ids=lambda c: "-".join(c))
+def test_materialised_shards_are_the_meta_shards(smoke_cells, cell):
+    """At a smoke arch on a (2, 4) mesh of a fake world of 8: the shards
+    ``materialize`` draws have the meta shards' shapes and dtypes, tensor by
+    tensor, and exactly their argument bytes; norm scales are 1, ids lie in
+    the vocabulary, the decode cache is filled to the cell's seq_len; and
+    the step runs on them (here on the CPU, where the wrappers take their
+    plain versions) to the meta run's output shapes."""
+    arch, shape = cell
+    cfg, sc = smoke_cells[arch], SMALL_SHAPES[shape]
+    with dryrun.fake_world(8):
+        meta_step, meta_args = dryrun.build_cell(arch, shape, Mesh((2, 4), ("data", "model"),
+                                                                   device="meta"))
+        step, shards = dryrun.build_cell(arch, shape, Mesh((2, 4), ("data", "model"),
+                                                           device="cpu"))
+        args = dryrun.materialize(shards, sc.kind, cfg, sc.seq_len, torch.device("cpu"),
+                                  torch.Generator().manual_seed(0))
+        want, got = list(roofline._tensors(meta_args)), list(roofline._tensors(args))
+        assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype)
+                                                           for t in want]
+        assert all(t.device.type == "cpu" for t in got)
+        assert roofline.tree_bytes(args) == roofline.tree_bytes(meta_args)
+        scales = []
+        dryrun._fill(args[0], lambda path, t: scales.append(t) if str(path[-1]).endswith(
+            "scale") else None)
+        assert all(torch.equal(t, torch.ones_like(t)) for t in scales)
+        assert bool(scales) == (cfg.norm_type != "layernorm_np")
+        batch = args[-1]
+        for key in ("tokens", "labels"):
+            if key in batch:
+                assert 0 <= int(batch[key].min()) and int(batch[key].max()) < cfg.vocab_size
+        if sc.kind == "decode":
+            assert args[1]["length"] == sc.seq_len
+            assert args[1]["max_len"] == meta_args[1]["max_len"]
+        out, meta_out = step(*args), meta_step(*meta_args)
+        assert ([tuple(t.shape) for t in roofline._tensors(out)]
+                == [tuple(t.shape) for t in roofline._tensors(meta_out)])
+
+
+def test_reset_counts_clears_what_another_device_left():
+    """The meta run leaves the EP path's dropped-pair count as a meta
+    tensor, which a CUDA count cannot be added to: each run starts from 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    moe.moe_forward_ep.dropped = torch.zeros((), device="meta")
+    flash_attention.launches = 3
+    flash_attention.launches_by_hd[128] += 3
+    launchers = dryrun.reset_counts()
+    assert moe.moe_forward_ep.dropped == 0 and flash_attention.launches == 0
+    assert not flash_attention.launches_by_hd
+    assert list(launchers) == list(kernels.KERNELS)
+    assert launchers["flash_attention"] is flash_attention
+
+
+def test_new_bytes_leaves_out_arguments_updated_in_place():
+    """Output bytes as ``output_bytes`` counts them: a view's own elements
+    (its base is a temporary, as the prefill's logits behind
+    ``logits[:, -1]``), each tensor once, arguments updated in place left
+    out."""
+    a, b = torch.zeros(10), torch.zeros(4)
+    a.add_(1)
+    base = torch.zeros(8)
+    view = base[:2]
+    assert dryrun.new_bytes((a, {"x": b}), (a, b)) == 0
+    assert dryrun.new_bytes((a, view), (a,)) == 2 * 4 == roofline.tree_bytes(view)
+    assert dryrun.new_bytes((view, view), ()) == 2 * 4
+    assert dryrun.new_bytes((view, base[2:4]), ()) == 2 * 2 * 4
+    assert dryrun.new_bytes((base[:2], base[:2]), ()) == 2 * 4  # one tensor, twice
+
+
+def test_cuda_device_raises_without_a_card(tmp_path):
+    """``--device cuda`` never falls back to meta: without a card both the
+    function and the CLI raise before any record is written."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.run_cell("olmo-1b", "decode_32k", "single", results=tmp_path, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k", "--device", "cuda",
+                     "--results", str(tmp_path)])
+    with pytest.raises(ValueError, match="meta or cuda"):
+        dryrun.run_cell("olmo-1b", "decode_32k", "single", results=tmp_path, device="cpu")
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_fit_comes_from_a_card_measurement(records, tmp_path):
+    """``analyze_cell`` leaves ``fits_hbm_80g`` None on a meta record, reads
+    it from ``peak_bytes`` against 80 GB on a measured one, and false on an
+    out-of-memory reading; the estimate stays beside it."""
+    rec = json.loads(records[("qwen3-4b", "decode_32k", "single")].read_text())
+    cases = {"meta": ({}, None),
+             "fits": ({"peak_bytes": roofline.HBM_BYTES, "temp_bytes": 1, "oom": False}, True),
+             "over": ({"peak_bytes": roofline.HBM_BYTES + 1, "temp_bytes": 1, "oom": False},
+                      False),
+             "oom": ({"peak_bytes": None, "temp_bytes": None, "oom": True}, False)}
+    for name, (mem, want) in cases.items():
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps(dict(rec, memory=dict(rec["memory"], **mem))))
+        row = roofline.analyze_cell(path)
+        assert row["fits_hbm_80g"] is want, name
+        assert row["peak_bytes"] == mem.get("peak_bytes")
+        assert row["fits_hbm_80g_est"] is True
+
+
+def test_chip_smoke_card_cells_and_their_check():
+    """``chip_smoke.py``'s phase 11(c): its cells are dry-run cells, and its
+    check takes a measured record with the path's kernel once a layer and
+    refuses one launch short, no temporaries, or a peak past 80 GB."""
+    import chip_smoke
+
+    assert set(chip_smoke.CARD_DRYRUN_CELLS) <= {(a, s, m) for a, s in registry.all_cells()
+                                                for m in ("single", "multi")}
+
+    def cell(arch, shape, **kw):
+        launches = {k: 0 for k in kernels.KERNELS}
+        if shape in chip_smoke.CARD_DRYRUN_KERNEL:
+            launches[chip_smoke.CARD_DRYRUN_KERNEL[shape]] = registry.get(arch).num_layers
+        return dict({"cell": [arch, shape, "single"], "oom": False, "temp_bytes": 1 << 30,
+                     "peak_bytes": 8 << 30, "fits_hbm_80g": True, "launches": launches}, **kw)
+
+    good = [cell(a, s) for a, s, _ in chip_smoke.CARD_DRYRUN_CELLS]
+    chip_smoke.check_card_dryrun({"cells": good})
+    short = cell("olmo-1b", "prefill_32k")
+    short["launches"]["flash_attention"] -= 1
+    for bad in (short, cell("qwen3-4b", "decode_32k", temp_bytes=0),
+                cell("olmo-1b", "train_4k", peak_bytes=roofline.HBM_BYTES + 1),
+                cell("olmo-1b", "train_4k", oom=True, peak_bytes=None, temp_bytes=None)):
+        with pytest.raises(AssertionError, match="multi\\(c\\)"):
+            chip_smoke.check_card_dryrun({"cells": good[:1] + [bad]})
