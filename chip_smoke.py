@@ -37,24 +37,26 @@ printing the ok line):
 4. the model on the card against the model on the CPU: each arch at full
    width, depth cut to 2 layers (zamba2: one group of 6), fp32, same
    weights;
-5. serving: ``build_engines(DEFAULT, full=True)`` — nemotron-4-15b,
-   olmo-1b and qwen2.5-3b at full published width in bf16, random weights
-   from a fixed seed — then four runs of 16 FinanceBench tasks (seed 0)
-   on those engines, each with a fresh agent (``SERVE_RUNS``): ``apc``
-   with exact matching; directly after it the ``accuracy_optimal``
-   baseline, so that the paper's headline comparison reads two walls taken
-   under the same host load; then, with the deployment's deep archs cut to
-   ``LATER_DEPTHS`` (widths and seeds published), ``apc`` with fuzzy
-   matching at 0.6 on the ``device`` index (a bank on the card searched by
-   the top-k kernel) and the ``semantic`` baseline on the ``device`` index. Each run's hits, accuracy and cost must equal the
+5. serving: the ``DEFAULT`` deployment — nemotron-4-15b, olmo-1b and
+   qwen2.5-3b at full published width in bf16, depth cut to
+   ``SERVE_DEPTHS``, random weights from their arch seeds — then four runs
+   of 16 FinanceBench tasks (seed 0) on those engines, each with a fresh
+   agent (``SERVE_RUNS``): ``apc`` with exact matching; directly after it
+   the ``accuracy_optimal`` baseline, so that the paper's headline
+   comparison reads two walls taken under the same host load; ``apc`` with
+   fuzzy matching at 0.6 on the ``device`` index (a bank on the card
+   searched by the top-k kernel) and the ``semantic`` baseline on the
+   ``device`` index. Each run's hits, accuracy and cost must equal the
    reference's on the CPU (tests/test_torch_agent.py). Then the ``prefix``
    run on the same engines (``serve_prefix``): the paged KV prefix path of
    a second olmo-1b engine held to a full prefill, the two-tier router
    wired to its page pool (hits and misses pinned to the reference
-   router's), and the paged decode kernel over the pool's live pages.
+   router's; the prefix cache's four counters read from its registry and
+   from its attributes, which must agree), and the paged decode kernel
+   over the pool's live pages.
    Last the ``recurrent`` run: the 16 tasks with exact ``apc`` on a
    deployment whose small planner and keyword extractor are rwkv6-3b and
-   whose actor is zamba2-2.7b (full width, depth cut to ``LATER_DEPTHS``,
+   whose actor is zamba2-2.7b (full width, depth cut to ``SERVE_DEPTHS``,
    bf16, weights from their arch seeds; zamba2's published 32,000-entry
    vocabulary widened to the tokenizer's 50,304, as ``engine_config``
    does), the large planner the cut nemotron-4-15b engine; every prefill scan runs on the
@@ -64,8 +66,7 @@ printing the ok line):
    risen, and in the recurrent run the attention kernels' hd-80 counts
    must be positive multiples of the shared block's applications;
 6. the paper's baselines, its other workloads and its second agent, on the
-   ``DEFAULT`` engines of phase 5, their deep archs cut to ``LATER_DEPTHS``
-   (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
+   ``DEFAULT`` engines of phase 5 (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
    (8), ``cascade`` on 8 AIME tasks at default thresholds on the
    ``device`` index (its fuzzy and semantic stages on the top-k kernel),
    ``apc`` on 8 tasks each of TabMWP, QASPER and AIME, and the
@@ -87,11 +88,12 @@ printing the ok line):
    reference router's, its top-k launches to the index calls of the same
    stream on the CPU, its span forest checked, and the restart must not
    grow the memory allocated on the card;
-8. the other families (the moe, qk-norm and vlm archs served, their
-   prefix path, the FLAGSHIP deployment with kimi-k2 at one layer,
+8. the other families (the moe, qk-norm and vlm archs served at
+   ``SERVE_DEPTHS``, their prefix path, the FLAGSHIP deployment with kimi-k2 at one layer,
    whisper-tiny card against CPU);
 9. the trainer (constants ``TRAIN_*`` to ``COLD_*`` state each check and
-   tolerance): (a) olmo-1b at published size trained through the port's
+   tolerance): (a) olmo-1b at published width, ``TRAIN_LAYERS`` layers,
+   trained through the port's
    ``FaultTolerantRunner`` with its checkpoints (a temporary directory)
    and one rollback from an injected NaN; (b) one step card against CPU;
    (c) the trained weights served through the flash and decode kernels,
@@ -100,7 +102,7 @@ printing the ok line):
 10. the deterministic simulation (``repro_torch.sim``; constants ``SIM_*``):
    the cells of ``python -m repro_torch.sim --check``. (a) every fuzzy cell
    (the paraphrase scenario under each plan, the speculation plan and the
-   fuzzy-scatter and speculation audits) at seeds 0-4 with its shard
+   fuzzy-scatter and speculation audits) at seeds below ``SIM_SEEDS`` with its shard
    indexes and the oracle's twin indexes on the card's ``device`` backend:
    clean or caught as expected, run twice with equal trace hash and span
    digest, its trace hash equal to the same cell on the CPU on the same
@@ -127,13 +129,13 @@ printing the ok line):
    over its own page pool (1/4 of the whole pool's bytes), flash and
    decode at 4 local heads pinned, logits within ``MULTI_TP_TOL``, the
    paged kernel over the rank's pool bitwise against dense decode; the
-   train step also under ``seq_parallel`` and remat "dots"; beside (b), a
-   dry-run (``launch/dryrun.py``) of ``MULTI_DRYRUN_CELLS`` on the host's
-   CPU. Four ranks on one card check correctness and launch shapes, not
-   four-card speed. (c) the dry-run's memory on the card
-   (``dryrun --device cuda``) of ``CARD_DRYRUN_CELLS`` in a process of its
-   own, its meta runs beside (b) and its card runs after (b)'s ranks have
-   exited: each cell's peak inside 80 GB with temporaries above 0, flash
+   train step also under ``seq_parallel`` and remat "dots"; beside (a)
+   and (b), a dry-run (``launch/dryrun.py``) of ``MULTI_DRYRUN_CELLS`` on
+   the host's CPU. Four ranks on one card check correctness and launch
+   shapes, not four-card speed; they start beside (a) and wait for its
+   references. (c) the dry-run's memory on the card (``dryrun --device
+   cuda``) of ``CARD_DRYRUN_CELLS`` in a process of its own, its meta
+   runs beside (a) and its card runs after (a): each cell's peak inside 80 GB with temporaries above 0, flash
    once a layer at S = 32,768 for the prefill cell, decode once a layer
    over a 32,768-token cache for the decode cell;
 12. the example drivers' twins (``repro_torch.examples``; constants
@@ -156,7 +158,8 @@ seconds), one ``{"multi": {...}}`` line (phase 11: backends, each check's
 error, launches a rank, collective calls and bytes by kind, staged bytes,
 seconds, peak memory; (c) the card's dry-run cells), one ``{"examples":
 {...}}`` line (phase 12: each twin's printed lines, serve_agent's launches
-and wall), the nvidia-smi line, and last
+and wall), one ``{"phases": {...}}`` line (each phase's seconds, and the
+total), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Phase 7(b)'s trace is written to
 ``trace-out/dcache/trace.jsonl`` and ``trace_chrome.json``.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -322,30 +325,31 @@ FAMILIES_ROLES = {"small_planner": "granite-moe-1b-a400m", "keyword_extractor": 
 PHASE8_ENV, PHASE8_TASKS = "qasper", 8
 PHASE8_EXPECT = {"families": (2, 0.75, 0.1127), "flagship": (2, 0.75, 0.1127)}
 FLAGSHIP_DEPTH = 1  # kimi-k2's 61 layers are ~2 TB in bf16; one card holds 80 GB
-# every run after phase 5's headline pair (exact, accuracy_optimal: their
-# engines whole) serves these deep archs at these depths, each at its
-# published width and arch seed, to hold the script inside its time limit:
-# nemotron-4-15b the large planner (32 layers), qwen2.5-3b the actor (36),
-# and the recurrent run's rwkv6-3b (32) and zamba2-2.7b (54; 12 keeps two
-# applications of its shared block), the first three cut to 4 since phase
-# 11 grew. Decode is host-bound, so a run's
-# seconds follow its layers. Hits, accuracy, cost, the censuses and the
-# router's counters do not depend on depth; flash and decode launches per
-# task do
-HEADLINE = ("exact", "accuracy_optimal")
-LATER_DEPTHS = {"nemotron-4-15b": 4, "qwen2.5-3b": 4, "rwkv6-3b": 4, "zamba2-2.7b": 12}
+# every engine phases 5-8 serve (the DEFAULT deployment, the recurrent and
+# the families runs) is built at its published width and arch seed with its
+# depth cut to these layers, to hold the script well inside its time limit:
+# decode is host-bound, so a run's seconds follow its layers. Published
+# depths: nemotron-4-15b 32, olmo-1b 16, qwen2.5-3b 36, rwkv6-3b 32,
+# zamba2-2.7b 54 (12 keeps two applications of its shared block),
+# granite-moe-1b-a400m 24, qwen3-4b 36, qwen2-vl-7b 28. Hits, accuracy,
+# cost, the censuses and the router's counters do not depend on depth;
+# flash and decode launches per task do. Phase 11 serves olmo-1b, and phase
+# 12 the DEFAULT deployment, at full depth
+SERVE_DEPTHS = {"nemotron-4-15b": 2, "olmo-1b": 2, "qwen2.5-3b": 2, "rwkv6-3b": 2,
+                "zamba2-2.7b": 12, "granite-moe-1b-a400m": 2, "qwen3-4b": 2, "qwen2-vl-7b": 2}
 # phase 4 checks kimi-k2 at its attention width with this many experts: 2
 # layers of all 384 are 135 GB in fp32
 MODEL_KIMI_EXPERTS = 16
 
-# phase 9, the trainer: (a) olmo-1b at published size (16 layers, d 2,048,
-# bf16 params) under launch/train.py's settings (AdamW lr 1e-3, fp32 state)
+# phase 9, the trainer: (a) olmo-1b at published width (d 2,048, bf16
+# params) cut to TRAIN_LAYERS of its 16 layers (the checkpoints' save and
+# restore set the phase's time, and their bytes follow the layers) under launch/train.py's settings (AdamW lr 1e-3, fp32 state)
 # on its synthetic batches through the FaultTolerantRunner, a checkpoint
 # every 3 steps and 1 kept, a NaN injected at step 4: one rollback to step
 # 3, whose restored state must equal the saved one bit for bit and whose
 # re-run of step 4 must give the first try's loss within a relative 1e-3
 # (the card's atomics change the last bits);
-TRAIN_ARCH = "olmo-1b"
+TRAIN_ARCH, TRAIN_LAYERS = "olmo-1b", 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 64, 6, 1e-3
 TRAIN_CKPT_EVERY, TRAIN_KEEP_LAST, TRAIN_NAN_AT = 3, 1, 4
 TRAIN_SHARDS = 8  # checkpoint shards, written and read in parallel (8 host cores)
@@ -432,14 +436,15 @@ COLD_EXPECT = {
 # cells of ``python -m repro_torch.sim --check`` (``matrix_cells``). (a) the
 # fuzzy cells (those whose normalized config has fuzzy=True: every shard
 # index and every oracle twin on the ``device`` backend, so each lookup wave
-# launches top-k) at seeds 0..SIM_SEEDS-1, each run twice on the card (equal
+# launches top-k) at seeds 0..SIM_SEEDS-1 (``--check`` on the CPU runs 5;
+# each further seed repeats the same cells' checks on another stream), each run twice on the card (equal
 # trace hash and span digest) and once on the CPU on the same backend (equal
 # trace hash); (b) every other cell at seed 0, its trace hash pinned to the
 # reference's (``python -m repro.sim``; tests/test_torch_sim.py holds the
 # pins to it); (c) the soak, SIM_SOAK at 10x the default ops. A clean cell
 # must show no violation; an audit cell (one guard ablated) must trip one of
 # SIM_ORACLES[guard] (tests/test_sim.py's EXPECTED_ORACLES by guard)
-SIM_SEEDS = 5
+SIM_SEEDS = 1
 SIM_SOAK = {"seed": 0, "scenario": "paraphrase_burst", "fault": "crash_restart", "n_ops": 600}
 SIM_ORACLES = {
     "crash_fallthrough": {"durability"},
@@ -547,13 +552,17 @@ SIM_REF_HASHES = {  # seed 0, by cell tag without its "s0-"
 # gradients, their norm and AdamW on the shards, held to the one-rank step
 # as the TP profile's). A dry-run of MULTI_DRYRUN_CELLS (launch/dryrun.py:
 # the meta device, a fake process group at world 256 / 512) runs on the
-# host's CPU beside (b), in a process of its own.
+# host's CPU beside (a) and (b), in a process of its own.
 MULTI_ARCH = "olmo-1b"
-MULTI_PROMPTS, MULTI_NEW, MULTI_PROMPT_LEN = 4, 32, 152
+# MULTI_NEW: each decode step is a psum a layer through every rank, staged
+# through the host under gloo, so (a)'s and (b)'s serving seconds follow it
+MULTI_PROMPTS, MULTI_NEW, MULTI_PROMPT_LEN = 4, 8, 152
 MULTI_TP_TOL = 2.0 ** -4
 MULTI_EP_ARCH, MULTI_EP_LAYERS, MULTI_EP_BATCH, MULTI_EP_TOL = (
     "granite-moe-1b-a400m", 4, (2, 64), 1e-4)
-MULTI_TRAIN_LAYERS, MULTI_TRAIN_BATCH, MULTI_TRAIN_TOL = 2, (4, 65), 1e-4
+# MULTI_TRAIN_LAYERS: each layout's check gathers every parameter and
+# gradient (fp32) through the host, so its seconds follow the layers
+MULTI_TRAIN_LAYERS, MULTI_TRAIN_BATCH, MULTI_TRAIN_TOL = 1, (4, 65), 1e-4
 MULTI_TRAIN_GMIN = 1e-6
 MULTI_PIPE = (8, 256, 32)
 MULTI_AR_N = 1 << 20
@@ -562,8 +571,9 @@ MULTI_PREFIX_LEN, MULTI_PREFIX_PAGE, MULTI_PREFIX_PAGES = 128, 32, 16
 MULTI_PREFIX_ROWS, MULTI_PREFIX_SUFFIX = 4, 24
 MULTI_DRYRUN_CELLS = (("olmo-1b", "prefill_32k", "single"), ("qwen3-4b", "decode_32k", "single"),
                       ("olmo-1b", "train_4k", "multi"))
-# (c) the dry-run's memory on the card (dryrun --device cuda) after (b)'s
-# ranks have exited, in a process of its own: the two serving cells of
+# (c) the dry-run's memory on the card (dryrun --device cuda) after (a),
+# beside (b)'s ranks (its allocator's peak is its own process's), in a
+# process of its own: the two serving cells of
 # MULTI_DRYRUN_CELLS and olmo-1b's train cell on the single-pod mesh. Its
 # multi-pod train cell runs all 256 rows x 4,096 tokens on every rank (256
 # rows do not split over 512 ranks): 16 remat checkpoints of 4.3 GB each
@@ -1711,53 +1721,45 @@ def check_model(torch):
         torch.cuda.empty_cache()
 
 
+def build_engines_cut(torch, deployment):
+    """One ``cut_engine`` per distinct arch of the deployment's roles; roles
+    of one arch share it."""
+    roles = {role: getattr(deployment, role)
+             for role in ("large_planner", "small_planner", "actor", "keyword_extractor")}
+    built = {arch: cut_engine(torch, arch) for arch in sorted(set(roles.values()))}
+    return {role: built[arch] for role, arch in roles.items()}
+
+
 def build_deployment(torch):
-    """Phase 5a: the paper's deployment on the card, at full width."""
+    """Phase 5a: the paper's deployment on the card, at full width, depth
+    cut to SERVE_DEPTHS."""
     from repro_torch.configs.apc_minion import DEFAULT
-    from repro_torch.launch.serve import build_engines
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engines = build_engines(DEFAULT, full=True, device="cuda")
+    engines = build_engines_cut(torch, DEFAULT)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = {
         e.cfg.name: sum(t.numel() for t in _leaves(e.params))
         for e in {id(e): e for e in engines.values()}.values()
     }
-    log(f"[serve] engines built in {init_s:.1f}s; params {n_params}; "
+    log(f"[serve] engines built in {init_s:.1f}s; params {n_params} (published widths, "
+        f"depths { {e.cfg.name: e.cfg.num_layers for e in engines.values()} }); "
         f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return engines, init_s
 
 
 def cut_engine(torch, arch, max_len=192):
-    """An engine of ``arch`` at its published width and arch seed, depth
-    cut to LATER_DEPTHS[arch]."""
+    """An engine of ``arch`` at its published width (``engine_config``) and
+    arch seed, depth cut to SERVE_DEPTHS[arch]."""
     from repro_torch.launch.serve import arch_seed, engine_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
 
-    cfg = dataclasses.replace(engine_config(arch, full=True), num_layers=LATER_DEPTHS[arch])
+    cfg = dataclasses.replace(engine_config(arch, full=True), num_layers=SERVE_DEPTHS[arch])
     gen = torch.Generator(device="cuda").manual_seed(arch_seed(arch))
     return Engine(cfg, lm.init_params(cfg, gen, "cuda"), max_len=max_len, device="cuda")
-
-
-def cut_deployment(torch, engines):
-    """The runs after the headline pair: every role whose arch is in
-    LATER_DEPTHS gets ``cut_engine`` of it (roles of one arch share it);
-    the whole engines are freed first."""
-    roles = {role: e.cfg.name for role, e in engines.items() if e.cfg.name in LATER_DEPTHS}
-    specs = {engines[role].cfg.name: (engines[role].max_len, engines[role].cfg.num_layers)
-             for role in roles}
-    for role in roles:
-        del engines[role]
-    free_memory(torch)
-    cut = {arch: cut_engine(torch, arch, max_len) for arch, (max_len, _) in specs.items()}
-    engines.update({role: cut[arch] for role, arch in roles.items()})
-    depths = {arch: f"{layers} -> {LATER_DEPTHS[arch]} layers"
-              for arch, (_, layers) in specs.items()}
-    log(f"[serve] after the headline pair: {depths}; "
-        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
 def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census=None):
@@ -1960,6 +1962,24 @@ def paged_over_pool(torch, kv, cfg, template_ids, seed):
     return n
 
 
+KV_COUNTERS = ("pages_built", "pages_hit", "prefix_evictions", "tokens_prefetched")
+KV_LABELS = {"engine": "small_planner"}
+
+
+def kv_counters(kv):
+    """The prefix cache's four counters, read from its attributes and from
+    its registry's ``snapshot()`` (the ``kv.*`` series under KV_LABELS),
+    which must agree."""
+    snap = kv.obs.snapshot()
+    key = ",".join(f"{k}={v}" for k, v in sorted(KV_LABELS.items()))
+    reg = {n: snap.get(f"kv.{n}", {}).get(key) for n in KV_COUNTERS}
+    attrs = {n: getattr(kv, n) for n in KV_COUNTERS}
+    if reg != attrs:
+        raise AssertionError(f"prefix: the prefix cache's counters {attrs}, its registry's "
+                             f"{reg}")
+    return attrs
+
+
 def serve_prefix(torch, engines):
     """Phase 5c, the paged KV prefix path: (1) prefix parity of a second
     olmo-1b engine (the small planner, on the same parameter tensors) with a
@@ -1968,7 +1988,9 @@ def serve_prefix(torch, engines):
     TwoTierRouter over a 4-entry plan cache, wired to that pool, routing
     the 16 tasks in waves (``router_waves``): misses run nemotron, hits run
     the prefix engine with the template's cache point, and after every wave
-    the pool holds only plan-cache keys and no page is lost; (3) the paged
+    the pool holds only plan-cache keys and no page is lost, and the prefix
+    cache's counters read alike from its registry and its attributes
+    (``kv_counters``); (3) the paged
     decode kernel over the live pool, t8-style: for each template left, 4
     leases, a page table, and every layer's slabs, bitwise against the
     dense decode kernel on the pages gathered in table order. The kernels'
@@ -1980,6 +2002,7 @@ def serve_prefix(torch, engines):
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.envs.workloads import get_env
     from repro_torch.models import lm
+    from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import KVPrefixCache, plan_cache_point, pool_for_config
     from repro_torch.serving.router import TwoTierRouter
@@ -1988,14 +2011,15 @@ def serve_prefix(torch, engines):
     kernel_table.reset_counts(kernels)
     t_phase = time.perf_counter()
     olmo, nemo = engines["small_planner"], engines["large_planner"]
-    kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"))
+    kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"),
+                       obs=MetricsRegistry(), obs_labels=KV_LABELS)
     peng = Engine(olmo.cfg, olmo.params, max_len=olmo.max_len, device="cuda", kv_prefix=kv)
     if any(a is not b for a, b in zip(_leaves(peng.params), _leaves(olmo.params))):
         raise AssertionError("prefix: the prefix engine must share olmo's parameter tensors")
 
     # (1) parity at full width, bf16: logits within 2^-5 of the largest
     # logit (8 bf16 ulps there; the two prefills round the bf16 residual
-    # stream differently in all 16 layers), the cached prefix K/V bitwise
+    # stream differently in every layer), the cached prefix K/V bitwise
     # (it is copied, not recomputed), the suffix K/V within 2^-5 of the
     # largest |K/V|
     par = _prefix_parity(torch, peng, "olmo-1b", B=4, Sp=96, Ss=32, max_new=16, seed=11)
@@ -2052,7 +2076,7 @@ def serve_prefix(torch, engines):
                            plan_large=plan_large, plan_small_with_template=plan_small,
                            make_template=make_template, async_cachegen=False, kv_prefix=kv)
     s0 = dataclasses.replace(peng.stats)
-    c0 = (kv.pages_built, kv.pages_hit, kv.prefix_evictions, kv.tokens_prefetched)
+    c0 = kv_counters(kv)
     ps, N = kv.pool.page_size, kv.pool.num_pages
     t0 = time.perf_counter()
     for w, wave in enumerate(router_waves(tasks)):
@@ -2078,13 +2102,12 @@ def serve_prefix(torch, engines):
     if not reused > 0:
         raise AssertionError("prefix router: no prefix token was reused")
     held = kv.keys()
+    c1 = kv_counters(kv)
     router_out = {
         "waves": len(router_waves(tasks)), "requests": m.requests, "hits": m.hits,
         "misses": m.misses, "prefix_tokens_reused": reused,
         "prefill_tokens": peng.stats.prefill_tokens - s0.prefill_tokens,
-        "pages_built": kv.pages_built - c0[0], "pages_hit": kv.pages_hit - c0[1],
-        "prefix_evictions": kv.prefix_evictions - c0[2],
-        "tokens_prefetched": kv.tokens_prefetched - c0[3],
+        **{n: c1[n] - c0[n] for n in KV_COUNTERS}, "counters_from_registry": True,
         "templates_left": len(held), "wall_s": wall,
         "lookup_s": m.lookup_s, "lookup_s_per_wave": m.lookup_s / len(router_waves(tasks)),
         "small_prefill_s": peng.stats.prefill_s - s0.prefill_s,
@@ -2224,7 +2247,7 @@ def serve_dcache(torch, engines):
 
 def build_recurrent(torch, engines):
     """Phase 5d: the recurrent run's engines: rwkv6-3b and zamba2-2.7b at
-    full width, depth cut to LATER_DEPTHS (``cut_engine``; roles of one arch
+    full width, depth cut to SERVE_DEPTHS (``cut_engine``; roles of one arch
     share it), the large planner the deployment phase's nemotron-4-15b
     engine (no second copy of its weights)."""
     from repro_torch.configs import registry
@@ -2239,7 +2262,7 @@ def build_recurrent(torch, engines):
     widened = {arch: e.cfg.vocab_size for arch, e in built.items()
                if e.cfg.vocab_size != registry.get(arch).vocab_size}
     log(f"[recurrent] engines built in {init_s:.1f}s; params {n_params} (published "
-        f"widths, depths {({a: LATER_DEPTHS[a] for a in built})}; vocabularies widened to "
+        f"widths, depths {({a: SERVE_DEPTHS[a] for a in built})}; vocabularies widened to "
         f"the tokenizer's: {widened}); allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return rec, init_s, n_params
 
@@ -2310,16 +2333,15 @@ class ChunkDecayProbe:
 
 def build_families(torch, engines):
     """Phase 8a: the families run's engines: granite-moe-1b-a400m, qwen3-4b
-    and qwen2-vl-7b at full published width and depth in bf16
-    (``build_engines`` on a deployment of those archs; granite's 49,155-entry
-    vocabulary widened to the tokenizer's 50,304, as ``engine_config``
-    does), the large planner the deployment phase's nemotron-4-15b engine."""
+    and qwen2-vl-7b at full published width in bf16, depth cut to
+    SERVE_DEPTHS (``cut_engine``; granite's 49,155-entry vocabulary widened
+    to the tokenizer's 50,304, as ``engine_config`` does), the large planner
+    the deployment phase's nemotron-4-15b engine."""
     from repro_torch.configs.apc_minion import APCDeployment
-    from repro_torch.launch.serve import build_engines
 
     t0 = time.perf_counter()
-    own = build_engines(APCDeployment(large_planner=FAMILIES_ROLES["small_planner"],
-                                      **FAMILIES_ROLES), full=True, device="cuda")
+    own = build_engines_cut(torch, APCDeployment(
+        large_planner=FAMILIES_ROLES["small_planner"], **FAMILIES_ROLES))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     fam = {**own, "large_planner": engines["large_planner"]}
@@ -2374,8 +2396,8 @@ def serve_prefix_families(torch, fam):
     """Phase 8b, the paged KV prefix path on the prefix families' engines
     (granite-moe-1b-a400m, hd 64; qwen2-vl-7b, G = 7), each with its own
     64-page pool of 32-token pages on the served parameter tensors:
-    ``_prefix_parity`` at t8's shape (B = 4, 96 + 32 tokens, bf16, full
-    depth), the cached prefix K/V bitwise equal to the full prefill's, and
+    ``_prefix_parity`` at t8's shape (B = 4, 96 + 32 tokens, bf16, the
+    served depth), the cached prefix K/V bitwise equal to the full prefill's, and
     the paged kernel over the pool (``paged_over_pool``), whose launches are
     counted by head dim. Logits are held in fp32 at 2 layers
     (``_prefix_fp32``): the prefix path on the card within 2e-3 of the same
@@ -2383,9 +2405,9 @@ def serve_prefix_families(torch, fam):
     granite's GShard dispatch gives each call its own capacity (the full
     prefill's group is the 128-token row, the suffix prefill's the 32-token
     suffix), so its two paths drop different (token, expert) pairs, in the
-    reference as here. The bf16 full-depth logits differences are reported:
-    over 28 layers (qwen2-vl) the two paths' bf16 roundings part by more
-    than the olmo run's 2^-5 of the largest logit."""
+    reference as here. The bf16 logits differences are reported, not
+    bounded: over qwen2-vl's 28 layers the two paths' bf16 roundings part
+    by more than the olmo run's 2^-5 of the largest logit."""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
 
@@ -2433,7 +2455,7 @@ def build_flagship(torch, engines):
     """Phase 8c: the FLAGSHIP deployment's engines: kimi-k2-1t-a32b at its
     published width with depth cut to FLAGSHIP_DEPTH (61 layers are ~2 TB in
     bf16; one card holds 80 GB), its other roles the DEFAULT engines of the
-    same archs (olmo-1b; qwen2.5-3b cut to LATER_DEPTHS)."""
+    same archs (olmo-1b and qwen2.5-3b, cut to SERVE_DEPTHS)."""
     from repro_torch.configs.apc_minion import DEFAULT, FLAGSHIP
     from repro_torch.launch.serve import arch_seed, engine_config
     from repro_torch.models import lm
@@ -2535,7 +2557,7 @@ def _bitwise_equal(torch, a, b) -> bool:
 
 
 def train_full(torch, ckpt_dir):
-    """Phase 9(a): olmo-1b at published size trained TRAIN_STEPS steps
+    """Phase 9(a): olmo-1b at published width, TRAIN_LAYERS layers, trained TRAIN_STEPS steps
     through the port's FaultTolerantRunner (checks in the constants'
     comment). Returns (its config, the final parameters, the phase's
     record)."""
@@ -2575,7 +2597,7 @@ def train_full(torch, ckpt_dir):
             self.restored.append((extra.get("step"), tree))
             return tree, extra
 
-    cfg = registry.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -3087,6 +3109,8 @@ def multi_nccl(rank, world):
     engines = {"plain": Engine(cfg, params, max_len=max_len, device="cuda"),
                "mesh": Engine(cfg, params, mesh=mesh, max_len=max_len, device="cuda",
                               profile=registry.get_sharding(MULTI_ARCH))}
+    torch.cuda.synchronize()
+    split = {"build": time.perf_counter() - t0}
     got = {}
     for name, eng in engines.items():
         kernel_table.reset_counts(kernels)
@@ -3125,6 +3149,7 @@ def multi_nccl(rank, world):
     ref_toks, ref_logits = _greedy(torch, engines["plain"], long_prompt, MULTI_NEW)
     del engines
     torch.cuda.empty_cache()
+    split["serve"] = time.perf_counter() - t0 - split["build"]
     # the KV prefix path: Engine(mesh=, kv_prefix=) against Engine(kv_prefix=)
     prefix_prompts = multi_prefix_prompts(long_prompt)
     prof = registry.get_sharding(MULTI_ARCH)
@@ -3163,6 +3188,7 @@ def multi_nccl(rank, world):
                       "bitwise": True, "launches": plain["launches"],
                       "prefix_tokens_reused": plain["reused"], "pool_bytes": plain["pool"][0]},
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "split": {**split, "prefix": time.perf_counter() - t0 - sum(split.values())},
            "seconds": time.perf_counter() - t0}
     return rec, {"prompt": long_prompt, "tokens": ref_toks, "logits": ref_logits.numpy(),
                  "prefix_prompts": prefix_prompts, "prefix_tokens": plain["tokens"],
@@ -3212,9 +3238,26 @@ def _head_probe(torch, ops):
     return seen, errs, undo
 
 
-def multi_rank(rank, world, ref):
+def await_ref(ref_dir):
+    """(a)'s unsharded references for (b)'s ranks: ``ref.npz``, which the
+    parent writes into ``ref_dir`` once (a) has returned (or ``failed``
+    where (a) raised)."""
+    import numpy as np
+
+    path = os.path.join(ref_dir, "ref.npz")
+    deadline = time.monotonic() + MULTI_TIMEOUT_S
+    while not os.path.exists(path):
+        if os.path.exists(os.path.join(ref_dir, "failed")) or time.monotonic() > deadline:
+            raise RuntimeError("multi(b): phase 11(a) gave no references")
+        time.sleep(0.05)
+    with np.load(path) as z:
+        return {k: z[k] if z[k].ndim else z[k].item() for k in z.files}
+
+
+def multi_rank(rank, world, ref_dir):
     """Phase 11(b)'s body on each of the four gloo ranks sharing the card
-    (module constants state each check); returns the rank's record."""
+    (module constants state each check), on (a)'s references from
+    ``ref_dir``; returns the rank's record."""
     import numpy as np
     import torch
 
@@ -3239,7 +3282,18 @@ def multi_rank(rank, world, ref):
     torch.set_num_threads(1)
     kernels = kernel_table.launchers()
     out = {"device": str(torch.cuda.current_device()), "seconds": {}, "checks": {},
-           "errors": {}}
+           "errors": {}, "split": {}, "t_start": time.time()}
+
+    def lap(key, t):
+        """Adds the seconds since ``t`` to split[key]; returns now."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["split"][key] = out["split"].get(key, 0.0) + now - t
+        return now
+
+    t = time.perf_counter()
+    ref = await_ref(ref_dir)
+    out["ref_wait_s"] = time.perf_counter() - t
 
     def gen(arch):
         return torch.Generator(device="cuda").manual_seed(arch_seed(arch))
@@ -3256,18 +3310,22 @@ def multi_rank(rank, world, ref):
     mc.reset_counters()
     # tp_serve
     timed("tp_serve")
+    t = time.perf_counter()
     mesh = lmesh.make_mesh((1, 4), ("data", "model"))
     cfg = engine_config(MULTI_ARCH, full=True)
     eng = Engine(cfg, lm.init_params(cfg, gen(MULTI_ARCH), "cuda"), mesh=mesh,
                  profile=registry.get_sharding(MULTI_ARCH), device="cuda",
                  max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8)
     torch.cuda.empty_cache()
+    t = lap("serve.build", t)
     seen, kerr, undo = _head_probe(torch, ops)
     kernel_table.reset_counts(kernels)
     try:
         _, logits = _greedy(torch, eng, ref["prompt"], MULTI_NEW, forced=ref["tokens"])
         launches = {n: kernels[n].launches for n in ("flash_attention", "decode_attention")}
+        t = lap("serve.greedy", t)
         free = eng.generate(ref["prompt"], MULTI_NEW)
+        t = lap("serve.generate", t)
     finally:
         undo()
     ref_l = torch.from_numpy(ref["logits"])
@@ -3384,12 +3442,13 @@ def multi_rank(rank, world, ref):
     batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
     opt_cfg = AdamWConfig(lr=1e-3)
     one = None
+    t = time.perf_counter()
     if rank == 0:
         p1, _, m1 = make_train_step(cfg, opt_cfg)(params, adamw_init(params, opt_cfg), batch)
         g1 = value_and_grad(cfg, params, batch)[2]
-        one = (float(m1["loss"]), [t.cpu() for t in tree_leaves(p1)],
-               [t.cpu() for t in tree_leaves(g1)])
+        one = (float(m1["loss"]), tree_leaves(p1), tree_leaves(g1))
         del p1, g1
+    t = lap("train.one_rank", t)
     mesh22 = lmesh.make_mesh((2, 2), ("data", "model"))
     rec = {}
     serving = registry.get_sharding(MULTI_ARCH)
@@ -3409,6 +3468,7 @@ def multi_rank(rank, world, ref):
         loss, _, g_sh = value_and_grad(cfg, local_p, lb, ctx)
         g_sh, gnorm = reduce_grads(ctx, specs, g_sh)
         new = adamw_update(local_p, g_sh, adamw_init(local_p, opt_cfg), opt_cfg, gnorm=gnorm)[0]
+        t = lap(f"{name}.parts", t)
         same = None
         if name in ("serve", "train"):
             new2, _, m = make_train_step(cfg, opt_cfg, ctx)(local_p,
@@ -3416,8 +3476,10 @@ def multi_rank(rank, world, ref):
             same = all(torch.equal(a, b) for a, b in zip(tree_leaves(new2), tree_leaves(new)))
             loss = m["loss"]
             del new2
+            t = lap(f"{name}.step", t)
         whole = shd.unshard_tree(new, specs, mesh22)
         grads = shd.unshard_tree(g_sh, specs, mesh22)
+        t = lap(f"{name}.gather", t)
         rec[name] = {"loss": float(loss), "step_is_its_parts": same}
         if rank == 0:
             # one-rank AdamW on the gathered sharded gradients and norm: the
@@ -3429,11 +3491,11 @@ def multi_rank(rank, world, ref):
                         for a, b in zip(tree_leaves(whole), tree_leaves(exact)))
             del exact
             dl = abs(rec[name]["loss"] - one[0])
-            dg = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            dg = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
                      for a, b in zip(tree_leaves(grads), one[2]))
             dp_cond, dp_all = 0.0, 0.0
             for a, b, g in zip(tree_leaves(whole), one[1], one[2]):
-                d = (a.cpu() - b).abs()
+                d = (a - b).abs()
                 dp_all = max(dp_all, float(d.max()))
                 cond = g.abs() >= MULTI_TRAIN_GMIN
                 if bool(cond.any()):
@@ -3442,6 +3504,7 @@ def multi_rank(rank, world, ref):
                              param_diff_all=dp_all, update_vs_one_rank_adamw=d_upd)
             out["errors"][f"train_{name}"] = {"loss": dl, "grad_rel": dg, "param": dp_cond,
                                               "param_all": dp_all, "update": d_upd}
+        t = lap(f"{name}.compare", t)
         del new, whole, grads, g_sh
     keep_specs = shd.param_pspecs(params, registry.get_sharding(MULTI_ARCH), mesh22)
     keep = shd.shard_tree(params, keep_specs, mesh22)
@@ -3513,6 +3576,7 @@ def multi_rank(rank, world, ref):
     out["collectives"] = {k: dict(v) for k, v in mc.COUNTERS.items()}
     out["backend"] = mesh.backend
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["t_end"] = time.time()
     return out
 
 
@@ -3611,33 +3675,51 @@ def multi_on_card(torch):
     sharing the card (module constants), a dry-run on the host's CPU beside
     them; each in processes of its own (``spawn_local``), killed at a
     sub-phase's timeout; (c) the dry-run's memory on the card, its meta
-    cells beside (b) and its card runs after (b)'s ranks have exited.
-    Returns the ``{"multi": ...}`` line's body."""
+    cells beside (a) and its card runs after (a). Every process starts
+    first, since each takes seconds to reach the card: (b)'s ranks start
+    beside (a) and wait for its references (``await_ref``). Returns the
+    ``{"multi": ...}`` line's body."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.launch.dryrun import card_lock
     from repro_torch.launch.mesh import spawn_local
 
     t0 = time.perf_counter()
-    [(nccl, ref)] = spawn_local(multi_nccl, 1, backend="nccl", device="cuda",
-                                timeout_s=MULTI_TIMEOUT_S, phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
-    nccl["spawn_s"] = time.perf_counter() - t0
-    log(f"[multi] (a) NCCL world 1: bitwise over {MULTI_PROMPTS} prompts x {MULTI_NEW} "
-        f"tokens; launches {nccl['launches']}; collectives {nccl['collectives']}; prefix path "
-        f"{nccl['prefix']}")
-    import tempfile
-    from pathlib import Path
-
-    from repro_torch.launch.dryrun import card_lock
-
-    t1 = time.perf_counter()
     dr_proc, dr_out = start_dryrun(MULTI_DRYRUN_CELLS)
     card_out, card_proc = tempfile.mkdtemp(prefix="chip_smoke_dryrun_"), None
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_ref_")
     try:
-        # (c) runs its meta cells beside (b); its card runs wait on this lock
-        # until (b)'s ranks have exited
-        with card_lock(Path(card_out)):
-            card_proc, _ = start_dryrun(CARD_DRYRUN_CELLS, "cuda", card_out)
-            ranks = spawn_local(multi_rank, 4, backend="gloo", device="cuda", args=(ref,),
-                                timeout_s=MULTI_TIMEOUT_S,
-                                phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+        with ThreadPoolExecutor(1) as pool:
+            spawned = time.time()
+            ranks_f = pool.submit(spawn_local, multi_rank, 4, backend="gloo", device="cuda",
+                                  args=(ref_dir,), timeout_s=MULTI_TIMEOUT_S,
+                                  phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+            try:
+                # (c) runs its meta cells beside (a); its card runs wait on
+                # this lock until (a) has returned
+                with card_lock(Path(card_out)):
+                    card_proc, _ = start_dryrun(CARD_DRYRUN_CELLS, "cuda", card_out)
+                    [(nccl, ref)] = spawn_local(multi_nccl, 1, backend="nccl", device="cuda",
+                                                timeout_s=MULTI_TIMEOUT_S,
+                                                phase_timeout_s=MULTI_PHASE_TIMEOUT_S)
+            except BaseException:
+                open(os.path.join(ref_dir, "failed"), "w").close()
+                raise
+            nccl["spawn_s"] = time.perf_counter() - t0
+            np.savez(os.path.join(ref_dir, "ref.tmp.npz"), **ref)
+            os.replace(os.path.join(ref_dir, "ref.tmp.npz"), os.path.join(ref_dir, "ref.npz"))
+            log(f"[multi] (a) NCCL world 1: bitwise over {MULTI_PROMPTS} prompts x "
+                f"{MULTI_NEW} tokens; launches {nccl['launches']}; collectives "
+                f"{nccl['collectives']}; prefix path {nccl['prefix']}; seconds "
+                f"{nccl['seconds']:.1f} ({nccl['split']}) of {nccl['spawn_s']:.1f} spawned")
+            t1 = time.perf_counter()
+            ranks = ranks_f.result()
+        returned = time.time()
         t_card = time.perf_counter()
         dryrun = finish_dryrun(dr_proc, dr_out, MULTI_DRYRUN_CELLS)
         card = finish_dryrun(card_proc, card_out, CARD_DRYRUN_CELLS)
@@ -3647,6 +3729,7 @@ def multi_on_card(torch):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+        shutil.rmtree(ref_dir, ignore_errors=True)
     log(f"[multi] dry-run on the host CPU (torch {dryrun['torch']}): "
         f"{[(c['cell'], c['seconds'], c['dominant']) for c in dryrun['cells']]}")
     check_card_dryrun(card)
@@ -3664,6 +3747,9 @@ def multi_on_card(torch):
     tp = ranks[0]["checks"]["tp_serve"]
     tpp = ranks[0]["checks"]["tp_prefix"]
     gloo = {"backend": ranks[0]["backend"], "world": 4, "ranks": ranks,
+            "start_s": max(r["t_start"] for r in ranks) - spawned,
+            "ref_wait_s": max(r["ref_wait_s"] for r in ranks),
+            "exit_s": returned - max(r["t_end"] for r in ranks),
             "seconds": time.perf_counter() - t1}
     log(f"[multi] (b) tp_prefix: |dlogit| {ranks[0]['errors']['tp_prefix']:.4g} of the largest; "
         f"launches a rank {tpp['launches']}; paged {tpp['paged_launches']} bitwise; pool bytes "
@@ -3673,7 +3759,9 @@ def multi_on_card(torch):
         f"ep dropped at 1.25 {ranks[0]['checks']['ep']['dropped_cf1.25']} of "
         f"{ranks[0]['checks']['ep']['pairs']} pairs; staged bytes "
         f"{sum(v['staged_bytes'] for v in ranks[0]['collectives'].values())}; seconds "
-        f"{ranks[0]['seconds']}")
+        f"{ranks[0]['seconds']}, rank 0's split {ranks[0]['split']}; ranks started "
+        f"{gloo['start_s']:.1f}s after the spawn, waited {gloo['ref_wait_s']:.1f}s for (a)'s "
+        f"references, and returned {gloo['exit_s']:.1f}s after their last ended")
     return {"nccl": nccl, "gloo": gloo, "dryrun": dryrun,
             "tol": {"tp": MULTI_TP_TOL, "ep": MULTI_EP_TOL, "train": MULTI_TRAIN_TOL},
             "seconds": time.perf_counter() - t0}
@@ -3828,13 +3916,25 @@ def main() -> int:
     done("2_build")
 
     # phase 3: kernels against their plain versions, then timings
-    err, checks = check_kernels(torch)
-    err["topk_cosine"], checks["topk_cosine"] = check_topk(torch)
-    err["paged_decode_attention"], checks["paged_decode_attention"] = check_paged(torch)
-    scan_err, scan_checks = check_scans(torch)
+    parts = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        res = fn(torch)
+        parts[name] = time.perf_counter() - t
+        return res
+
+    err, checks = part("check_kernels", check_kernels)
+    err["topk_cosine"], checks["topk_cosine"] = part("check_topk", check_topk)
+    err["paged_decode_attention"], checks["paged_decode_attention"] = part("check_paged",
+                                                                           check_paged)
+    scan_err, scan_checks = part("check_scans", check_scans)
     err.update(scan_err)
     checks.update(scan_checks)
-    timing = time_kernels(torch) + time_topk(torch) + time_paged(torch) + time_scans(torch)
+    timing = [row for name, fn in (("time_kernels", time_kernels), ("time_topk", time_topk),
+                                   ("time_paged", time_paged), ("time_scans", time_scans))
+              for row in part(name, fn)]
+    log(f"[kernels] seconds by part {json.dumps(parts)}")
     done("3_kernels")
 
     # phase 4: the model on the card against the CPU
@@ -3843,10 +3943,7 @@ def main() -> int:
 
     # phase 5: serving, one run per path on the same engines
     engines, init_s = build_deployment(torch)
-    runs = {row[0]: serve(torch, engines, *row) for row in SERVE_RUNS if row[0] in HEADLINE}
-    cut_deployment(torch, engines)
-    runs.update((row[0], serve(torch, engines, *row)) for row in SERVE_RUNS
-                if row[0] not in HEADLINE)
+    runs = {row[0]: serve(torch, engines, *row) for row in SERVE_RUNS}
     runs["prefix"] = serve_prefix(torch, engines)
     check_outputs(torch, engines)
     rec_engines, rec_init_s, rec_params = build_recurrent(torch, engines)
@@ -3911,7 +4008,7 @@ def main() -> int:
     whisper = check_whisper(torch)
     done("8_families")
 
-    # phase 9: the trainer (a) olmo-1b at published size through the
+    # phase 9: the trainer (a) olmo-1b at published width through the
     # fault-tolerant runner with its checkpoints, (b) one step card vs CPU,
     # (c) the trained weights served, (d) the plan cache's cold tier
     engines.clear()  # no later phase serves the DEFAULT engines
@@ -3951,7 +4048,7 @@ def main() -> int:
     examples = examples_on_card(torch)
     free_memory(torch)
     done("12_examples")
-    srv = {"init_s": init_s, "later_depths": LATER_DEPTHS,
+    srv = {"init_s": init_s, "serve_depths": SERVE_DEPTHS,
            "max_memory_allocated_gib": max(peak.values()),
            "peak_memory_gib": peak, "prefix_families": prefix_families,
            "whisper": whisper, "runs": runs}
@@ -4008,8 +4105,9 @@ def main() -> int:
         })
     log(f"[serve] engines {init_s:.1f}s, peak memory "
         f"{srv['max_memory_allocated_gib']:.2f} GiB ({peak})")
+    total_s = time.perf_counter() - t_start
     log(f"[phases] {json.dumps(phase_s)}")
-    log(f"[total] {time.perf_counter() - t_start:.1f}s")
+    log(f"[total] {total_s:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": srv}))
     print(json.dumps({"baselines": baselines}))
@@ -4018,6 +4116,7 @@ def main() -> int:
     print(json.dumps({"sim": sim}))
     print(json.dumps({"multi": multi}))
     print(json.dumps({"examples": examples}))
+    print(json.dumps({"phases": phase_s, "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

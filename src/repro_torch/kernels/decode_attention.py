@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_aligned16
+from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (the mask value: NEG in csrc/common.cuh)
 
 CHUNK = 32  # cache positions per chunk CTA: DC in csrc/decode_common.cuh
 

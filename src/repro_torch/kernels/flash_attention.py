@@ -15,6 +15,7 @@ import collections
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (the mask value: NEG in csrc/common.cuh)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import split_scratch
 from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
+from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (the mask value: NEG in csrc/common.cuh)
 
 HEAD_DIMS = (32, 64, 128)
 

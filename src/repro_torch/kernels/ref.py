@@ -162,10 +162,11 @@ def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))], dim=1)
 
 
-def wkv6_chunked_ref(r, k, v, w_log, u, *, chunk: int = 64):
-    """RWKV6 recurrence from a zero state, chunked. r, k, v, w_log:
-    (B, S, H, N); u: (H, N) -> (y (B, S, H, N) fp32, state (B, H, N, N)
-    fp32). A ragged tail is zero-padded (zero decay, zero inputs)."""
+def wkv6_chunked_ref(r, k, v, w_log, u, state0=None, *, chunk: int = 64):
+    """RWKV6 recurrence, chunked. r, k, v, w_log: (B, S, H, N); u: (H, N);
+    state0: (B, H, N, N) or None (zeros) -> (y (B, S, H, N) fp32, state
+    (B, H, N, N) fp32). A ragged tail is zero-padded (zero decay, zero
+    inputs)."""
     B, S, H, N = r.shape
     C = min(chunk, S)
     pad = (-S) % C
@@ -173,7 +174,8 @@ def wkv6_chunked_ref(r, k, v, w_log, u, *, chunk: int = 64):
     uf = u.float()
     tri_excl = (torch.arange(C, device=r.device)[None, :]
                 < torch.arange(C, device=r.device)[:, None]).float()
-    state = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    state = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
     ys = []
     for c0 in range(0, S + pad, C):
         rb, kb, vb, wb = (t[:, c0:c0 + C] for t in (rc, kc, vc, wc))  # (B, C, H, N)
@@ -212,11 +214,11 @@ def rwkv6_ref(r, k, v, w_log, u, state0=None):
     return y, state
 
 
-def ssd_chunked_ref(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
-    """Mamba-2 SSD scan from a zero state, chunked. x: (B, S, H, P); dt:
-    (B, S, H); A_log, D: (H,); B_, C_: (B, S, Ns) shared across heads ->
-    (y (B, S, H, P) fp32, state (B, H, P, Ns) fp32). A ragged tail is
-    zero-padded."""
+def ssd_chunked_ref(x, dt, A_log, B_, C_, D, state0=None, *, chunk: int = 128):
+    """Mamba-2 SSD scan, chunked. x: (B, S, H, P); dt: (B, S, H); A_log, D:
+    (H,); B_, C_: (B, S, Ns) shared across heads; state0: (B, H, P, Ns) or
+    None (zeros) -> (y (B, S, H, P) fp32, state (B, H, P, Ns) fp32). A
+    ragged tail is zero-padded."""
     Bb, S, H, P = x.shape
     Ns = B_.shape[-1]
     Cs = min(chunk, S)
@@ -226,7 +228,8 @@ def ssd_chunked_ref(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
     Df = D.float()
     tri_incl = (torch.arange(Cs, device=x.device)[None, :]
                 <= torch.arange(Cs, device=x.device)[:, None]).float()
-    state = torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=x.device)
+             if state0 is None else state0.float())
     ys = []
     for c0 in range(0, S + pad, Cs):
         xb, dtb, Bb_, Cb = (t[:, c0:c0 + Cs] for t in (xc, dtc, Bc, Cc))

@@ -92,6 +92,7 @@ from repro_torch.models.common import (
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.rope import positions_for_rope
 
+Batch = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 DEC_POS_ROWS = 32_776  # whisper's learned decoder positions (the reference's table)
@@ -147,8 +148,12 @@ def _rwkv_layer_init(cfg, generator, device) -> Params:
 
 def _mamba_layer_init(cfg, generator, device) -> Params:
     p = _norms(cfg, ("ln1",), device)
-    p["mamba"] = mam.mamba_init(cfg, generator, device)
+    p["mamba"] = mamba_init_wrap(cfg, generator, device)
     return p
+
+
+def mamba_init_wrap(cfg, generator, device) -> Params:
+    return mam.mamba_init(cfg, generator, device)
 
 
 def init_params(cfg, generator: torch.Generator, device) -> Params:

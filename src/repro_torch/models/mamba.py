@@ -85,6 +85,12 @@ def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y).to(xc.dtype), full[:, -(K - 1):]
 
 
+def ssd_chunked(x, dt, A_log, B_, C_, D, state0, chunk: int = 128):
+    """The reference's chunked scan under its name and signature:
+    ``ref.ssd_chunked_ref`` from ``state0`` (B, H, P, Ns) -> (y, state)."""
+    return ref.ssd_chunked_ref(x, dt, A_log, B_, C_, D, state0, chunk=chunk)
+
+
 def ssd_step(x, dt, A_log, B_, C_, D, state) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step. x: (B, H, P); dt: (B, H); B_/C_: (B, Ns); state:
     (B, H, P, Ns) fp32 -> (y (B, H, P) fp32, new state)."""

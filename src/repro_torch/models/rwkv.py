@@ -84,6 +84,12 @@ def rwkv_init(cfg, generator, device) -> Params:
     }
 
 
+def wkv6_chunked(r, k, v, w_log, u, state0, chunk: int = 64):
+    """The reference's chunked scan under its name and signature:
+    ``ref.wkv6_chunked_ref`` from ``state0`` (B, H, N, N) -> (y, state)."""
+    return ref.wkv6_chunked_ref(r, k, v, w_log, u, state0, chunk=chunk)
+
+
 def wkv6_step(r, k, v, w_log, u, state) -> Tuple[torch.Tensor, torch.Tensor]:
     """One recurrent step. r, k, v, w_log: (B, H, N); u: (H, N); state:
     (B, H, N, N) fp32 -> (y (B, H, N) fp32, new state)."""

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import dtype_of, resolve_device
+from repro_torch.obs import names as _names
+from repro_torch.obs.registry import MetricsRegistry
 
 
 class PagePoolExhausted(RuntimeError):
@@ -189,27 +191,57 @@ class KVPrefixCache:
     derives a child prefix copy-on-write; ``release`` (the plan-cache
     eviction listener) frees the pages when the template is evicted.
 
-    Owns the lock for itself AND its pool. The reference's four registry
-    counters are plain integers here: ``pages_hit``, ``pages_built``,
-    ``tokens_prefetched`` and ``prefix_evictions``.
+    Owns the lock for itself AND its pool. Its four counters
+    (``kv.pages_hit``, ``kv.pages_built``, ``kv.tokens_prefetched``,
+    ``kv.prefix_evictions``) live in ``obs`` (a registry of its own when
+    none is given) under ``obs_labels``; the properties of the same names
+    read them.
     """
 
-    def __init__(self, pool: PagePool):
+    def __init__(
+        self,
+        pool: PagePool,
+        *,
+        obs: Optional[MetricsRegistry] = None,
+        obs_labels: Optional[Dict[str, str]] = None,
+    ):
         self.pool = pool
         self._lock = threading.Lock()
         self._entries: Dict[str, _Prefix] = {}
         self._seq = 0  # monotonic recency counter (deterministic LRU)
-        self.pages_hit = 0
-        self.pages_built = 0
-        self.tokens_prefetched = 0
-        self.prefix_evictions = 0
+        self.obs = obs if obs is not None else MetricsRegistry()
+        labels = dict(obs_labels or {})
+        self._pages_hit = self.obs.counter(_names.KV_PAGES_HIT, **labels)
+        self._pages_built = self.obs.counter(_names.KV_PAGES_BUILT, **labels)
+        self._tokens_prefetched = self.obs.counter(
+            _names.KV_TOKENS_PREFETCHED, **labels
+        )
+        self._prefix_evictions = self.obs.counter(
+            _names.KV_PREFIX_EVICTIONS, **labels
+        )
+
+    @property
+    def pages_hit(self) -> int:
+        return self._pages_hit.value
+
+    @property
+    def pages_built(self) -> int:
+        return self._pages_built.value
+
+    @property
+    def tokens_prefetched(self) -> int:
+        return self._tokens_prefetched.value
+
+    @property
+    def prefix_evictions(self) -> int:
+        return self._prefix_evictions.value
 
     # -- internals (call with the lock held) -------------------------------
 
     def _release_locked(self, template_id: str) -> None:
         entry = self._entries.pop(template_id)
         self.pool.release(entry.pages)
-        self.prefix_evictions += 1
+        self._prefix_evictions.inc()
 
     def _alloc_locked(self, n: int) -> List[int]:
         """Allocate ``n`` pages, LRU-evicting idle prefixes to make room."""
@@ -274,7 +306,7 @@ class KVPrefixCache:
             self.pool.write(rows, kp, vp)
             self._seq += 1
             self._entries[template_id] = _Prefix(rows, length, self._seq)
-            self.pages_built += n
+            self._pages_built.inc(n)
         return n
 
     def acquire(self, template_id: str) -> Optional[PrefixLease]:
@@ -287,7 +319,7 @@ class KVPrefixCache:
             self._seq += 1
             entry.last_used = self._seq
             self.pool.retain(entry.pages)
-            self.pages_hit += len(entry.pages)
+            self._pages_hit.inc(len(entry.pages))
             return PrefixLease(template_id, tuple(entry.pages), entry.length)
 
     def gather(self, lease: PrefixLease, *, batch: int = 1):
@@ -297,7 +329,7 @@ class KVPrefixCache:
         discards)."""
         with self._lock:
             kg, vg = self.pool.gather(lease.pages)
-            self.tokens_prefetched += batch * lease.length
+            self._tokens_prefetched.inc(batch * lease.length)
         L, n, ps, H, hd = kg.shape
         k = kg.reshape(L, 1, n * ps, H, hd).expand(L, batch, n * ps, H, hd)
         v = vg.reshape(L, 1, n * ps, H, hd).expand(L, batch, n * ps, H, hd)
@@ -369,7 +401,7 @@ class KVPrefixCache:
                 self.pool.retain(shared)
                 self._seq += 1
                 self._entries[child_id] = _Prefix(shared + rows, new_len, self._seq)
-                self.pages_built += n_new
+                self._pages_built.inc(n_new)
             finally:
                 parent.leases -= 1
         return n_new

@@ -23,11 +23,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import registry as jregistry  # noqa: E402
+from repro.obs.registry import MetricsRegistry as JRegistry  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import kv_cache as jkv  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.obs.registry import MetricsRegistry  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 
@@ -49,11 +51,12 @@ class Both:
     page_size, 2 heads, hd 8) f32 pool; ``do`` runs one op on both and
     checks that their states agree."""
 
-    def __init__(self, num_pages=16, page_size=4):
+    def __init__(self, num_pages=16, page_size=4, **obs):
         self.j = jkv.KVPrefixCache(
-            jkv.PagePool(2, num_pages, page_size, 2, 8, dtype=jnp.float32))
+            jkv.PagePool(2, num_pages, page_size, 2, 8, dtype=jnp.float32), **obs.get("j", {}))
         self.t = tkv.KVPrefixCache(
-            tkv.PagePool(2, num_pages, page_size, 2, 8, dtype=torch.float32, device="cpu"))
+            tkv.PagePool(2, num_pages, page_size, 2, 8, dtype=torch.float32, device="cpu"),
+            **obs.get("t", {}))
 
     @staticmethod
     def _conv(a, side):
@@ -97,6 +100,8 @@ class Both:
         assert te == je and list(te) == list(je)
         for tname, jname in COUNTERS.items():
             assert getattr(self.t, tname) == getattr(self.j, jname).value, tname
+            assert getattr(self.t, jname).value == getattr(self.j, jname).value, jname
+        assert self.t.obs.snapshot() == self.j.obs.snapshot()
 
     def same_gather(self, leases, batch=1):
         (kj, vj, lj), (kt, vt, lt) = self.do("gather", leases, batch=batch)
@@ -251,6 +256,60 @@ def test_counters_match_the_reference_registry():
     b.do("put", "c", _kv_np(S=3), _kv_np(S=3))
     b.do("clear")
     assert len(b.t) == 0 and b.t.pool.free_pages == 16 and b.t.prefix_evictions == 3
+
+
+def test_metrics_land_in_registry():
+    """The twin of tests/test_kv_cache.py::test_metrics_land_in_registry,
+    with a registry and labels given to each package's cache: the four
+    series of both snapshots are equal, (2, 2, 32, 1), under the labels, and
+    the port's attributes read the registry."""
+    labels = {"shard": "n0"}
+    jreg, treg = JRegistry(), MetricsRegistry()
+    b = Both(j={"obs": jreg, "obs_labels": labels}, t={"obs": treg, "obs_labels": labels})
+    assert b.t.obs is treg
+    b.do("put", "a", _kv_np(S=8), _kv_np(S=8))
+    lease = b.do("acquire", "a")
+    b.do("gather", lease, batch=4)
+    b.do("release_lease", lease)
+    b.do("release", "a")
+    names = ("kv.pages_built", "kv.pages_hit", "kv.tokens_prefetched", "kv.prefix_evictions")
+    snap = treg.snapshot()
+    assert snap == jreg.snapshot()
+    assert {n: snap[n] for n in names} == {
+        "kv.pages_built": {"shard=n0": 2}, "kv.pages_hit": {"shard=n0": 2},
+        "kv.tokens_prefetched": {"shard=n0": 32}, "kv.prefix_evictions": {"shard=n0": 1}}
+    assert (b.t.pages_built, b.t.pages_hit, b.t.tokens_prefetched, b.t.prefix_evictions) == \
+        tuple(treg.counter(n, shard="n0").value for n in names)
+    assert treg.counter("kv.pages_built").value == 0  # no unlabelled series
+    with pytest.raises(AttributeError):
+        b.t.pages_hit = 0  # read-only: the registry holds the count
+
+
+def test_registry_counts_evictions_under_pool_pressure():
+    """Two caches on one registry under different labels; LRU evictions
+    under pool pressure land in ``_prefix_evictions`` and the labelled
+    series as in the reference (tests/test_kv_cache.py:121, :171)."""
+    jreg, treg = JRegistry(), MetricsRegistry()
+    b = Both(num_pages=4, j={"obs": jreg, "obs_labels": {"shard": "a"}},
+             t={"obs": treg, "obs_labels": {"shard": "a"}})
+    b.do("put", "old", _kv_np(S=8), _kv_np(S=8))
+    b.do("put", "new", _kv_np(S=8), _kv_np(S=8))
+    b.do("release_lease", b.do("acquire", "new"))
+    b.do("put", "x", _kv_np(S=8), _kv_np(S=8))  # evicts "old"
+    b.do("put", "y", _kv_np(S=12), _kv_np(S=12))  # 3 pages: evicts "new" and "x"
+    with pytest.raises(tkv.PagePoolExhausted, match="holds only"):
+        b.do("put", "z", _kv_np(S=32), _kv_np(S=32))
+    assert b.t._prefix_evictions.value == b.j._prefix_evictions.value == 3
+    other = tkv.KVPrefixCache(  # a second cache's series beside the first's
+        tkv.PagePool(2, 4, 4, 2, 8, dtype=torch.float32, device="cpu"),
+        obs=treg, obs_labels={"shard": "b"})
+    other.put("q", torch.zeros(2, 4, 2, 8), torch.zeros(2, 4, 2, 8))
+    other.release("q")
+    snap = treg.snapshot()
+    assert snap["kv.prefix_evictions"] == {"shard=a": 3, "shard=b": 1}
+    assert snap["kv.pages_built"] == {"shard=a": 9, "shard=b": 1}
+    assert {k: v["shard=a"] for k, v in snap.items()} == \
+        {k: v["shard=a"] for k, v in jreg.snapshot().items()}
 
 
 # -- page table for the paged kernel -------------------------------------------
