@@ -2150,8 +2150,8 @@ def serve_dcache(torch, engines):
     from repro_torch.core.distributed_cache import DistributedPlanCache
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.envs.workloads import get_env
-    from repro_torch.obs import (InMemoryExporter, JsonlExporter, Tracer, use_tracer,
-                                 write_chrome_trace)
+    from repro_torch.obs import (InMemoryExporter, JsonlExporter, Tracer, port_names,
+                                 use_tracer, write_chrome_trace)
     from repro_torch.obs.names import EVENT_NAMES, SPAN_NAMES
     from repro_torch.serving.router import TwoTierRouter
 
@@ -2220,7 +2220,9 @@ def serve_dcache(torch, engines):
     if mem_after > mem_before:
         raise AssertionError(f"dcache: memory allocated on the card grew across the restart "
                              f"({mem_before} -> {mem_after} bytes): the old bank was not freed")
-    counts, chains, routed = check_span_forest(mem.spans, SPAN_NAMES, EVENT_NAMES)
+    # the engines' phases (engine.prefill, engine.decode_step) are the port's own spans
+    counts, chains, routed = check_span_forest(mem.spans, SPAN_NAMES + port_names.SPAN_NAMES,
+                                               EVENT_NAMES)
     by_arch = {}
     for s in mem.spans:
         if s["name"] == "engine.generate":

@@ -16,10 +16,16 @@ reference package).
   format.
 
 The names of spans, events and metrics are the reference's
-(:mod:`repro_torch.obs.names` is a verbatim copy), so ``tools/check_trace.py``
-checks the port's traces against the reference's catalog. The clock is
-injectable. ``python -m repro_torch.obs`` runs a traced quickstart of the
-serving path.
+(:mod:`repro_torch.obs.names` is a verbatim copy), but for the spans the
+port adds inside ``engine.generate`` (``engine.prefill``,
+``engine.decode_step``), catalogued in :mod:`repro_torch.obs.port_names`.
+``tools/check_trace.py`` reads the reference's catalog alone, so it holds
+model-free traces, such as the quickstart's; a trace in which a model
+serves is checked against both catalogs (``names.SPAN_NAMES +
+port_names.SPAN_NAMES``), as ``chip_smoke.py``'s ``check_span_forest`` does.
+The clock is injectable, and ``profiler_clock`` puts spans on
+``torch.profiler``'s timebase.
+``python -m repro_torch.obs`` runs a traced quickstart of the serving path.
 """
 
 from repro_torch.obs.attribution import (
@@ -50,6 +56,7 @@ from repro_torch.obs.spans import (
     Tracer,
     current_span,
     get_tracer,
+    profiler_clock,
     set_tracer,
     trace_span,
     use_tracer,
@@ -75,6 +82,7 @@ __all__ = [
     "get_tracer",
     "latency_buckets",
     "pow2_buckets",
+    "profiler_clock",
     "set_tracer",
     "tokens_saved_estimate",
     "trace_span",

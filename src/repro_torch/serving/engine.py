@@ -38,7 +38,16 @@ Its timers synchronize the device before reading the clock, so the rates
 measure device work, not kernel-launch time. Under a tracer
 (``repro_torch.obs``) every ``generate`` call is one ``engine.generate``
 span, with the reference's attributes and the arch's name; the span closes
-after the tokens are on the host, so it covers the device's time.
+after the tokens are on the host, so it covers the device's time. Inside it
+the port adds its own spans (``obs.port_names``): one ``engine.prefill``
+(batch, tokens: the prompt length, prefix: ``"hit"``, ``"miss"`` or
+``"none"``) and one ``engine.decode_step`` a decode step (step, from 0, and
+active: the rows still generating). Each closes after the engine's timer
+has synchronised the device, so the device work it launched ends inside it
+(the page copies of a miss's ``register_prefix`` excepted: the readback of
+the first token waits for them). Sampling, the token readback and the
+loop's own work are ``engine.generate``'s self time. With a tracer on
+``obs.profiler_clock`` the spans lie on ``torch.profiler``'s timebase.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from repro_torch.models import parallel as par
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import trace_span
 from repro_torch.obs.names import SPAN_ENGINE_GENERATE
+from repro_torch.obs.port_names import SPAN_ENGINE_DECODE_STEP, SPAN_ENGINE_PREFILL
 from repro_torch.serving.kv_cache import CachePoint, KVPrefixCache, PagePoolExhausted
 from repro_torch.serving.sampler import sample_token
 
@@ -73,6 +83,11 @@ class EngineStats:
     prefix_tokens_reused: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    # of decode_s, the host's part: from a step's start until its work is
+    # enqueued (``lm.decode_step`` returned), before the device is waited
+    # for. When the device paces the steps, CUDA's launch queue fills and
+    # the enqueue blocks, so this approaches decode_s.
+    decode_host_s: float = 0.0
 
     def rates(self) -> Dict[str, float]:
         return {
@@ -165,6 +180,7 @@ class Engine:
         toks = torch.as_tensor(np.asarray(tokens), device=self.device)
         logits, cache = lm.decode_step(self.cfg, self.params, cache, toks, ctx=self.ctx)
         logits = logits[:, -1]
+        self.stats.decode_host_s += time.perf_counter() - t0
         self.stats.decode_s += self._clock() - t0
         self.stats.decode_tokens += int(tokens.shape[0] if active is None else active)
         return logits, cache
@@ -259,15 +275,20 @@ class Engine:
                         arch=self.cfg.name) as sp:
             res = None
             use_prefix = cache_point is not None and self.kv_prefix is not None
-            if use_prefix:
-                n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
-                res = self.prefill_with_prefix(
-                    cache_point.template_id, tokens[:, cache_point.prefix_len:],
-                    n_valid=n_suf, expected_len=cache_point.prefix_len)
-            if res is None:
-                res = self.prefill(tokens, n_valid=n_valid)
+            with trace_span(SPAN_ENGINE_PREFILL, batch=B, tokens=S) as pre:
                 if use_prefix:
-                    self.register_prefix(cache_point.template_id, res[1], cache_point.prefix_len)
+                    n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
+                    res = self.prefill_with_prefix(
+                        cache_point.template_id, tokens[:, cache_point.prefix_len:],
+                        n_valid=n_suf, expected_len=cache_point.prefix_len)
+                    pre.set(prefix="miss" if res is None else "hit")
+                else:
+                    pre.set(prefix="none")
+                if res is None:
+                    res = self.prefill(tokens, n_valid=n_valid)
+                    if use_prefix:
+                        self.register_prefix(cache_point.template_id, res[1],
+                                             cache_point.prefix_len)
             logits, cache = res
             gen = None
             if temperature > 0.0:
@@ -287,7 +308,9 @@ class Engine:
                         break
                 if i + 1 == max_new:
                     break  # the last token is emitted; skip the wasted decode
-                logits, cache = self.decode(cache, tok, active=int(B - done.sum()))
+                active = int(B - done.sum())
+                with trace_span(SPAN_ENGINE_DECODE_STEP, step=i, active=active):
+                    logits, cache = self.decode(cache, tok, active=active)
                 tok = sample_token(logits, temperature, gen).cpu().numpy()
             sp.set(new_tokens=len(out))
             return self._whole(np.concatenate(out, axis=1))

@@ -22,6 +22,7 @@ from repro.serving.router import TwoTierRouter as JRouter  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.core import distributed_cache as tdc  # noqa: E402
 from repro_torch.obs import names as tnames  # noqa: E402
+from repro_torch.obs import port_names  # noqa: E402
 from repro_torch.serving.router import TwoTierRouter  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -429,18 +430,25 @@ def test_chip_smoke_dcache_stream_matches_reference():
     assert topk[0] == topk[1] == chip_smoke.DCACHE_TOPK_CALLS
     assert sorted(s["name"] for s in tspans) == sorted(s["name"] for s in jspans)
 
-    # engine.generate spans come from the card's engines; stand-in spans
+    # engine.generate spans, with the port's engine.prefill and
+    # engine.decode_step inside, come from the card's engines; stand-in spans
     # under each route exercise the check here
     spans = list(tspans)
     nxt = max(s["span_id"] for s in spans) + 1
     for s in tspans:
         if s["name"] == "router.route_batch":
-            spans.append({"name": "engine.generate", "span_id": nxt, "parent_id": s["span_id"],
-                          "start": s["start"], "end": s["end"], "attrs": {}, "events": []})
-            nxt += 1
-    counts, chains, routed = chip_smoke.check_span_forest(spans, tnames.SPAN_NAMES,
-                                                          tnames.EVENT_NAMES)
+            gen = nxt
+            for name, parent in (("engine.generate", s["span_id"]), ("engine.prefill", gen),
+                                 ("engine.decode_step", gen)):
+                spans.append({"name": name, "span_id": nxt, "parent_id": parent,
+                              "start": s["start"], "end": s["end"], "attrs": {}, "events": []})
+                nxt += 1
+    catalog = tnames.SPAN_NAMES + port_names.SPAN_NAMES
+    counts, chains, routed = chip_smoke.check_span_forest(spans, catalog, tnames.EVENT_NAMES)
     assert chains > 0 and routed == 12 and counts["index.topk"] == chip_smoke.DCACHE_TOPK_CALLS
+    assert counts["engine.prefill"] == counts["engine.decode_step"] == 12
+    with pytest.raises(AssertionError, match="engine.prefill"):
+        chip_smoke.check_span_forest(spans, tnames.SPAN_NAMES, tnames.EVENT_NAMES)
     with pytest.raises(AssertionError, match="engine.generate"):
         chip_smoke.check_span_forest(tspans, tnames.SPAN_NAMES, tnames.EVENT_NAMES)
     bad = [dict(tspans[0], name="not.a.span")] + tspans[1:]

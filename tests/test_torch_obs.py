@@ -16,6 +16,7 @@ import pytest
 pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from repro import obs as jobs  # noqa: E402
 from repro.obs import names as jnames  # noqa: E402
@@ -160,6 +161,31 @@ def test_spans_and_exporters_match_reference(tmp_path):
     spans = [json.loads(line) for line in out["t"][1]]
     assert [s["attrs"].get("error") for s in spans if s["name"] == "cache.lookup_batch"] == [
         "KeyError"]
+
+
+def test_a_span_on_the_profiler_clock_contains_its_profiled_block():
+    """A span on ``profiler_clock`` and the profiler's event for the block
+    inside it share a timebase: the span holds the block's interval (to the
+    clock's ~0.24 us resolution). A span on the default perf counter is on
+    another clock altogether."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mem = tobs.InMemoryExporter()
+    x = torch.ones(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tobs.use_tracer(tobs.Tracer(clock=tobs.profiler_clock, exporters=[mem])):
+            with tobs.trace_span("engine.decode_step", step=0, active=1):
+                with record_function("timed-block"):
+                    (x @ x).sum()
+        with tobs.use_tracer(tobs.Tracer(exporters=[mem])):
+            with tobs.trace_span("engine.decode_step", step=1, active=1):
+                pass
+    (ev,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "timed-block"]
+    on_profiler, on_perf = mem.spans
+    assert ev.duration_ns() > 0
+    assert on_profiler["start"] * 1e9 - 1e3 <= ev.start_ns()
+    assert ev.start_ns() + ev.duration_ns() <= on_profiler["end"] * 1e9 + 1e3
+    assert abs(on_perf["start"] * 1e9 - ev.start_ns()) > 1e9
 
 
 def test_attribution_matches_reference():

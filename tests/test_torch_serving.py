@@ -88,6 +88,65 @@ def test_engine_prefill_counts_only_valid_tokens():
     assert eng.stats.prefill_tokens == 26
 
 
+def _traced(fn):
+    """``fn()`` under a tracer: (its result, the finished spans)."""
+    from repro_torch.obs import InMemoryExporter, Tracer, use_tracer
+
+    mem = InMemoryExporter()
+    with use_tracer(Tracer(exporters=[mem])):
+        out = fn()
+    return out, mem.spans
+
+
+def test_traced_generate_spans_the_prefill_and_each_decode_step():
+    """One ``engine.generate`` holds one ``engine.prefill`` and a
+    ``engine.decode_step`` a decode step (max_new - 1 of them), with their
+    attributes, in order and inside their parent; the tokens are those of
+    an untraced call, and the host's share of the decode time is counted."""
+    eng = _engine("olmo-1b")
+    toks = np.random.RandomState(0).randint(3, 400, (3, 12)).astype(np.int32)
+    plain = eng.generate(toks, max_new=6)
+    s0 = dataclasses.replace(eng.stats)
+    out, spans = _traced(lambda: eng.generate(toks, max_new=6))
+    np.testing.assert_array_equal(out, plain)
+    (gen,) = [s for s in spans if s["name"] == "engine.generate"]
+    kids = sorted((s for s in spans if s["parent_id"] == gen["span_id"]),
+                  key=lambda s: s["start"])
+    assert len(spans) == 1 + len(kids) == 1 + 1 + 5
+    assert kids[0]["name"] == "engine.prefill"
+    assert kids[0]["attrs"] == {"batch": 3, "tokens": 12, "prefix": "none"}
+    assert [s["name"] for s in kids[1:]] == ["engine.decode_step"] * 5
+    assert [s["attrs"] for s in kids[1:]] == [{"step": i, "active": 3} for i in range(5)]
+    for a, b in zip(kids, kids[1:]):
+        assert a["end"] <= b["start"]
+    assert gen["start"] <= kids[0]["start"] and kids[-1]["end"] <= gen["end"]
+    host = eng.stats.decode_host_s - s0.decode_host_s
+    assert 0 < host <= eng.stats.decode_s - s0.decode_s
+
+
+def test_traced_generate_tells_a_prefix_miss_from_a_hit():
+    """Through a cache point the prefill span says ``miss`` (a full prefill
+    that registers the template), then ``hit`` (the suffix alone)."""
+    from repro_torch.serving import kv_cache as tkv
+
+    cfg = registry.get_smoke("olmo-1b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pool = tkv.pool_for_config(cfg, num_pages=32, page_size=8, device="cpu")
+    eng = Engine(cfg, params, max_len=48, device="cpu", kv_prefix=tkv.KVPrefixCache(pool))
+    rs = np.random.RandomState(1)
+    tpl = rs.randint(3, 400, (16,)).astype(np.int32)
+    toks = np.concatenate([np.broadcast_to(tpl, (2, 16)),
+                           rs.randint(3, 400, (2, 6)).astype(np.int32)], axis=1)
+    cp = tkv.plan_cache_point("tpl", tpl, toks)
+    seen = []
+    for _ in range(2):
+        out, spans = _traced(lambda: eng.generate(toks, max_new=3, cache_point=cp))
+        (pre,) = [s for s in spans if s["name"] == "engine.prefill"]
+        seen.append(pre["attrs"])
+        assert sum(s["name"] == "engine.decode_step" for s in spans) == 2
+    assert seen == [{"batch": 2, "tokens": 22, "prefix": p} for p in ("miss", "hit")]
+
+
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b", "rwkv6-3b",
                                   "zamba2-2.7b", "granite-moe-1b-a400m", "qwen3-4b",
                                   "qwen2-vl-7b", "kimi-k2-1t-a32b"])
