@@ -232,18 +232,18 @@ def attention_decode(
     sin,
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
-    pos: int,
+    pos,
     lengths: torch.Tensor,
     ctx=None,
     spec=None,
     kv_spec=None,
 ) -> torch.Tensor:
     """Single-token decode. x: (B, 1, D); cache: (B, M, Hkv, hd) in x's
-    dtype. Writes the new token's K/V IN PLACE at position ``pos`` and
-    attends over the first ``lengths[b]`` positions of row b ((B,) int32 on
-    x's device; ``lm.decode_step`` passes ``pos + 1`` for every row).
-    Returns out (B, 1, D). Under a mesh the cache is the rank's block
-    (module docstring).
+    dtype. Writes the new token's K/V IN PLACE at position ``pos`` (a (1,)
+    int64 tensor on x's device; under a mesh an int) and attends over the
+    first ``lengths[b]`` positions of row b ((B,) int32 on x's device;
+    ``lm.decode_step`` passes ``pos + 1`` for every row). Returns out (B,
+    1, D). Under a mesh the cache is the rank's block (module docstring).
     """
     B = x.shape[0]
     if par.active(ctx):
@@ -251,8 +251,8 @@ def attention_decode(
                           kv_spec)
     q, k, v = _project_qkv(cfg, p, x)  # (B, 1, H*, hd)
     q, k = _rope(q, k, cos, sin)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
+    cache_k.index_copy_(1, pos, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, pos, v.to(cache_v.dtype))
     o = kops.decode_attention_op(q, cache_k, cache_v, lengths,
                                  logit_softcap=cfg.attn_logit_softcap)
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"]

@@ -51,7 +51,13 @@ Caches are dicts with a Python int ``length``:
 
 Decode updates the cache IN PLACE (the reference donates the buffers
 instead), so a cache passed to ``decode_step`` must not be reused by the
-caller afterwards.
+caller afterwards. Without a mesh a cache may also carry ``pos``, a 0-d
+int32 tensor on its device equal to ``length``: ``decode_step`` reads the
+position from it (from a tensor it makes of ``length`` where the cache
+has none) and advances it in place, so that no launch of the step depends
+on a host value (``serving.Engine`` captures the step in a CUDA graph).
+``prefill`` and ``prefill_extend`` take a cache as ``cache=`` and fill it
+in place of a new one, ``pos`` included.
 
 ``forward`` returns ``(logits, aux, cache)`` as the reference does, aux
 the MoE layers' summed load-balancing loss (0 without them). Its
@@ -441,6 +447,24 @@ def _new_cache(cfg, ctx, batch: int, max_len: int, device, enc_len: int = 0):
     return c, specs
 
 
+def _into(cfg, ctx, cache: Cache, batch: int, n: int):
+    """The specs of a caller's ``cache`` that a prefill of ``batch`` rows
+    and ``n`` positions fills in place of a new one. Its positions past
+    ``n`` keep what they held: a decode step reads a row only up to the
+    row's length, and writes each position before it reads it."""
+    kv = cache.get("kv_k")
+    if kv is not None and (kv.shape[1] != batch or kv.shape[2] < n):
+        raise ValueError(f"cache of {kv.shape[1]} rows x {kv.shape[2]} positions cannot "
+                         f"take a prefill of {batch} rows x {n} positions")
+    return _cache_specs(cfg, ctx, cache)
+
+
+def _set_length(cache: Cache, n: int) -> None:
+    cache["length"] = n
+    if "pos" in cache:
+        cache["pos"].fill_(n)
+
+
 def _cache_specs(cfg, ctx, cache: Cache):
     """The specs of a cache ``_new_cache`` built under ``ctx``."""
     if ctx is None:
@@ -558,6 +582,7 @@ def forward(
     cache_len: Optional[int] = None,
     use_kernels: bool = True,
     ctx: Optional[ParallelCtx] = None,
+    cache: Optional[Cache] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """Full-sequence forward of ``tokens`` (B, S), or of the vlm stub
     frontend's ``embeds`` (B, S, D) with ``positions`` ((3, B, S) for
@@ -567,17 +592,24 @@ def forward(
     (default S) with S filled. The recurrent families start from a zero
     state (``lm.py:315-318`` and ``:387`` of the reference).
     ``use_kernels=False`` runs the training path (module docstring). Under
-    a mesh (``ctx``) the inputs and results are the rank's rows."""
+    a mesh (``ctx``) the inputs and results are the rank's rows. ``cache``
+    (not audio): a cache of B rows to fill in place of a new one, which is
+    returned (``want_cache`` is then implied)."""
     _check_family(cfg)
     ctx, specs, top = _mesh(cfg, ctx, params)
     if cfg.family == "audio":
+        if cache is not None:
+            raise ValueError(f"{cfg.name}: the audio family builds its own cache")
         return _whisper_forward(cfg, params, top, tokens, frames, want_cache, cache_len,
                                 use_kernels, ctx, specs)
     B, S = (tokens if embeds is None else embeds).shape[:2]
     lctx = par.seq_ctx(ctx, S)  # the layers' ctx: the stream sequence-sharded, or ctx
     x, pos = _embed_inputs(cfg, top, tokens, embeds, positions, lctx, specs)
-    cache, cspecs = _new_cache(cfg, ctx, B, cache_len or S, x.device) if want_cache else (
-        None, None)
+    if cache is not None:
+        cspecs = _into(cfg, ctx, cache, B, S)
+    else:
+        cache, cspecs = _new_cache(cfg, ctx, B, cache_len or S, x.device) if want_cache else (
+            None, None)
     kvs = _kv_spec(cspecs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
@@ -616,7 +648,7 @@ def forward(
                 if cache is not None:
                     _store_kv(cfg, ctx, cache, i, k, v, cspecs)
     if cache is not None:
-        cache["length"] = S
+        _set_length(cache, S)
     return _logits(cfg, top, par.seq_gather(lctx, x), ctx, specs), aux, cache
 
 
@@ -685,25 +717,28 @@ def _dec_layer(cfg, p: Params, x: torch.Tensor, enc_out: torch.Tensor, use_kerne
 
 def prefill(cfg, params: Params, tokens: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None, ctx: Optional[ParallelCtx] = None,
-            **inputs) -> Tuple[torch.Tensor, Cache]:
+            cache: Optional[Cache] = None, **inputs) -> Tuple[torch.Tensor, Cache]:
     """``forward`` with the cache, on the kernels; ``inputs`` are its
-    ``embeds``, ``positions`` and ``frames``. Returns (logits, cache)."""
+    ``embeds``, ``positions`` and ``frames``; ``cache`` one to fill in place
+    of a new one. Returns (logits, cache)."""
     logits, _, cache = forward(cfg, params, tokens, want_cache=True, cache_len=cache_len,
-                               ctx=ctx, **inputs)
+                               ctx=ctx, cache=cache, **inputs)
     return logits, cache
 
 
 def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Tensor,
                    prefix_v: torch.Tensor, prefix_len: int,
                    cache_len: Optional[int] = None,
-                   ctx: Optional[ParallelCtx] = None) -> Tuple[torch.Tensor, Cache]:
+                   ctx: Optional[ParallelCtx] = None,
+                   cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """Prefill ONLY a suffix against an already-built prefix KV.
 
     The suffix tokens (B, S) run at positions ``[prefix_len, prefix_len +
     S)``, attending over the prefix K/V plus themselves causally; the
     returned cache is the dense cache a full ``prefill`` of prefix + suffix
     builds (prefix K/V copied into place, ``cache_len`` positions, default
-    prefix_len + S), so ``decode_step`` continues from it.
+    prefix_len + S), so ``decode_step`` continues from it; with ``cache``
+    that cache is filled and returned instead.
 
     prefix_k/v: (L, B, Sp, Hkv, hd) post-RoPE (Sp >= prefix_len; the
     overhang is page padding). Families that carry recurrent state can't
@@ -730,11 +765,14 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     x = par.seq_shard(lctx, _embed(cfg, top, tokens, lctx, _sub(specs, "embed")))
     total = prefix_len + S
     M = cache_len or total
-    if M < total:
+    if M < total and cache is None:
         raise ValueError(f"cache_len {M} < prefix_len + suffix {total}")
     pos = prefix_len + torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
-    cache, cspecs = _new_cache(cfg, ctx, B, M, x.device)
+    if cache is not None:
+        cspecs = _into(cfg, ctx, cache, B, total)
+    else:
+        cache, cspecs = _new_cache(cfg, ctx, B, M, x.device)
     kvs = _kv_spec(cspecs)
     pspec = None if ctx is None else par.prefix_spec(cfg, ctx)
     for i, (p, sp) in enumerate(_layers(ctx, cfg, params["blocks"], _sub(specs, "blocks"))):
@@ -749,7 +787,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
         x = x + par.sublayer(lctx, lambda xn: _ffn_block(cfg, p, xn, lctx, sp),
                              par.shard_norm(lctx, cfg, p, "ln2", x))[0]
         _store_kv(cfg, ctx, cache, i, k, v, cspecs, offset=prefix_len)
-    cache["length"] = total
+    _set_length(cache, total)
     return _logits(cfg, top, par.seq_gather(lctx, x), ctx, specs), cache
 
 
@@ -795,8 +833,13 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
     PyTorch (``wkv6_step``, ``ssd_step``), as the reference does; audio
     adds the learned position of ``length`` and attends over the cached
     cross K/V. Returns (logits (B, 1, V), cache) — the cache tensors are
-    updated in place and returned with ``length + 1``. Under a mesh the
-    tokens, cache and logits are the rank's rows (module docstring)."""
+    updated in place and returned with ``length + 1``. Without a mesh the
+    position, the clamped slot and the rows' lengths are taken on the
+    device from ``pos`` (made from ``length`` where the cache carries
+    none), the K/V written with ``index_copy_``, and ``pos`` advanced in
+    place: no launch is shaped by ``length``, so a CUDA graph can capture
+    the step. Under a mesh the tokens, cache and logits are the rank's
+    rows (module docstring), and the position is the host's ``length``."""
     _check_family(cfg)
     ctx, specs, top = _mesh(cfg, ctx, params)
     cspecs = _cache_specs(cfg, ctx, cache)
@@ -820,11 +863,21 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
             _put(ctx, cache, "shift_cm", i, sh, cspecs)
             x = x + y
         return _logits(cfg, top, x[:, None], ctx, specs), dict(cache, length=length + 1)
-    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    if ctx is not None:  # the rank's write of the new K/V takes the position on the host
+        M = cache["max_len"]
+        pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+        slot = min(length, M - 1)
+        lengths = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
+    else:  # the position on the device: no launch depends on a host value
+        M = cache["kv_k"].shape[2]
+        at = cache.get("pos")
+        if at is None:
+            at = torch.full((), length, dtype=torch.int32, device=x.device)
+        pos = at.expand(B, 1)
+        last = at.clamp(max=M - 1)
+        slot = last.reshape(1).long()  # the write's index (index_copy_ on the positions)
+        lengths = (last + 1).expand(B)
     cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
-    M = cache["max_len"] if ctx is not None else cache["kv_k"].shape[2]
-    slot = min(length, M - 1)
-    lengths = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
     kvs = _kv_spec(cspecs)
 
     def self_attn(p, sp, x, i):
@@ -865,4 +918,6 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
     else:
         for i, (p, sp) in enumerate(_layers(ctx, cfg, blocks, bspecs)):
             x = dense_layer(p, sp, x, i)
+    if "pos" in cache:
+        cache["pos"].add_(1)
     return _logits(cfg, top, x, ctx, specs), dict(cache, length=length + 1)

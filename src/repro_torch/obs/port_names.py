@@ -9,8 +9,11 @@ package.
 
 # the prefill of one generate call (attrs: batch, tokens, prefix)
 SPAN_ENGINE_PREFILL = "engine.prefill"
-# one decode step of the generate loop (attrs: step, active)
+# one decode step of the generate loop (attrs: step, active, graph)
 SPAN_ENGINE_DECODE_STEP = "engine.decode_step"
+# engine.decode_step's attribute: how the step ran, "eager", "replay" (of
+# the engine's CUDA graph) or "capture" (captured into it, then replayed)
+ATTR_DECODE_GRAPH = "graph"
 
 SPAN_NAMES = (
     "engine.prefill",

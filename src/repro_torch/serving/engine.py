@@ -33,6 +33,26 @@ block, taken to the pool's layout (``lm.prefix_of``), and a hit extends the
 rank's rows from the rank's pages (``lm.prefill_extend(ctx=)``). The ranks
 call their caches in lockstep, so they hit, miss and evict alike.
 
+Decode through a CUDA graph. A dense model without a mesh on the card
+(every role of ``configs/apc_minion.py::DEFAULT``) decodes each step as one
+replay of ``lm.decode_step`` captured into a ``torch.cuda.CUDAGraph``, so
+the host enqueues one launch a step instead of ~50 a layer. The engine
+keeps one graph: it owns that batch size's cache (rows x ``max_len``, its
+position ``pos`` on the device), ``generate`` prefills into it, the first
+decode step on it runs eagerly and the second captures the step (on a side
+stream) and replays it; every later step of that batch size, whatever its
+prompt's length, copies the sampled ids into the graph's token buffer and
+replays. Positions past a row's length keep an earlier call's K/V: the
+decode kernel reads a row only up to its length. A call of another batch
+size drops the graph and its cache and builds the next. Sampling, EOS and
+the token readback stay outside the graph. A replay launches kernels that
+no wrapper counts, so the engine adds what the wrappers counted while it
+captured (``kernels.counts``). Everything else decodes eagerly: the CPU;
+a mesh (collectives inside the step); moe, whose dispatch reads the
+routing on the host; the recurrent families; vlm, not yet measured
+under a graph. ``EngineStats``
+counts the captures, replays and eager steps.
+
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
 measure device work, not kernel-launch time. Under a tracer
@@ -41,8 +61,9 @@ span, with the reference's attributes and the arch's name; the span closes
 after the tokens are on the host, so it covers the device's time. Inside it
 the port adds its own spans (``obs.port_names``): one ``engine.prefill``
 (batch, tokens: the prompt length, prefix: ``"hit"``, ``"miss"`` or
-``"none"``) and one ``engine.decode_step`` a decode step (step, from 0, and
-active: the rows still generating). Each closes after the engine's timer
+``"none"``) and one ``engine.decode_step`` a decode step (step, from 0;
+active: the rows still generating; graph: ``"capture"``, ``"replay"`` or
+``"eager"``). Each closes after the engine's timer
 has synchronised the device, so the device work it launched ends inside it
 (the page copies of a miss's ``register_prefix`` excepted: the readback of
 the first token waits for them). Sampling, the token readback and the
@@ -59,6 +80,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels as kernel_table
 from repro_torch.configs.base import ModelConfig, ShardingProfile
 from repro_torch.distributed import mesh_compat as mc
 from repro_torch.distributed import sharding as shd
@@ -67,7 +89,11 @@ from repro_torch.models import parallel as par
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import trace_span
 from repro_torch.obs.names import SPAN_ENGINE_GENERATE
-from repro_torch.obs.port_names import SPAN_ENGINE_DECODE_STEP, SPAN_ENGINE_PREFILL
+from repro_torch.obs.port_names import (
+    ATTR_DECODE_GRAPH,
+    SPAN_ENGINE_DECODE_STEP,
+    SPAN_ENGINE_PREFILL,
+)
 from repro_torch.serving.kv_cache import CachePoint, KVPrefixCache, PagePoolExhausted
 from repro_torch.serving.sampler import sample_token
 
@@ -88,12 +114,52 @@ class EngineStats:
     # for. When the device paces the steps, CUDA's launch queue fills and
     # the enqueue blocks, so this approaches decode_s.
     decode_host_s: float = 0.0
+    # how the decode steps ran: captured into the engine's CUDA graph (the
+    # capture's step is also one replay), replayed from it, or eagerly
+    decode_graph_captures: int = 0
+    decode_graph_replays: int = 0
+    decode_eager_steps: int = 0
 
     def rates(self) -> Dict[str, float]:
         return {
             "prefill": self.prefill_tokens / self.prefill_s if self.prefill_s else 0.0,
             "decode": self.decode_tokens / self.decode_s if self.decode_s else 0.0,
         }
+
+
+class _StepGraph:
+    """The engine's decode step for a batch of ``rows``, captured once and
+    replayed: the cache it reads and writes, at fixed addresses (with the
+    position ``pos`` on the device), the token buffer it reads, the logits
+    it writes, and the kernels' launch counts a replay stands for."""
+
+    def __init__(self, cfg, rows: int, max_len: int, device):
+        self.rows = rows
+        self.cache = lm.init_cache(cfg, rows, max_len, device)
+        self.cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+        self.tokens = torch.zeros((rows, 1), dtype=torch.int32, device=device)
+        self.warm = False  # an eager step has run on this cache
+        self.graph = None
+        self.logits = None
+        self.launches = {}
+
+    def owns(self, cache) -> bool:
+        return cache.get("pos") is self.cache["pos"]
+
+    def capture(self, cfg, params) -> None:
+        before = kernel_table.counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            logits, _ = lm.decode_step(cfg, params, self.cache, self.tokens)
+            self.logits = logits[:, -1]
+        after = kernel_table.counts()
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        kernel_table.add_counts(self.launches, sign=-1)  # a capture launches nothing
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        kernel_table.add_counts(self.launches)
+        return self.logits
 
 
 class Engine:
@@ -117,6 +183,9 @@ class Engine:
         self.params = lm.params_to(params, self.device)
         self.max_len = max_len
         self.stats = EngineStats()
+        # decode through a CUDA graph, or eagerly (module docstring)
+        self._graphed = self.device.type == "cuda" and self.ctx is None and cfg.family == "dense"
+        self._graph: Optional[_StepGraph] = None
         self.kv_prefix = kv_prefix if cfg.family in _PREFIX_FAMILIES else None
         if self.kv_prefix is not None:
             want = par.prefix_dims(cfg, self.ctx)
@@ -156,34 +225,70 @@ class Engine:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def prefill(self, tokens: np.ndarray, *,
-                n_valid: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    def _graph_cache(self, rows: int) -> Optional[Dict[str, Any]]:
+        """The cache of the graph for ``rows`` rows, where this engine
+        decodes through one: a new batch size drops the old graph and its
+        cache before it builds their successors."""
+        if not self._graphed:
+            return None
+        if self._graph is None or self._graph.rows != rows:
+            self._graph = None
+            self._graph = _StepGraph(self.cfg, rows, self.max_len, self.device)
+        return self._graph.cache
+
+    def prefill(self, tokens: np.ndarray, *, n_valid: Optional[int] = None,
+                into: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, Any]:
         """tokens: (B, S) int -> (last logits (B, V) on the device, cache).
 
         ``n_valid`` is the number of REAL tokens in the batch; without it
-        every element counts, padding included."""
+        every element counts, padding included. ``into``: the cache to
+        fill (``generate`` passes its graph's), else a new one."""
         t0 = self._clock()
         toks = torch.as_tensor(np.asarray(tokens), device=self.device)
         logits, cache = lm.prefill(self.cfg, self.params, toks, cache_len=self.max_len,
-                                   ctx=self.ctx)
+                                   ctx=self.ctx, cache=into)
         logits = logits[:, -1]
         self.stats.prefill_s += self._clock() - t0
         self.stats.prefill_tokens += int(tokens.size if n_valid is None else n_valid)
         return logits, cache
 
-    def decode(self, cache: Any, tokens: np.ndarray, *,
+    def decode(self, cache: Any, tokens, *,
                active: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
-        """One decode step (updates ``cache`` in place). ``active`` counts
-        the rows still generating; finished (post-EOS) rows ride along in
-        the dense batch but must not inflate the decode tokens/s rate."""
+        """One decode step (updates ``cache`` in place). ``tokens``: (B, 1)
+        ids, on the host or the device. ``active`` counts the rows still
+        generating; finished (post-EOS) rows ride along in the dense batch
+        but must not inflate the decode tokens/s rate. On the graph's cache
+        the logits are the graph's output, overwritten by the next step."""
+        return self._decode(cache, tokens, active)[:2]
+
+    def _decode(self, cache: Any, tokens, active: Optional[int]):
+        """``decode``, and how the step ran: "capture", "replay" or "eager"."""
         t0 = self._clock()
-        toks = torch.as_tensor(np.asarray(tokens), device=self.device)
-        logits, cache = lm.decode_step(self.cfg, self.params, cache, toks, ctx=self.ctx)
-        logits = logits[:, -1]
-        self.stats.decode_host_s += time.perf_counter() - t0
-        self.stats.decode_s += self._clock() - t0
-        self.stats.decode_tokens += int(tokens.shape[0] if active is None else active)
-        return logits, cache
+        toks = (tokens if isinstance(tokens, torch.Tensor)
+                else torch.as_tensor(np.asarray(tokens))).to(self.device)
+        g = self._graph
+        st = self.stats
+        if g is not None and g.owns(cache) and g.warm:
+            g.tokens.copy_(toks)
+            mode = "replay"
+            if g.graph is None:
+                g.capture(self.cfg, self.params)
+                st.decode_graph_captures += 1
+                mode = "capture"
+            logits = g.replay()
+            cache = dict(cache, length=cache["length"] + 1)
+            st.decode_graph_replays += 1
+        else:
+            logits, cache = lm.decode_step(self.cfg, self.params, cache, toks, ctx=self.ctx)
+            logits = logits[:, -1]
+            if g is not None and g.owns(cache):
+                g.warm = True
+            mode = "eager"
+            st.decode_eager_steps += 1
+        st.decode_host_s += time.perf_counter() - t0
+        st.decode_s += self._clock() - t0
+        st.decode_tokens += int(toks.shape[0] if active is None else active)
+        return logits, cache, mode
 
     # -- paged KV prefix path ------------------------------------------
 
@@ -208,6 +313,7 @@ class Engine:
     def prefill_with_prefix(
         self, template_id: str, suffix_tokens: np.ndarray, *,
         n_valid: Optional[int] = None, expected_len: Optional[int] = None,
+        into: Optional[Dict[str, Any]] = None,
     ) -> Optional[Tuple[torch.Tensor, Any]]:
         """Prefill only the adaptation suffix; the template prefix K/V is
         gathered from the page pool. Returns None when the prefix isn't
@@ -216,7 +322,8 @@ class Engine:
         ``expected_len`` is the prefix length the caller split the prompt at
         (the cache point). A pooled prefix of another length (a stale
         registration, a re-tokenized template) would shift every suffix
-        position and the attention mask, so it is treated as a miss."""
+        position and the attention mask, so it is treated as a miss.
+        ``into`` as for ``prefill``."""
         if self.kv_prefix is None:
             return None
         lease = self.kv_prefix.acquire(template_id)
@@ -231,7 +338,7 @@ class Engine:
             pk, pv, plen = self.kv_prefix.gather(lease, batch=B)
             toks = torch.as_tensor(np.asarray(suffix_tokens), device=self.device)
             logits, cache = lm.prefill_extend(self.cfg, self.params, toks, pk, pv, plen,
-                                              cache_len=self.max_len, ctx=self.ctx)
+                                              cache_len=self.max_len, ctx=self.ctx, cache=into)
             logits = logits[:, -1]
             self.stats.prefill_s += self._clock() - t0
             self.stats.prefill_tokens += int(
@@ -275,17 +382,18 @@ class Engine:
                         arch=self.cfg.name) as sp:
             res = None
             use_prefix = cache_point is not None and self.kv_prefix is not None
+            into = self._graph_cache(B)
             with trace_span(SPAN_ENGINE_PREFILL, batch=B, tokens=S) as pre:
                 if use_prefix:
                     n_suf = None if n_valid is None else n_valid - B * cache_point.prefix_len
                     res = self.prefill_with_prefix(
                         cache_point.template_id, tokens[:, cache_point.prefix_len:],
-                        n_valid=n_suf, expected_len=cache_point.prefix_len)
+                        n_valid=n_suf, expected_len=cache_point.prefix_len, into=into)
                     pre.set(prefix="miss" if res is None else "hit")
                 else:
                     pre.set(prefix="none")
                 if res is None:
-                    res = self.prefill(tokens, n_valid=n_valid)
+                    res = self.prefill(tokens, n_valid=n_valid, into=into)
                     if use_prefix:
                         self.register_prefix(cache_point.template_id, res[1],
                                              cache_point.prefix_len)
@@ -294,13 +402,15 @@ class Engine:
             if temperature > 0.0:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
             out = []
-            tok = sample_token(logits, temperature, gen).cpu().numpy()
+            feed = sample_token(logits, temperature, gen)  # the next step's ids, on the device
+            tok = feed.cpu().numpy()
             done = np.zeros((B,), bool)
             for i in range(max_new):
                 if eos_id is not None and done.any():
                     # finished rows keep a slot in the dense batch but must
                     # emit padding, not whatever the sampler drew for them
                     tok = np.where(done[:, None], pad_id, tok).astype(tok.dtype)
+                    feed = tok
                 out.append(tok)
                 if eos_id is not None:
                     done |= tok[:, 0] == eos_id
@@ -309,9 +419,11 @@ class Engine:
                 if i + 1 == max_new:
                     break  # the last token is emitted; skip the wasted decode
                 active = int(B - done.sum())
-                with trace_span(SPAN_ENGINE_DECODE_STEP, step=i, active=active):
-                    logits, cache = self.decode(cache, tok, active=active)
-                tok = sample_token(logits, temperature, gen).cpu().numpy()
+                with trace_span(SPAN_ENGINE_DECODE_STEP, step=i, active=active) as ds:
+                    logits, cache, mode = self._decode(cache, feed, active)
+                    ds.set(**{ATTR_DECODE_GRAPH: mode})
+                feed = sample_token(logits, temperature, gen)
+                tok = feed.cpu().numpy()
             sp.set(new_tokens=len(out))
             return self._whole(np.concatenate(out, axis=1))
 

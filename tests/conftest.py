@@ -11,6 +11,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs an NVIDIA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     import jax

@@ -166,7 +166,7 @@ def test_attention_seq_and_decode_match_reference(arch, dtype):
     cdt, sdt = trope.rope_angles(_t(pd), tcfg.head_dim, tcfg.rope_theta)
     odj, ckj, cvj = jattn.attention_decode(jcfg, pj, xd, cdj, sdj, ck, cv, jnp.asarray(S))
     ckt, cvt = _t(ck), _t(cv)
-    odt = tattn.attention_decode(tcfg, pt, _t(xd), cdt, sdt, ckt, cvt, S,
+    odt = tattn.attention_decode(tcfg, pt, _t(xd), cdt, sdt, ckt, cvt, torch.tensor([S]),
                                  torch.full((B,), S + 1, dtype=torch.int32))
     _close(odt, odj, tol)
     _close(ckt, ckj, tol)  # the new K/V was written in place at position S
@@ -402,7 +402,7 @@ def test_shared_block_hd80_matches_reference(dtype):
     cdt, sdt = trope.rope_angles(_t(pd), 80, tcfg.rope_theta)
     odj, ckj, _ = jattn.attention_decode(jcfg, pj, x[:, -1:], cdj, sdj, ck, cv, jnp.asarray(S))
     ckt, cvt = _t(ck), _t(cv)
-    odt = tattn.attention_decode(tcfg, pt, _t(x[:, -1:]), cdt, sdt, ckt, cvt, S,
+    odt = tattn.attention_decode(tcfg, pt, _t(x[:, -1:]), cdt, sdt, ckt, cvt, torch.tensor([S]),
                                  torch.full((B,), S + 1, dtype=torch.int32))
     _close(odt, odj, tol)
     _close(ckt, ckj, tol)

@@ -116,7 +116,9 @@ def test_traced_generate_spans_the_prefill_and_each_decode_step():
     assert kids[0]["name"] == "engine.prefill"
     assert kids[0]["attrs"] == {"batch": 3, "tokens": 12, "prefix": "none"}
     assert [s["name"] for s in kids[1:]] == ["engine.decode_step"] * 5
-    assert [s["attrs"] for s in kids[1:]] == [{"step": i, "active": 3} for i in range(5)]
+    # the CPU engine decodes eagerly: a CUDA graph is the card's alone
+    assert [s["attrs"] for s in kids[1:]] == [{"step": i, "active": 3, "graph": "eager"}
+                                             for i in range(5)]
     for a, b in zip(kids, kids[1:]):
         assert a["end"] <= b["start"]
     assert gen["start"] <= kids[0]["start"] and kids[-1]["end"] <= gen["end"]
