@@ -213,6 +213,10 @@ DECODE_LENGTHS = ((1, 100, 192), (192,), (37,), (0, 1, 31, 32, 33, 168, 192))
 # the scan kernels at full width: rwkv6-3b (H, N) and zamba2-2.7b (H, P, Ns)
 WKV6_LAYOUT = (40, 64)
 SSD_LAYOUT = (80, 64, 64)
+# Nemotron-H's scan: (H, P, G), 256 heads of 64 reading B and C in 8 groups,
+# at its state sizes Ns (47B's 256; 128, the smaller models')
+SSD_GROUPED_LAYOUT = (256, 64, 8)
+SSD_GROUPED_NS = (128, 256)
 SCAN_SEQS = (1, 37, 128, 152, 300)
 # the other layouts the scan wrappers take, checked at H 3, B 2 in the sweep
 # draw: wkv6 head sizes and ssd (P, Ns) besides the full-width ones above
@@ -223,6 +227,9 @@ SCAN_EXTRA_SEQS = (37, 152)
 # the scans' timing rows: the served prefill (B 1, S 152), then off the path
 # a batch of 4 and a long prompt (S = LONG_S)
 SCAN_TIMED = ((1, 152), (4, 152), (1, LONG_S))
+# the nemotron-h-47b.plan_miss cell's prefill scan: a wave of 16 prompts
+# of its longest length
+SSD_CELL_TIMED = (16, 1549)
 MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # scan kernel vs plain: |err| <= atol * max(1, max|plain|) + rtol * |plain|,
 # elementwise, with tests/test_kernels.py's atol and rtol (wkv6 2e-4 / 1e-3,
@@ -1502,11 +1509,12 @@ def _wkv6_inputs(torch, g, B, S, H, N, draw):
     return r, k, v, -torch.exp(0.5 * rnd(B, S, H, N) - 2.0), 0.3 * rnd(H, N)
 
 
-def _ssd_inputs(torch, g, B, S, H, P, Ns, draw):
-    """x, dt, A_log, B_, C_, D on the card in float32. ``model``: as
-    zamba2-2.7b draws them at full width (x, B_, C_ = silu(0.2 N(0, 1)),
-    the conv's output; dt = softplus(N(0, 1) - 2); A_log 0, D 1), with x,
-    B_ and C_ strided views of one (B, S, H P + 2 Ns) tensor, as the model
+def _ssd_inputs(torch, g, B, S, H, P, Ns, draw, G=1):
+    """x, dt, A_log, B_, C_, D on the card in float32; B_ and C_ (B, S, Ns)
+    with one group, else (B, S, G, Ns). ``model``: as zamba2-2.7b and
+    Nemotron-H draw them at full width (x, B_, C_ = silu(0.2 N(0, 1)), the
+    conv's output; dt = softplus(N(0, 1) - 2); A_log 0, D 1), with x, B_
+    and C_ strided views of one (B, S, H P + 2 G Ns) tensor, as the model
     slices its conv output. ``sweep``: as tests/test_kernels.py::
     test_ssd_sweep (x, B_, C_ 0.5 N(0, 1), dt = softplus(N(0, 1)))."""
     import torch.nn.functional as F
@@ -1516,19 +1524,23 @@ def _ssd_inputs(torch, g, B, S, H, P, Ns, draw):
 
     A_log = torch.zeros(H, device="cuda")
     D = torch.ones(H, device="cuda")
+    bc = (Ns,) if G == 1 else (G, Ns)
     if draw == "model":
-        conv = F.silu(0.2 * rnd(B, S, H * P + 2 * Ns))
+        n = G * Ns
+        conv = F.silu(0.2 * rnd(B, S, H * P + 2 * n))
         x = conv[..., :H * P].reshape(B, S, H, P)
-        return (x, F.softplus(rnd(B, S, H) - 2.0), A_log, conv[..., H * P:H * P + Ns],
-                conv[..., H * P + Ns:], D)
-    return (0.5 * rnd(B, S, H, P), F.softplus(rnd(B, S, H)), A_log, 0.5 * rnd(B, S, Ns),
-            0.5 * rnd(B, S, Ns), D)
+        return (x, F.softplus(rnd(B, S, H) - 2.0), A_log,
+                conv[..., H * P:H * P + n].unflatten(-1, bc),
+                conv[..., H * P + n:].unflatten(-1, bc), D)
+    return (0.5 * rnd(B, S, H, P), F.softplus(rnd(B, S, H)), A_log, 0.5 * rnd(B, S, *bc),
+            0.5 * rnd(B, S, *bc), D)
 
 
 def check_scans(torch):
     """Phase 3 (scans): the wkv6 and SSD kernels against their plain
     (chunked) versions and the sequential oracles, y and final state:
-    at rwkv6-3b's (H 40, N 64) and zamba2's (H 80, P 64, Ns 64) layouts,
+    at rwkv6-3b's (H 40, N 64) and zamba2's (H 80, P 64, Ns 64) layouts
+    and Nemotron-H's (H 256, P 64, B and C in 8 groups, Ns 128 and 256),
     S in SCAN_SEQS, B in {1, 4}, decays drawn as the model draws them
     (chunk 128, the model's) and as the JAX sweeps do (wkv6 chunk 128;
     ssd chunk 64: at 128 the sweep's decays overflow the chunked form,
@@ -1548,11 +1560,15 @@ def check_scans(torch):
                  for n in (16, 64)]
     wk_cases += [(2, S, 3, n, "sweep", 64) for n in SCAN_EXTRA_WKV6 for S in SCAN_EXTRA_SEQS]
     H, P, Ns = SSD_LAYOUT
-    sd_cases = [(B, S, H, P, Ns, draw, MODEL_CHUNK if draw == "model" else 64)
+    sd_cases = [(B, S, H, P, Ns, 1, draw, MODEL_CHUNK if draw == "model" else 64)
                 for draw in ("model", "sweep") for S in SCAN_SEQS for B in (1, 4)]
-    sd_cases += [(2, 64, 3, 32, 16, "sweep", 16), (2, 128, 3, 64, 64, "sweep", 64)]
-    sd_cases += [(2, S, 3, p, ns, "sweep", 64) for p, ns in SCAN_EXTRA_SSD
+    sd_cases += [(2, 64, 3, 32, 16, 1, "sweep", 16), (2, 128, 3, 64, 64, 1, "sweep", 64)]
+    sd_cases += [(2, S, 3, p, ns, 1, "sweep", 64) for p, ns in SCAN_EXTRA_SSD
                  for S in SCAN_EXTRA_SEQS]
+    H, P, G = SSD_GROUPED_LAYOUT
+    sd_cases += [(B, S, H, P, ns, G, draw, MODEL_CHUNK if draw == "model" else 64)
+                 for ns in SSD_GROUPED_NS for draw in ("model", "sweep") for S in SCAN_SEQS
+                 for B in (1, 4)]
     err = {"wkv6": 0.0, "ssd": 0.0}
     n = {"wkv6": 0, "ssd": 0}
     for dname in ("bfloat16", "float32"):
@@ -1568,14 +1584,15 @@ def check_scans(torch):
                         _scan_close("wkv6", st, sr, "state " + label))
                 err["wkv6"] = max(err["wkv6"], e)
             n["wkv6"] += 1
-        for B, S, H, P, Ns, draw, chunk in sd_cases:
-            x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, draw)
+        for B, S, H, P, Ns, G, draw, chunk in sd_cases:
+            x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, draw, G)
             x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
             y, st = ssd(x, dtv, A_log, Bm, Cm, D)
             for which, (yr, sr) in (
                     ("plain", ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D, chunk=chunk)),
                     ("oracle", ref.ssd_ref(x, dtv, A_log, Bm, Cm, D))):
-                label = f"{dname} {draw} B={B} S={S} H={H} P={P} Ns={Ns} chunk={chunk} vs {which}"
+                label = (f"{dname} {draw} B={B} S={S} H={H} P={P} Ns={Ns} G={G} chunk={chunk} "
+                         f"vs {which}")
                 e = max(_scan_close("ssd", y, yr, "y " + label),
                         _scan_close("ssd", st, sr, "state " + label))
                 err["ssd"] = max(err["ssd"], e)
@@ -1609,7 +1626,11 @@ def time_scans(torch):
     """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at
     rwkv6-3b's and zamba2's layouts, bf16 inputs drawn as the model draws
     them, at each (B, S) of SCAN_TIMED: the served prefill (B = 1, S = 152)
-    first, then, marked ``off_path``, B = 4 and S = LONG_S. No single
+    first, then, marked ``off_path``, B = 4 and S = LONG_S; and ssd at
+    Nemotron-H-47B's layout (Ns 256) and the nemotron-h-47b.plan_miss
+    cell's wave (SSD_CELL_TIMED), whose bound_ms the benchmark's
+    ``ssd_scan_roofline`` does not share (that counts the least any scan
+    needs: 4 P Ns a step at the bf16 peak, y in bf16). No single
     PyTorch call computes either recurrence, so there is no library time.
     Bound: the larger of the bytes (each input read once, y and the state
     written once) over 3.35 TB/s and the fp32 operations over 67 TFLOP/s
@@ -1651,6 +1672,22 @@ def time_scans(torch):
             if (B, S) != SCAN_TIMED[0]:
                 row["off_path"] = True
             log("[timing] " + json.dumps(row))
+    B, S = SSD_CELL_TIMED
+    H, P, G = SSD_GROUPED_LAYOUT
+    Ns = max(SSD_GROUPED_NS)
+    x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, S, H, P, Ns, "model", G)
+    x, Bm, Cm = x.to(dt), Bm.to(dt), Cm.to(dt)
+    nbytes = 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * Ns + 2 * 4 * H \
+        + 4 * B * S * H * P + 4 * B * H * P * Ns
+    bms, by = bound(nbytes, B * H * S * (5 * P * Ns + 3 * P), PEAK_FP32_FLOPS)
+    row = _timed(torch, "ssd", "nemotron-h-47b",
+                 f"B={B} S={S} H={H} P={P} Ns={Ns} G={G} bf16 in, fp32 out",
+                 lambda: ssd(x, dtv, A_log, Bm, Cm, D),
+                 lambda: ref.ssd_chunked_ref(x, dtv, A_log, Bm, Cm, D, chunk=MODEL_CHUNK),
+                 None, bms, by)
+    row["library"] = "none: no single PyTorch call computes the recurrence"
+    rows.append(row)
+    log("[timing] " + json.dumps(row))
     return rows
 
 

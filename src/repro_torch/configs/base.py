@@ -46,6 +46,10 @@ class SSMConfig:
     expand: int = 2  # mamba2 inner expansion (d_inner = expand * d_model)
     conv_dim: int = 4  # depthwise conv width (mamba2)
     chunk_size: int = 128  # chunk of the plain chunked scans
+    # mamba2 B/C groups: head h reads group h // (heads / n_groups), and the
+    # gated RMSNorm is taken over each group's d_inner / n_groups channels.
+    # Port only (the reference's mamba2 shares one B/C by every head).
+    n_groups: int = 1
 
 
 @dataclass(frozen=True)
@@ -60,7 +64,7 @@ class EncoderConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | vlm | hybrid | audio
+    family: str  # dense | moe | ssm | vlm | hybrid | audio | nemotron_h
     num_layers: int
     d_model: int
     num_heads: int
@@ -90,6 +94,14 @@ class ModelConfig:
     # (dense); k > 1: one shared attention block after every k SSM layers
     # (hybrid)
     attn_every: int = 1
+
+    # nemotron_h: one character a layer, the published
+    # ``hybrid_override_pattern`` (M mamba2, - MLP, * attention); layer i
+    # is of kind ``hybrid_pattern[i]``. Port only.
+    hybrid_pattern: str = ""
+    # the norms' epsilon; None keeps the reference's (1e-6 for RMSNorm,
+    # 1e-5 for LayerNorm). Port only.
+    norm_eps: Optional[float] = None
 
     # --- frontend stub (modality models) ---
     frontend: str = "none"  # none | patch_embed | audio_frames
@@ -132,7 +144,9 @@ class ModelConfig:
         (``repro.configs.base.ModelConfig.param_count``). The reference
         branches on ``ssm.kind`` and ``shared_attention``, fields the port
         does not keep: here the hybrid family is its mamba2 kind with one
-        shared attention block, the ssm family its rwkv6 kind."""
+        shared attention block, the ssm family its rwkv6 kind. The port's
+        own nemotron_h family counts every parameter, its norms and the
+        conv's bias included."""
         d, v = self.d_model, self.vocab_size
         n = v * d  # embedding
         if not self.tie_embeddings:
@@ -146,6 +160,13 @@ class ModelConfig:
             mlp = e.num_experts * (mlp_mats * d * e.d_ff_expert) + d * e.num_experts
         else:
             mlp = mlp_mats * d * self.d_ff
+        if self.family == "nemotron_h":  # one mixer a layer, by the pattern
+            s = self.ssm
+            d_in = s.expand * d
+            heads, conv_ch = d_in // s.head_dim, d_in + 2 * s.n_groups * s.state_dim
+            per_kind = {"M": d * (d_in + conv_ch + heads) + (s.conv_dim + 1) * conv_ch
+                        + 3 * heads + d_in + d_in * d, "-": mlp, "*": attn}
+            return n + d + sum(per_kind[k] + d for k in self.hybrid_pattern[:self.num_layers])
         if self.family == "hybrid":  # mamba2 mixers, one shared attention block
             s = self.ssm
             d_in = s.expand * d
@@ -188,10 +209,16 @@ class ModelConfig:
         port picks a kernel by the tensor's device, not by a config flag),
         ``shared_attention`` holds for the hybrid family (zamba2's one
         shared block) and ``ssm.kind`` is "rwkv6" for the ssm family and
-        "mamba2" for the hybrid one."""
+        "mamba2" for the hybrid one. The port's own fields (``PORT_ONLY_FIELDS``)
+        appear only where they differ from their defaults, which no arch
+        of the reference's does."""
         out: Dict[str, Any] = {}
         for k, v in dataclasses.asdict(self).items():
+            if k in PORT_ONLY_FIELDS and v == PORT_ONLY_FIELDS[k]:
+                continue
             if k == "ssm" and v is not None:
+                if v["n_groups"] == PORT_ONLY_FIELDS["n_groups"]:
+                    del v["n_groups"]
                 v = {"kind": "rwkv6" if self.family == "ssm" else "mamba2", **v}
             out[k] = v
             if k == "attn_chunk":
@@ -199,6 +226,10 @@ class ModelConfig:
             elif k == "attn_every":
                 out["shared_attention"] = self.family == "hybrid"
         return json.dumps(out, indent=2, default=str)
+
+
+# the port's fields that the reference's configs lack, at their defaults
+PORT_ONLY_FIELDS = {"hybrid_pattern": "", "norm_eps": None, "n_groups": 1}
 
 
 # ---------------------------------------------------------------------------

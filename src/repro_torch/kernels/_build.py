@@ -54,7 +54,7 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     ),
     "ssd": (
         "ssd_fwd",
-        [_P] * 8 + [_I] * 6 + [_L] * 10 + [_P],
+        [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P],
     ),
 }
 

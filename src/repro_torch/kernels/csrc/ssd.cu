@@ -2,10 +2,11 @@
 //
 // Replaces repro/kernels/ssd.py::ssd (the Pallas TPU kernel `_ssd_kernel`).
 // Same function, per batch row b and head h, from a zero (P, Ns) fp32
-// state H, with B_t and C_t shared across heads (n_groups = 1):
+// state H, with B_t and C_t of the head's group g = h / (H / G) (the TPU
+// kernel has G = 1: one B and C shared by every head):
 //     a_t = exp(-dt_t exp(A_log[h]))
-//     H[p, s] <- a_t H[p, s] + dt_t x_t[p] B_t[s]
-//     y_t[p] = sum_s H[p, s] C_t[s] + D[h] x_t[p]
+//     H[p, s] <- a_t H[p, s] + dt_t x_t[p] B_{g,t}[s]
+//     y_t[p] = sum_s H[p, s] C_{g,t}[s] + D[h] x_t[p]
 // returning y and the final state. Two deliberate differences from the TPU
 // kernel: y comes out in fp32, as the model's chunked form
 // (repro/models/mamba.py::ssd_chunked) returns it, and there is no
@@ -51,6 +52,16 @@
 //     tile as coalesced 16-byte stores during the next tile.
 //   * A tile past the end is padded with a_t = 1 and zero inputs, so the
 //     state passes through it unchanged.
+//   * Past Ns = 64 (Nemotron-H's state 256, a 64 KB state a head) the
+//     Ns / 4 lanes a row would outgrow a warp, so a thread's run grows to
+//     V = Ns / 32 values and a row keeps one warp: at Ns = 128 V = 4 (the
+//     layout above at K = 32); at Ns = 256 V = 8, with R = 4 rows a thread
+//     and tiles of TS = 8 steps, so that a tile's R TS = 32 partial sums
+//     still reduce-scatter to one a lane, and the fp32 double buffer of
+//     B_ and C_ (2 x 2 x TS x Ns words) stays within the 48 KB of static
+//     shared memory. A block then reads 8 B_, 8 C_, 4 dt x and a_t, 21 words
+//     for 64 FMAs. The heads of one group read one B_ and C_, each CTA
+//     through its own copies (from L2 after the first).
 //   * What holds it at ~6x its bound: at B = 1 a GPU's worth of state gives
 //     only 4-5 CTAs of 2 warps an SM, so the chains of each step (shared
 //     read, FMAs, shuffles) are poorly hidden, and a step takes about twice
@@ -75,26 +86,50 @@ using attn::to_f;
 
 template <typename T, int P, int NS>
 struct Cfg {
-  static constexpr int TS = 16;               // steps per tile
-  static constexpr int R = 2;                 // rows per thread
-  static constexpr int K = NS / 4;            // runs of 4 s values a row is cut into
+  static constexpr int V = NS <= 128 ? 4 : 8;  // state values of a row a thread holds
+  static constexpr int TS = NS <= 128 ? 16 : 8;  // steps per tile
+  static constexpr int R = NS <= 128 ? 2 : 4;  // rows per thread
+  static constexpr int K = NS / V;            // runs of V s values a row is cut into
   static constexpr int RB = R * (K >= 8 ? 4 : 32 / K);  // rows per CTA
   static constexpr int NT = RB / R * K;       // threads per CTA: K lanes a row block
   static constexpr int CTAS = P / RB;         // CTAs per head
   static constexpr int XPT = TS * RB / NT;    // x entries per thread a tile
-  static_assert(R == 2 && P % RB == 0 && NT % 32 == 0 && TS * RB % NT == 0, "shape");
+  static_assert(R * TS == 32 && K <= 32 && V % 4 == 0 && P % RB == 0 && NT % 32 == 0 &&
+                TS * RB % NT == 0, "shape");
 };
+
+// R consecutive floats of shared memory (R = 2 or 4: one 8- or 16-byte read)
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x, v[1] = u.y;
+  } else {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  }
+}
+
+// V staged values from p, four at a time
+template <int V, typename T>
+__device__ __forceinline__ void load_run(const T* p, float (&v)[V]) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 u = scan::load4(p + 4 * q);
+    v[4 * q] = u.x, v[4 * q + 1] = u.y, v[4 * q + 2] = u.z, v[4 * q + 3] = u.w;
+  }
+}
 
 template <typename T, int P, int NS>
 __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A_log,
     const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ D,
-    float* __restrict__ y, float* __restrict__ state, int S, int H,
+    float* __restrict__ y, float* __restrict__ state, int S, int H, int HPG,
     int64_t sxb, int64_t sxs, int64_t sxh, int64_t sdb, int64_t sds, int64_t sdh,
-    int64_t sBb, int64_t sBs, int64_t sCb, int64_t sCs) {
+    int64_t sBb, int64_t sBs, int64_t sBg, int64_t sCb, int64_t sCs, int64_t sCg) {
   using C = Cfg<T, P, NS>;
   constexpr int TS = C::TS;
-  constexpr int NT = C::NT, R = C::R, K = C::K, RB = C::RB;
+  constexpr int NT = C::NT, R = C::R, K = C::K, RB = C::RB, V = C::V;
   // cp.async double buffer, in the input type; B_ and C_ are read from it
   __shared__ __align__(16) T Braw[2][TS][NS];
   __shared__ __align__(16) T Craw[2][TS][NS];
@@ -106,13 +141,14 @@ __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x / C::CTAS;
+  const int g = h / HPG;  // the head's B/C group
   const int p0 = (blockIdx.x % C::CTAS) * RB;
   const int b = blockIdx.y;
-  const int run = tid % K, r0 = R * (tid / K);  // s in [4 run, 4 run + 4), rows r0 ..
+  const int run = tid % K, r0 = R * (tid / K);  // s in [V run, V run + V), rows r0 ..
   const T* xb = x + b * sxb + h * sxh + p0;
   const float* db = dt + b * sdb + h * sdh;
-  const T* Bb = Bm + b * sBb;
-  const T* Cb = Cm + b * sCb;
+  const T* Bb = Bm + b * sBb + g * sBg;
+  const T* Cb = Cm + b * sCb + g * sCg;
   const float neg_a = -expf(A_log[h]);
   const float Dh = D[h];
   float* yb = y + ((int64_t)b * S * H + h) * P + p0;  // y (B, S, H, P) contiguous
@@ -147,9 +183,11 @@ __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
     }
   };
 
-  float st[R][4];  // H[p0 + r0 + rho, 4 run + e]
+  float st[R][V];  // H[p0 + r0 + rho, V run + e]
 #pragma unroll
-  for (int rho = 0; rho < R; ++rho) st[rho][0] = st[rho][1] = st[rho][2] = st[rho][3] = 0.f;
+  for (int rho = 0; rho < R; ++rho)
+#pragma unroll
+    for (int e = 0; e < V; ++e) st[rho][e] = 0.f;
 
   float dt_next[C::XPT];  // dt of this thread's x entries, a tile ahead
   issue(0, 0, dt_next);
@@ -171,22 +209,27 @@ __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
     // the steps of the tile, each step's operands read one step ahead so
     // that shared-memory latency overlaps the previous step's arithmetic;
     // the next tile's copies and the last tile's y are issued among them
-    const T* Bt = &Braw[stage][0][4 * run];
-    const T* Ct = &Craw[stage][0][4 * run];
+    const T* Bt = &Braw[stage][0][V * run];
+    const T* Ct = &Craw[stage][0][V * run];
     float yp[R * TS];  // partial y of (row r0 + rho, step i) at rho TS + i
     float a_n = Af[0];
-    float2 dx_n = *reinterpret_cast<const float2*>(&DXf[0][r0]);
-    float4 b_n = scan::load4(Bt), c_n = scan::load4(Ct);
+    float dx_n[R], b_n[V], c_n[V];
+    load_rows<R>(&DXf[0][r0], dx_n);
+    load_run<V>(Bt, b_n);
+    load_run<V>(Ct, c_n);
 #pragma unroll
     for (int i = 0; i < TS; ++i) {
       const float a = a_n;
-      const float dx[2] = {dx_n.x, dx_n.y};
-      const float4 b4 = b_n, c4 = c_n;
+      float dx[R], bv[V], cv[V];
+#pragma unroll
+      for (int rho = 0; rho < R; ++rho) dx[rho] = dx_n[rho];
+#pragma unroll
+      for (int e = 0; e < V; ++e) bv[e] = b_n[e], cv[e] = c_n[e];
       if (i + 1 < TS) {
         a_n = Af[i + 1];
-        dx_n = *reinterpret_cast<const float2*>(&DXf[i + 1][r0]);
-        b_n = scan::load4(Bt + (i + 1) * NS);
-        c_n = scan::load4(Ct + (i + 1) * NS);
+        load_rows<R>(&DXf[i + 1][r0], dx_n);
+        load_run<V>(Bt + (i + 1) * NS, b_n);
+        load_run<V>(Ct + (i + 1) * NS, c_n);
       }
       if (i == 1) {
         issue(stage ^ 1, t0 + TS, dt_next);
@@ -194,12 +237,15 @@ __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
       }
 #pragma unroll
       for (int rho = 0; rho < R; ++rho) {
-        float* h4 = st[rho];
-        h4[0] = fmaf(a, h4[0], dx[rho] * b4.x);
-        h4[1] = fmaf(a, h4[1], dx[rho] * b4.y);
-        h4[2] = fmaf(a, h4[2], dx[rho] * b4.z);
-        h4[3] = fmaf(a, h4[3], dx[rho] * b4.w);
-        yp[rho * TS + i] = fmaf(h4[0], c4.x, h4[1] * c4.y) + fmaf(h4[2], c4.z, h4[3] * c4.w);
+        float* hv = st[rho];
+#pragma unroll
+        for (int e = 0; e < V; ++e) hv[e] = fmaf(a, hv[e], dx[rho] * bv[e]);
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < V; q += 4)
+          acc += fmaf(hv[q], cv[q], hv[q + 1] * cv[q + 1]) +
+                 fmaf(hv[q + 2], cv[q + 2], hv[q + 3] * cv[q + 3]);
+        yp[rho * TS + i] = acc;
       }
     }
     scan::reduce_scatter<K>(yp, run);
@@ -213,38 +259,43 @@ __global__ void __launch_bounds__(Cfg<T, P, NS>::NT, 1) ssd_kernel(
   attn::cp_async_wait<0>();  // the copies of the tile past the end
   __syncthreads();
   write_y((ntiles - 1) * TS, (ntiles - 1) & 1);
-  // state (B, H, P, Ns) contiguous: this thread's 4 x R block
-  float* sb = state + (((int64_t)b * H + h) * P + p0 + r0) * NS + 4 * run;
+  // state (B, H, P, Ns) contiguous: this thread's V x R block
+  float* sb = state + (((int64_t)b * H + h) * P + p0 + r0) * NS + V * run;
 #pragma unroll
   for (int rho = 0; rho < R; ++rho)
-    scan::store4(sb + rho * NS, make_float4(st[rho][0], st[rho][1], st[rho][2], st[rho][3]));
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q)
+      scan::store4(sb + rho * NS + 4 * q, make_float4(st[rho][4 * q], st[rho][4 * q + 1],
+                                                      st[rho][4 * q + 2], st[rho][4 * q + 3]));
 }
 
 template <typename T, int P, int NS>
 int launch(const void* x, const float* dt, const float* A_log, const void* Bm,
            const void* Cm, const float* D, float* y, float* state, int B, int S, int H,
-           const int64_t* st, cudaStream_t stream) {
+           int HPG, const int64_t* st, cudaStream_t stream) {
   dim3 grid(H * Cfg<T, P, NS>::CTAS, B);
   ssd_kernel<T, P, NS><<<grid, Cfg<T, P, NS>::NT, 0, stream>>>(
       static_cast<const T*>(x), dt, A_log, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), D, y, state, S, H, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9]);
+      static_cast<const T*>(Cm), D, y, state, S, H, HPG, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int P, int NS, const void* x, const float* dt, const float* A_log,
              const void* Bm, const void* Cm, const float* D, float* y, float* state,
-             int B, int S, int H, const int64_t* st, cudaStream_t stream) {
+             int B, int S, int H, int HPG, const int64_t* st, cudaStream_t stream) {
 #define SSD_CASE(PP, NN)                                                          \
   if (P == PP && NS == NN)                                                        \
-    return launch<T, PP, NN>(x, dt, A_log, Bm, Cm, D, y, state, B, S, H, st, stream);
+    return launch<T, PP, NN>(x, dt, A_log, Bm, Cm, D, y, state, B, S, H, HPG, st, stream);
   SSD_CASE(32, 16)
   SSD_CASE(32, 32)
   SSD_CASE(32, 64)
   SSD_CASE(64, 16)
   SSD_CASE(64, 32)
   SSD_CASE(64, 64)
+  SSD_CASE(64, 128)
+  SSD_CASE(64, 256)
 #undef SSD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -253,27 +304,31 @@ int dispatch(int P, int NS, const void* x, const float* dt, const float* A_log,
 
 // dtype (of x, B_, C_): 0 = float32, 1 = bfloat16. dt, A_log and D are
 // float32. x (B, S, H, P) by element strides (b, s, h); dt (B, S, H) by
-// (b, s, h); B_, C_ (B, S, Ns) by (b, s); last dims contiguous; x, B_ and
-// C_ 16-byte aligned (data pointers and the strides of dims above 1); A_log,
-// D (H,) contiguous. Writes y (B, S, H, P) float32 contiguous and the final
-// state (B, H, P, Ns) float32 contiguous. Returns the launch's cudaError_t
-// (0 = success).
+// (b, s, h); B_, C_ (B, S, G, Ns) by (b, s, g), G dividing H, head h reading
+// group h / (H / G); last dims contiguous; x, B_ and C_ 16-byte aligned
+// (data pointers and the strides of dims above 1); A_log, D (H,)
+// contiguous. Writes y (B, S, H, P) float32 contiguous and the final state
+// (B, H, P, Ns) float32 contiguous. Returns the launch's cudaError_t (0 =
+// success).
 extern "C" int ssd_fwd(
     const void* x, const void* dt, const void* A_log, const void* Bm, const void* Cm,
-    const void* D, void* y, void* state, int dtype, int B, int S, int H, int P, int NS,
-    int64_t sxb, int64_t sxs, int64_t sxh, int64_t sdb, int64_t sds, int64_t sdh,
-    int64_t sBb, int64_t sBs, int64_t sCb, int64_t sCs, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t st[10] = {sxb, sxs, sxh, sdb, sds, sdh, sBb, sBs, sCb, sCs};
+    const void* D, void* y, void* state, int dtype, int B, int S, int H, int G, int P,
+    int NS, int64_t sxb, int64_t sxs, int64_t sxh, int64_t sdb, int64_t sds, int64_t sdh,
+    int64_t sBb, int64_t sBs, int64_t sBg, int64_t sCb, int64_t sCs, int64_t sCg,
+    void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G) return (int)cudaErrorInvalidValue;
+  const int64_t st[12] = {sxb, sxs, sxh, sdb, sds, sdh, sBb, sBs, sBg, sCb, sCs, sCg};
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(A_log);
   const float* df = static_cast<const float*>(D);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hpg = H / G;
   if (dtype == 0)
-    return dispatch<float>(P, NS, x, dtf, af, Bm, Cm, df, yf, sf, B, S, H, st, s);
+    return dispatch<float>(P, NS, x, dtf, af, Bm, Cm, df, yf, sf, B, S, H, hpg, st, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(P, NS, x, dtf, af, Bm, Cm, df, yf, sf, B, S, H, st, s);
+    return dispatch<__nv_bfloat16>(P, NS, x, dtf, af, Bm, Cm, df, yf, sf, B, S, H, hpg, st,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }

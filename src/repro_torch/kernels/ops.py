@@ -109,7 +109,8 @@ def wkv6_op(r, k, v, w_log, u, *, chunk: int = 64):
 
 def ssd_op(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
     """Mamba-2 SSD scan from a zero state, model layout: x (B, S, H, P), dt
-    (B, S, H), A_log and D (H,), B_/C_ (B, S, Ns) -> (y (B, S, H, P) float32,
+    (B, S, H), A_log and D (H,), B_/C_ (B, S, Ns), or (B, S, G, Ns) with
+    head h reading group h // (H / G) -> (y (B, S, H, P) float32,
     state (B, H, P, Ns) float32). On the CPU, the chunked plain version
     with chunk ``chunk``; the kernel has no chunk."""
     if _plain(x):

@@ -214,11 +214,28 @@ def rwkv6_ref(r, k, v, w_log, u, state0=None):
     return y, state
 
 
+def _by_group(scan, x, dt, A_log, B_, C_, D, state0, **kw):
+    """``scan`` over B_/C_ of (B, S, G, Ns): group g's heads [g H/G, (g+1)
+    H/G) run with its B_ and C_, and their y and states are joined."""
+    H, G = x.shape[2], B_.shape[2]
+    if H % G:
+        raise ValueError(f"ssd: {G} B/C groups do not divide {H} heads")
+    n = H // G
+    outs = [scan(x[:, :, g * n:(g + 1) * n], dt[..., g * n:(g + 1) * n],
+                 A_log[g * n:(g + 1) * n], B_[:, :, g], C_[:, :, g], D[g * n:(g + 1) * n],
+                 None if state0 is None else state0[:, g * n:(g + 1) * n], **kw)
+            for g in range(G)]
+    return torch.cat([y for y, _ in outs], dim=2), torch.cat([s for _, s in outs], dim=1)
+
+
 def ssd_chunked_ref(x, dt, A_log, B_, C_, D, state0=None, *, chunk: int = 128):
     """Mamba-2 SSD scan, chunked. x: (B, S, H, P); dt: (B, S, H); A_log, D:
-    (H,); B_, C_: (B, S, Ns) shared across heads; state0: (B, H, P, Ns) or
-    None (zeros) -> (y (B, S, H, P) fp32, state (B, H, P, Ns) fp32). A
-    ragged tail is zero-padded."""
+    (H,); B_, C_: (B, S, Ns) shared across heads, or (B, S, G, Ns), head h
+    reading group h // (H / G); state0: (B, H, P, Ns) or None (zeros) ->
+    (y (B, S, H, P) fp32, state (B, H, P, Ns) fp32). A ragged tail is
+    zero-padded."""
+    if B_.dim() == 4:
+        return _by_group(ssd_chunked_ref, x, dt, A_log, B_, C_, D, state0, chunk=chunk)
     Bb, S, H, P = x.shape
     Ns = B_.shape[-1]
     Cs = min(chunk, S)
@@ -250,8 +267,11 @@ def ssd_chunked_ref(x, dt, A_log, B_, C_, D, state0=None, *, chunk: int = 128):
 
 def ssd_ref(x, dt, A_log, B_, C_, D, state0=None):
     """Sequential SSD (the oracle). x: (B, S, H, P); dt: (B, S, H); B_, C_:
-    (B, S, Ns); A_log, D: (H,); state0: (B, H, P, Ns) or None (zeros) ->
-    (y (B, S, H, P), state), fp32."""
+    (B, S, Ns), or (B, S, G, Ns) by group as ``ssd_chunked_ref``; A_log, D:
+    (H,); state0: (B, H, P, Ns) or None (zeros) -> (y (B, S, H, P), state),
+    fp32."""
+    if B_.dim() == 4:
+        return _by_group(ssd_ref, x, dt, A_log, B_, C_, D, state0)
     Bb, S, H, P = x.shape
     Ns = B_.shape[-1]
     xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B_, C_))

@@ -85,13 +85,15 @@ def layer_norm(
 
 
 def apply_norm(cfg, p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    """Dispatch on cfg.norm_type; ``p`` holds <name>_scale/<name>_bias if any."""
+    """Dispatch on cfg.norm_type; ``p`` holds <name>_scale/<name>_bias if any.
+    The epsilon is ``cfg.norm_eps`` where set, else each norm's default."""
+    eps = {} if cfg.norm_eps is None else {"eps": cfg.norm_eps}
     if cfg.norm_type == "rmsnorm":
-        return rms_norm(x, p[f"{name}_scale"])
+        return rms_norm(x, p[f"{name}_scale"], **eps)
     if cfg.norm_type == "layernorm":
-        return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"])
+        return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"], **eps)
     if cfg.norm_type == "layernorm_np":  # OLMo: non-parametric
-        return layer_norm(x, None, None)
+        return layer_norm(x, None, None, **eps)
     raise ValueError(cfg.norm_type)
 
 

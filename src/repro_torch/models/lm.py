@@ -2,7 +2,9 @@
 ``repro.models.lm``: dense (with qk-norm: qwen3-4b), moe (granite-moe,
 kimi-k2), ssm (rwkv6), hybrid (zamba2), vlm (qwen2-vl: M-RoPE and the
 ``embeds`` input of its stub frontend) and audio (whisper: encoder-decoder
-with cross-attention over the stub frontend's ``frames``).
+with cross-attention over the stub frontend's ``frames``); and the port's
+own nemotron_h (Nemotron-H: one mixer a layer, Mamba-2, MLP or attention,
+by ``cfg.hybrid_pattern``; ``PORT_ONLY_FAMILIES``).
 
 Parameters are a plain dict, as in the reference, with weights in the
 reference's (in, out) orientation (used as ``x @ W``). The reference stacks
@@ -12,7 +14,10 @@ under ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts
 audio: ``enc_blocks`` and ``dec_blocks``), looped in Python. The hybrid
 family's one shared attention block is ``params["shared_attn"]``, a dense
 layer applied after every group. A moe layer holds ``moe`` (router and
-(E, D, F) experts, ``models/moe.py``) where a dense layer holds ``mlp``.
+(E, D, F) experts, ``models/moe.py``) where a dense layer holds ``mlp``. A
+nemotron_h layer holds ``ln1_scale`` and one of ``mamba``, ``mlp`` or
+``attn``: ``x + mixer(RMSNorm(x))``; its attention has no position
+encoding. The nemotron_h family runs on one device: under a mesh it raises.
 
 Under a mesh (``ctx``, a ``ParallelCtx``; ``models/parallel.py``) every
 rank passes its shard of the parameters (``distributed.sharding.shard_tree``
@@ -47,7 +52,11 @@ Caches are dicts with a Python int ``length``:
   ``shift_tm``/``shift_cm`` (L, B, D) in ``cfg.dtype``;
 * hybrid: ``ssm_state`` (G, per, B, heads, P, Ns) fp32, ``conv``
   (G, per, B, K-1, CH) in ``cfg.dtype``, and ``kv_k``/``kv_v``
-  (G, B, M, Hkv, hd), one KV slot per application of the shared block.
+  (G, B, M, Hkv, hd), one KV slot per application of the shared block;
+* nemotron_h: ``ssm_state`` (Lm, B, heads, P, Ns) fp32 and ``conv``
+  (Lm, B, K-1, CH) in ``cfg.dtype`` for its Lm Mamba-2 layers, and
+  ``kv_k``/``kv_v`` (La, B, M, Hkv, hd) for its La attention layers, in
+  layer order.
 
 Decode updates the cache IN PLACE (the reference donates the buffers
 instead), so a cache passed to ``decode_step`` must not be reused by the
@@ -97,10 +106,19 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.parallel import ParallelCtx
 from repro_torch.models.rope import positions_for_rope
+from repro_torch.obs import trace_span
+from repro_torch.obs.port_names import SPAN_MODEL_MAMBA
 
 Batch = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# families of the port alone, each with its reason: nemotron_h is
+# Nemotron-H (hybrid_override_pattern: Mamba-2 with B/C groups, MLP and
+# attention layers in one stack), the hybrid generation of APC's large
+# planner, which the reference does not model
+PORT_ONLY_FAMILIES = ("nemotron_h",)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio") + PORT_ONLY_FAMILIES
+# nemotron_h's layer kinds: one pattern character a layer
+MAMBA, MLP, ATTN = "M", "-", "*"
 DEC_POS_ROWS = 32_776  # whisper's learned decoder positions (the reference's table)
 
 
@@ -116,6 +134,44 @@ def _check_family(cfg) -> None:
     if cfg.family == "hybrid" and cfg.num_layers // cfg.attn_every == 0:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers make no group of "
                          f"attn_every={cfg.attn_every}; the model would run no layer")
+    if cfg.family == "nemotron_h":
+        layer_kinds(cfg)
+
+
+def _single_device(cfg, ctx) -> None:
+    """nemotron_h runs on one device."""
+    if cfg.family == "nemotron_h" and ctx is not None:
+        raise NotImplementedError(f"{cfg.name}: the nemotron_h family runs on one device, "
+                                  "not under a mesh")
+
+
+def layer_kinds(cfg) -> str:
+    """nemotron_h: each layer's kind, the first ``num_layers`` characters of
+    ``cfg.hybrid_pattern`` (``MAMBA``, ``MLP`` or ``ATTN``)."""
+    kinds = cfg.hybrid_pattern[:cfg.num_layers]
+    if len(kinds) != cfg.num_layers or set(kinds) - {MAMBA, MLP, ATTN}:
+        raise ValueError(f"{cfg.name}: hybrid_pattern {cfg.hybrid_pattern!r} gives no kind "
+                         f"in {MAMBA + MLP + ATTN!r} to each of {cfg.num_layers} layers")
+    return kinds
+
+
+def layer_counts(cfg) -> Tuple[int, int]:
+    """(Mamba-2 layers, attention layers) of a hybrid model: the zamba2
+    family's mixers and shared-block applications, or nemotron_h's layers
+    of each kind; (0, 0) for the other families."""
+    if cfg.family == "nemotron_h":
+        kinds = layer_kinds(cfg)
+        return kinds.count(MAMBA), kinds.count(ATTN)
+    if cfg.family == "hybrid":
+        return _groups(cfg) * cfg.attn_every, _groups(cfg)
+    return 0, 0
+
+
+def state_bytes(cache: Cache) -> int:
+    """The bytes of recurrent state a cache holds: SSM state, conv and
+    token-shift carries (0 for a pure-KV cache)."""
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("ssm_state", "conv", "shift_tm", "shift_cm") if k in cache)
 
 
 def _groups(cfg) -> int:
@@ -162,6 +218,17 @@ def mamba_init_wrap(cfg, generator, device) -> Params:
     return mam.mamba_init(cfg, generator, device)
 
 
+def _nemotron_layer_init(cfg, kind: str, generator, device) -> Params:
+    p = _norms(cfg, ("ln1",), device)
+    if kind == MAMBA:
+        p["mamba"] = mam.mamba_init(cfg, generator, device)
+    elif kind == ATTN:
+        p["attn"] = attn.attn_init(cfg, generator, device)
+    else:
+        p["mlp"] = mlp_init(cfg, generator, device, cfg.d_model, cfg.d_ff)
+    return p
+
+
 def init_params(cfg, generator: torch.Generator, device) -> Params:
     """Random parameters on ``device``: ``0.02 * N(0, 1)`` drawn in fp32 and
     cast to ``param_dtype``, one tensor at a time; norm scales 1 and biases
@@ -190,6 +257,9 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
         p["blocks"] = [[_mamba_layer_init(cfg, generator, device)
                         for _ in range(cfg.attn_every)] for _ in range(_groups(cfg))]
         p["shared_attn"] = _dense_layer_init(cfg, generator, device)
+    elif cfg.family == "nemotron_h":
+        p["blocks"] = [_nemotron_layer_init(cfg, k, generator, device)
+                       for k in layer_kinds(cfg)]
     else:
         p["blocks"] = [_dense_layer_init(cfg, generator, device)
                        for _ in range(cfg.num_layers)]
@@ -261,6 +331,13 @@ def init_cache(cfg, batch: int, max_len: int, device, *, enc_len: int = 0) -> Ca
         c["shift_cm"] = torch.zeros_like(c["shift_tm"])
         return c
     n_kv = cfg.num_layers
+    if cfg.family == "nemotron_h":
+        s = cfg.ssm
+        _, heads, conv_ch = mam.mamba_dims(cfg)
+        n_m, n_kv = layer_counts(cfg)
+        c["ssm_state"] = torch.zeros((n_m, batch, heads, s.head_dim, s.state_dim),
+                                     dtype=f32, device=device)
+        c["conv"] = torch.zeros((n_m, batch, s.conv_dim - 1, conv_ch), dtype=dt, device=device)
     if cfg.family == "hybrid":
         s = cfg.ssm
         _, heads, conv_ch = mam.mamba_dims(cfg)
@@ -596,6 +673,7 @@ def forward(
     (not audio): a cache of B rows to fill in place of a new one, which is
     returned (``want_cache`` is then implied)."""
     _check_family(cfg)
+    _single_device(cfg, ctx)
     ctx, specs, top = _mesh(cfg, ctx, params)
     if cfg.family == "audio":
         if cache is not None:
@@ -624,7 +702,9 @@ def forward(
                 _put(ctx, cache, "shift_cm", i, sh_cm, cspecs)
     else:
         cos, sin = positions_for_rope(cfg, pos, cfg.head_dim)
-        if cfg.family == "hybrid":
+        if cfg.family == "nemotron_h":
+            x = _nemotron_forward(cfg, params["blocks"], x, cos, sin, use_kernels, cache)
+        elif cfg.family == "hybrid":
             shared, sspec = top["shared_attn"], _sub(specs, "shared_attn")
             for g, (group, gspec) in enumerate(_layers(ctx, cfg, params["blocks"],
                                                        _sub(specs, "blocks"))):
@@ -650,6 +730,32 @@ def forward(
     if cache is not None:
         _set_length(cache, S)
     return _logits(cfg, top, par.seq_gather(lctx, x), ctx, specs), aux, cache
+
+
+def _nemotron_forward(cfg, blocks, x: torch.Tensor, cos, sin, use_kernels: bool,
+                      cache: Optional[Cache]) -> torch.Tensor:
+    """nemotron_h's layers over a sequence, each ``x + mixer(RMSNorm(x))``,
+    the Mamba-2 mixers from a zero state, each in a ``model.mamba`` span;
+    the states, conv carries and K/V go into ``cache`` where one is given."""
+    m = a = 0
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), blocks)):
+        h = apply_norm(cfg, p, "ln1", x)
+        if kind == MAMBA:
+            with trace_span(SPAN_MODEL_MAMBA, layer=i):
+                y, st, cv = mam.mamba_forward(cfg, p["mamba"], h, use_kernels=use_kernels)
+            if cache is not None:
+                cache["ssm_state"][m].copy_(st)
+                cache["conv"][m].copy_(cv)
+            m += 1
+        elif kind == ATTN:
+            y, (k, v) = attn.attention_seq(cfg, p["attn"], h, cos, sin, use_kernels=use_kernels)
+            if cache is not None:
+                _store_kv(cfg, None, cache, a, k, v, None)
+            a += 1
+        else:
+            y = mlp_forward(cfg, p["mlp"], h)
+        x = x + y
+    return x
 
 
 def _whisper_forward(cfg, params: Params, top: Params, tokens, frames, want_cache, cache_len,
@@ -752,7 +858,7 @@ def prefill_extend(cfg, params: Params, tokens: torch.Tensor, prefix_k: torch.Te
     ``forward`` (mode "ep" through ``moe_forward_ep``), and sequence
     parallelism applies as there.
     """
-    if cfg.family in ("audio", "ssm", "hybrid"):
+    if cfg.family in ("audio", "ssm", "hybrid", "nemotron_h"):
         raise NotImplementedError(
             f"prefix extension requires a pure-KV cache; family "
             f"{cfg.family!r} carries recurrent state"
@@ -841,6 +947,7 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
     the step. Under a mesh the tokens, cache and logits are the rank's
     rows (module docstring), and the position is the host's ``length``."""
     _check_family(cfg)
+    _single_device(cfg, ctx)
     ctx, specs, top = _mesh(cfg, ctx, params)
     cspecs = _cache_specs(cfg, ctx, cache)
     length = int(cache["length"])
@@ -902,6 +1009,23 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
                                          block=True)
             x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, p, "ln3", x), ctx,
                                 _sub(sp, "mlp"))
+    elif cfg.family == "nemotron_h":
+        m = a = 0
+        for kind, p in zip(layer_kinds(cfg), blocks):
+            h = apply_norm(cfg, p, "ln1", x)
+            if kind == MAMBA:
+                y, st, cv = mam.mamba_step(cfg, p["mamba"], h[:, 0], cache["ssm_state"][m],
+                                           cache["conv"][m])
+                cache["ssm_state"][m].copy_(st)
+                cache["conv"][m].copy_(cv)
+                y, m = y[:, None], m + 1
+            elif kind == ATTN:
+                y = attn.attention_decode(cfg, p["attn"], h, cos, sin, cache["kv_k"][a],
+                                          cache["kv_v"][a], slot, lengths)
+                a += 1
+            else:
+                y = mlp_forward(cfg, p["mlp"], h)
+            x = x + y
     elif cfg.family == "hybrid":
         x = x[:, 0]
         for g, (group, gspec) in enumerate(_layers(ctx, cfg, blocks, bspecs)):

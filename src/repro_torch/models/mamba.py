@@ -1,11 +1,15 @@
 """Mamba2 (SSD, state space duality) mixer, Zamba2-style (the port of
-``repro.models.mamba``).
+``repro.models.mamba``), and Nemotron-H's, whose B/C come in groups.
 
-Recurrence (per head h, head_dim p, state s; B/C shared across heads,
-n_groups=1):
+Recurrence (per head h, head_dim p, state s; B/C of the head's group g =
+h // (heads / n_groups), shared by every head where n_groups = 1, as in
+the reference):
     a_t = exp(-dt_t * exp(A_log_h))              scalar decay per head
-    H_t = a_t H_{t-1} + (dt_t x_t) B_t^T         H: (P, S_state)
-    y_t = H_t C_t + D_h x_t
+    H_t = a_t H_{t-1} + (dt_t x_t) B_{g,t}^T     H: (P, S_state)
+    y_t = H_t C_{g,t} + D_h x_t
+then y * silu(z), an RMSNorm over each group's d_in / n_groups channels
+(all of d_in with one group; Nemotron-H's ``norm_before_gate=False``) at
+``cfg.norm_eps`` (the reference's 1e-6 where unset), and ``out_proj``.
 
 A prefill runs the scan through ``kernels.ops.ssd_op``: the hand-written
 CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor.
@@ -21,7 +25,7 @@ its heads' z, x and dt (B and C are shared by every head); the depthwise
 conv runs whole (its split weights gathered), the scan on the rank's heads
 (the kernel at the local head count), the gated RMSNorm over d_in sums its
 squares over tp, and ``out_proj``'s row shard ends in a ``psum``. The heads
-must split evenly.
+must split evenly, and the mixer has one group there.
 """
 
 from __future__ import annotations
@@ -42,22 +46,24 @@ def mamba_dims(cfg):
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     heads = d_in // s.head_dim
-    conv_ch = d_in + 2 * s.state_dim  # conv over (x, B, C)
+    conv_ch = d_in + 2 * s.n_groups * s.state_dim  # conv over (x, B, C)
+    if heads % s.n_groups:
+        raise ValueError(f"{cfg.name}: {s.n_groups} B/C groups do not divide {heads} heads")
     return d_in, heads, conv_ch
 
 
 def mamba_init(cfg, generator, device) -> Params:
     """The reference's distributions and dtypes: the projections at 0.02 in
     ``param_dtype``, the conv weights at 0.1 in fp32, A_log 0 (A = -1),
-    dt_bias -2, D 1."""
+    dt_bias -2, D 1. B and C take ``n_groups * state_dim`` columns each."""
     s = cfg.ssm
     d = cfg.d_model
     d_in, heads, conv_ch = mamba_dims(cfg)
     dt = dtype_of(cfg.param_dtype)
     f32 = torch.float32
-    # in_proj -> [z (d_in), x (d_in), B (state), C (state), dt (heads)]
+    # in_proj -> [z (d_in), x (d_in), B (groups x state), C (groups x state), dt (heads)]
     return {
-        "in_proj": dense_init(generator, (d, 2 * d_in + 2 * s.state_dim + heads), dt, device),
+        "in_proj": dense_init(generator, (d, d_in + conv_ch + heads), dt, device),
         "conv_w": dense_init(generator, (s.conv_dim, conv_ch), f32, device, scale=0.1),
         "conv_b": torch.zeros(conv_ch, dtype=f32, device=device),
         "A_log": torch.zeros(heads, dtype=f32, device=device),
@@ -92,11 +98,19 @@ def ssd_chunked(x, dt, A_log, B_, C_, D, state0, chunk: int = 128):
 
 
 def ssd_step(x, dt, A_log, B_, C_, D, state) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step. x: (B, H, P); dt: (B, H); B_/C_: (B, Ns); state:
-    (B, H, P, Ns) fp32 -> (y (B, H, P) fp32, new state)."""
+    """One step. x: (B, H, P); dt: (B, H); B_/C_: (B, Ns), shared by every
+    head, or (B, G, Ns), head h reading group h // (H / G); state: (B, H,
+    P, Ns) fp32 -> (y (B, H, P) fp32, new state)."""
     x = x.float()
     a = torch.exp(-dt.float() * torch.exp(A_log.float()))  # (B, H)
     dtx = x * dt[..., None]
+    if B_.dim() == 3:  # groups: the heads' axis split as (G, H / G)
+        Bb, G = B_.shape[:2]
+        grouped = (Bb, G, x.shape[1] // G) + tuple(state.shape[2:])
+        st = (a[..., None, None] * state).view(grouped) + (
+            dtx.view(grouped[:4])[..., None] * B_.float()[:, :, None, None, :])
+        y = torch.einsum("bghps,bgs->bghp", st, C_.float()).reshape(x.shape)
+        return y + D[None, :, None] * x, st.view(state.shape)
     state = a[..., None, None] * state + dtx[..., None] * B_.float()[:, None, None, :]
     y = torch.einsum("bhps,bs->bhp", state, C_.float()) + D[None, :, None] * x
     return y, state
@@ -104,12 +118,34 @@ def ssd_step(x, dt, A_log, B_, C_, D, state) -> Tuple[torch.Tensor, torch.Tensor
 
 def _split_proj(cfg, proj):
     """in_proj output -> (z, x B C for the conv, dt_raw)."""
+    d_in, _, conv_ch = mamba_dims(cfg)
+    return proj[..., :d_in], proj[..., d_in:d_in + conv_ch], proj[..., d_in + conv_ch:]
+
+
+def _scan_bc(cfg, conv_out):
+    """The conv output's B and C: (..., Ns) each with one group, else
+    (..., G, Ns)."""
     s = cfg.ssm
     d_in, _, _ = mamba_dims(cfg)
-    z = proj[..., :d_in]
-    conv_in = proj[..., d_in:2 * d_in + 2 * s.state_dim]
-    dt_raw = proj[..., 2 * d_in + 2 * s.state_dim:]
-    return z, conv_in, dt_raw
+    n = s.n_groups * s.state_dim
+    Bc, Cc = conv_out[..., d_in:d_in + n], conv_out[..., d_in + n:]
+    if s.n_groups == 1:
+        return Bc, Cc
+    return (Bc.unflatten(-1, (s.n_groups, s.state_dim)),
+            Cc.unflatten(-1, (s.n_groups, s.state_dim)))
+
+
+def _gated_norm(cfg, p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """RMSNorm(y * silu(z)) over each group's d_in / n_groups channels (all
+    of d_in with one group), at ``cfg.norm_eps`` where set, else the
+    reference's 1e-6; y taken to z's dtype first."""
+    h = y.to(z.dtype) * F.silu(z)
+    G = cfg.ssm.n_groups
+    eps = {} if cfg.norm_eps is None else {"eps": cfg.norm_eps}
+    if G == 1:
+        return rms_norm(h, p["norm_scale"], **eps)
+    gs = h.shape[-1] // G
+    return rms_norm(h.unflatten(-1, (G, gs)), p["norm_scale"].view(G, gs), **eps).flatten(-2)
 
 
 def _tp(ctx, spec) -> bool:
@@ -122,6 +158,8 @@ class _TP:
 
     def __init__(self, cfg, p: Params, spec, x, ctx):
         d_in, heads, _ = mamba_dims(cfg)
+        if cfg.ssm.n_groups != 1:
+            raise NotImplementedError(f"{cfg.name}: B/C groups under tp")
         lh = par.local_heads(ctx, heads)
         if lh is None:
             raise NotImplementedError(f"{cfg.name}: {heads} mamba2 heads do not split over "
@@ -192,12 +230,11 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
     z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
     conv_out, conv_carry = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_prev)
     xin = conv_out[..., :d_in]
-    Bc = conv_out[..., d_in:d_in + s.state_dim]
-    Cc = conv_out[..., d_in + s.state_dim:]
+    Bc, Cc = _scan_bc(cfg, conv_out)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
     y, state = scan(xin.reshape(B, S, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
                     chunk=s.chunk_size)
-    y = rms_norm(y.reshape(B, S, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
+    y = _gated_norm(cfg, p, y.reshape(B, S, d_in), z)
     return y @ p["out_proj"], state, conv_carry
 
 
@@ -220,10 +257,9 @@ def mamba_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
                             state)
         return tp.out(p, y.reshape(B, -1), z, x.dtype), state, window[:, 1:]
     xin = conv_out[..., :d_in]
-    Bc = conv_out[..., d_in:d_in + s.state_dim]
-    Cc = conv_out[..., d_in + s.state_dim:]
+    Bc, Cc = _scan_bc(cfg, conv_out)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, H)
     y, state = ssd_step(xin.reshape(B, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
                         state)
-    y = rms_norm(y.reshape(B, d_in).to(x.dtype) * F.silu(z), p["norm_scale"])
+    y = _gated_norm(cfg, p, y.reshape(B, d_in), z)
     return y @ p["out_proj"], state, window[:, 1:]

@@ -14,8 +14,18 @@ SPAN_ENGINE_DECODE_STEP = "engine.decode_step"
 # engine.decode_step's attribute: how the step ran, "eager", "replay" (of
 # the engine's CUDA graph) or "capture" (captured into it, then replayed)
 ATTR_DECODE_GRAPH = "graph"
+# engine.prefill's attributes of a model with Mamba-2 layers (zamba2,
+# nemotron_h): its Mamba-2 and attention layers, and the bytes of SSM state
+# and conv carries its cache holds (``EngineStats.ssm_state_bytes``)
+ATTR_MAMBA_LAYERS = "mamba_layers"
+ATTR_ATTENTION_LAYERS = "attention_layers"
+ATTR_SSM_STATE_BYTES = "ssm_state_bytes"
+# one Mamba-2 mixer of a nemotron_h forward (a prefill: the decode step's
+# mixers run inside the engine's CUDA graph); attrs: layer
+SPAN_MODEL_MAMBA = "model.mamba"
 
 SPAN_NAMES = (
     "engine.prefill",
     "engine.decode_step",
+    "model.mamba",
 )

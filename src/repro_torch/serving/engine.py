@@ -34,11 +34,12 @@ rank's rows from the rank's pages (``lm.prefill_extend(ctx=)``). The ranks
 call their caches in lockstep, so they hit, miss and evict alike.
 
 Decode through a CUDA graph. A dense model without a mesh on the card
-(every role of ``configs/apc_minion.py::DEFAULT``) decodes each step as one
-replay of ``lm.decode_step`` captured into a ``torch.cuda.CUDAGraph``, so
-the host enqueues one launch a step instead of ~50 a layer. The engine
-keeps one graph: it owns that batch size's cache (rows x ``max_len``, its
-position ``pos`` on the device), ``generate`` prefills into it, the first
+(every role of ``configs/apc_minion.py::DEFAULT``), and a nemotron_h one,
+decodes each step as one replay of ``lm.decode_step`` captured into a
+``torch.cuda.CUDAGraph``, so the host enqueues one launch a step instead of
+~50 a layer. The engine keeps one graph: it owns that batch size's cache
+(rows x ``max_len``, its position ``pos`` on the device; nemotron_h's SSM
+state and conv carries besides its K/V), ``generate`` prefills into it, the first
 decode step on it runs eagerly and the second captures the step (on a side
 stream) and replays it; every later step of that batch size, whatever its
 prompt's length, copies the sampled ids into the graph's token buffer and
@@ -49,9 +50,10 @@ the token readback stay outside the graph. A replay launches kernels that
 no wrapper counts, so the engine adds what the wrappers counted while it
 captured (``kernels.counts``). Everything else decodes eagerly: the CPU;
 a mesh (collectives inside the step); moe, whose dispatch reads the
-routing on the host; the recurrent families; vlm, not yet measured
-under a graph. ``EngineStats``
-counts the captures, replays and eager steps.
+routing on the host; the ssm and hybrid (zamba2) families and vlm, not yet
+measured under a graph. ``EngineStats`` counts the captures, replays and
+eager steps, and the bytes of recurrent state the last prefill's cache
+holds (``ssm_state_bytes``).
 
 The engine runs on ``cuda`` unless constructed with ``device="cpu"``.
 Its timers synchronize the device before reading the clock, so the rates
@@ -61,7 +63,9 @@ span, with the reference's attributes and the arch's name; the span closes
 after the tokens are on the host, so it covers the device's time. Inside it
 the port adds its own spans (``obs.port_names``): one ``engine.prefill``
 (batch, tokens: the prompt length, prefix: ``"hit"``, ``"miss"`` or
-``"none"``) and one ``engine.decode_step`` a decode step (step, from 0;
+``"none"``; a model with Mamba-2 layers adds mamba_layers,
+attention_layers and ssm_state_bytes, and nemotron_h's prefill holds a
+``model.mamba`` span a mixer) and one ``engine.decode_step`` a decode step (step, from 0;
 active: the rows still generating; graph: ``"capture"``, ``"replay"`` or
 ``"eager"``). Each closes after the engine's timer
 has synchronised the device, so the device work it launched ends inside it
@@ -90,7 +94,10 @@ from repro_torch.models.common import resolve_device
 from repro_torch.obs import trace_span
 from repro_torch.obs.names import SPAN_ENGINE_GENERATE
 from repro_torch.obs.port_names import (
+    ATTR_ATTENTION_LAYERS,
     ATTR_DECODE_GRAPH,
+    ATTR_MAMBA_LAYERS,
+    ATTR_SSM_STATE_BYTES,
     SPAN_ENGINE_DECODE_STEP,
     SPAN_ENGINE_PREFILL,
 )
@@ -100,6 +107,8 @@ from repro_torch.serving.sampler import sample_token
 # families whose cache is pure KV (no recurrent state): the only ones a
 # stored prefix can be re-entered into mid-stream
 _PREFIX_FAMILIES = ("dense", "moe", "vlm")
+# families whose decode step a CUDA graph captures (module docstring)
+_GRAPH_FAMILIES = ("dense", "nemotron_h")
 
 
 @dataclass
@@ -119,6 +128,9 @@ class EngineStats:
     decode_graph_captures: int = 0
     decode_graph_replays: int = 0
     decode_eager_steps: int = 0
+    # the SSM state and conv (or token-shift) carries the last prefill's
+    # cache holds, in bytes (0 for a pure-KV cache)
+    ssm_state_bytes: int = 0
 
     def rates(self) -> Dict[str, float]:
         return {
@@ -184,7 +196,8 @@ class Engine:
         self.max_len = max_len
         self.stats = EngineStats()
         # decode through a CUDA graph, or eagerly (module docstring)
-        self._graphed = self.device.type == "cuda" and self.ctx is None and cfg.family == "dense"
+        self._graphed = (self.device.type == "cuda" and self.ctx is None
+                         and cfg.family in _GRAPH_FAMILIES)
         self._graph: Optional[_StepGraph] = None
         self.kv_prefix = kv_prefix if cfg.family in _PREFIX_FAMILIES else None
         if self.kv_prefix is not None:
@@ -397,6 +410,11 @@ class Engine:
                     if use_prefix:
                         self.register_prefix(cache_point.template_id, res[1],
                                              cache_point.prefix_len)
+                self.stats.ssm_state_bytes = lm.state_bytes(res[1])
+                mamba, attention = lm.layer_counts(self.cfg)
+                if mamba:
+                    pre.set(**{ATTR_MAMBA_LAYERS: mamba, ATTR_ATTENTION_LAYERS: attention,
+                               ATTR_SSM_STATE_BYTES: self.stats.ssm_state_bytes})
             logits, cache = res
             gen = None
             if temperature > 0.0:

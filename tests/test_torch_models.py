@@ -24,6 +24,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import rope as jrope  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -69,8 +70,13 @@ def _close(t, j, tol):
 def _fields_equal(t, j):
     """Whether the port's config ``t`` carries ``j``'s value on each of its
     own fields; a sub-config (SSMConfig) is held on the port's fields too,
-    since the two packages' classes differ."""
+    since the two packages' classes differ. A field of the port alone
+    (``PORT_ONLY_FIELDS``) has to hold its default, which is the
+    reference's behaviour."""
     for f in dataclasses.fields(t):
+        if f.name in tbase.PORT_ONLY_FIELDS:
+            assert getattr(t, f.name) == tbase.PORT_ONLY_FIELDS[f.name], f.name
+            continue
         tv, jv = getattr(t, f.name), getattr(j, f.name)
         if dataclasses.is_dataclass(tv):
             assert dataclasses.is_dataclass(jv), f.name
@@ -446,8 +452,18 @@ def test_hybrid_needs_one_whole_group():
 
 
 def test_registry_has_every_reference_arch():
+    """The reference's archs and families are the port's, less the port's
+    own (each listed with its reason), which the registry and the model
+    resolve all the same."""
+    assert tregistry.PORT_ONLY_ARCHS == ("nemotron-h-47b",)
+    assert tlm.PORT_ONLY_FAMILIES == ("nemotron_h",)
     assert sorted(tregistry.ARCH_NAMES) == sorted(jregistry.ARCH_NAMES)
-    assert set(tlm.FAMILIES) == {jregistry.get(a).family for a in jregistry.ARCH_NAMES}
+    assert sorted(jregistry.ARCH_NAMES) == sorted(
+        set(tregistry._MODULES) - set(tregistry.PORT_ONLY_ARCHS))
+    assert {jregistry.get(a).family for a in jregistry.ARCH_NAMES} == (
+        set(tlm.FAMILIES) - set(tlm.PORT_ONLY_FAMILIES))
+    assert [tregistry.get(a).family for a in tregistry.PORT_ONLY_ARCHS] == list(
+        tlm.PORT_ONLY_FAMILIES)
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS + [AUDIO])
