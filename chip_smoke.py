@@ -9,7 +9,7 @@ printing the ok line):
 1. the card: name and power limit (nvidia-smi), torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN so fp32 references stay fp32;
 2. the build: every kernel of the port (flash_attention, decode_attention,
-   paged_decode_attention, topk_cosine, wkv6, ssd) is compiled from
+   paged_decode_attention, topk_cosine, wkv6, ssd, ssd_step) is compiled from
    ``src/repro_torch/kernels/csrc/`` into ``build/kernels/`` (one nvcc per
    source, all at once);
 3. kernels against their plain PyTorch versions on the card: the attention
@@ -22,7 +22,11 @@ printing the ok line):
    the wkv6 and SSD scan kernels at rwkv6-3b's (H 40, N 64) and zamba2's
    (H 80, P 64, Ns 64) layouts and the shapes of tests/test_kernels.py's
    sweeps, y and final state, bf16 and fp32 inputs, decays drawn as the
-   model draws them and as the sweeps do; the paged decode kernel at the
+   model draws them and as the sweeps do; the Mamba-2 decode step's
+   kernel (ssd_step, the state updated in place) against the plain step at
+   zamba2's and Nemotron-H's layouts and every (P, Ns) the scan takes, and
+   timed at the nemotron-h-47b cell's decode (B 16), where it must reach
+   ``SSD_STEP_MIN_SHARE`` of its byte bound; the paged decode kernel at the
    deployment's layouts and the hd 64 / hd 32 shapes of tests/test_kernels.py, page sizes 8 to
    64, permuted pool rows, each result also bitwise equal to the dense
    decode kernel on the gathered pages and batch-invariant; the top-k
@@ -35,8 +39,8 @@ printing the ok line):
    beside its plain version and a PyTorch library yardstick for the same
    function (and flash once more off the path, at S = 2,048);
 4. the model on the card against the model on the CPU: each arch at full
-   width, depth cut to 2 layers (zamba2: one group of 6), fp32, same
-   weights;
+   width, depth cut to 2 layers (zamba2: one group of 6, its decode steps
+   launching ssd_step once a layer), fp32, same weights;
 5. serving: the ``DEFAULT`` deployment — nemotron-4-15b, olmo-1b and
    qwen2.5-3b at full published width in bf16, depth cut to
    ``SERVE_DEPTHS``, random weights from their arch seeds — then four runs
@@ -64,7 +68,8 @@ printing the ok line):
    hd 80. Before each run the kernels' launch counters are set to 0, and
    they are read just after: every kernel of the run's path must have
    risen, and in the recurrent run the attention kernels' hd-80 counts
-   must be positive multiples of the shared block's applications;
+   must be positive multiples of the shared block's applications, and
+   ssd_step's of zamba2's Mamba-2 layers;
 6. the paper's baselines, its other workloads and its second agent, on the
    ``DEFAULT`` engines of phase 5 (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
    (8), ``cascade`` on 8 AIME tasks at default thresholds on the
@@ -230,6 +235,15 @@ SCAN_TIMED = ((1, 152), (4, 152), (1, LONG_S))
 # the nemotron-h-47b.plan_miss cell's prefill scan: a wave of 16 prompts
 # of its longest length
 SSD_CELL_TIMED = (16, 1549)
+# the decode step's kernel (ssd_step), checked at zamba2's layout
+# (SSD_LAYOUT, B/C shared), Nemotron-H's (SSD_GROUPED_LAYOUT at each of
+# SSD_GROUPED_NS) and the other (P, Ns) the wrappers take (H 3), at these
+# batches; timed at the nemotron-h-47b.plan_miss cell's decode (B 16, Ns
+# 256), where it must reach SSD_STEP_MIN_SHARE of its bound, the state's
+# bytes read and written once
+SSD_STEP_BATCHES = (1, 16)
+SSD_STEP_CELL_B = 16
+SSD_STEP_MIN_SHARE = 0.75
 MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # scan kernel vs plain: |err| <= atol * max(1, max|plain|) + rtol * |plain|,
 # elementwise, with tests/test_kernels.py's atol and rtol (wkv6 2e-4 / 1e-3,
@@ -237,7 +251,7 @@ MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # the chunked form round sums of that size in other orders. The inputs are
 # read in bf16 or fp32 and both sides compute in fp32, so one tolerance
 # serves both types.
-SCAN_TOL = {"wkv6": (2e-4, 1e-3), "ssd": (5e-4, 1e-3)}
+SCAN_TOL = {"wkv6": (2e-4, 1e-3), "ssd": (5e-4, 1e-3), "ssd_step": (5e-4, 1e-3)}
 N_TASKS = 16
 # top-k kernel (3xTF32 on the tensor cores: hi.hi + hi.lo + lo.hi, each
 # operand split as hi = tf32(x), lo = x - hi, each 32-dim window's sum added
@@ -320,7 +334,7 @@ SPEC_RUNS = (
 RECURRENT_ROLES = {"small_planner": "rwkv6-3b", "keyword_extractor": "rwkv6-3b",
                    "actor": "zamba2-2.7b"}
 RECURRENT_EXPECT = (2, 0.875, 0.2987)
-RECURRENT_KERNELS = ("wkv6", "ssd", "flash_attention", "decode_attention")
+RECURRENT_KERNELS = ("wkv6", "ssd", "ssd_step", "flash_attention", "decode_attention")
 # phase 8's two runs, exact `apc` on the apc_qasper run's 8 QASPER tasks (2
 # hits; 8 FinanceBench tasks give none, so the small planner would never
 # serve): `families` puts the moe, dense-qk-norm and vlm archs in these roles
@@ -1622,6 +1636,66 @@ def check_scans(torch):
     return err, n
 
 
+def _ssd_step_inputs(torch, g, B, H, P, Ns, G):
+    """One decode step's x, dt, A_log, B_, C_, D as the model draws them
+    (``_ssd_inputs``' model draw at S 1: x, B_ and C_ strided views of one
+    conv output; B_/C_ (B, Ns) with one group) and a state N(0, 1)."""
+    x, dtv, A_log, Bm, Cm, D = _ssd_inputs(torch, g, B, 1, H, P, Ns, "model", G)
+    state = torch.randn((B, H, P, Ns), generator=g, device="cuda")
+    return x[:, 0], dtv[:, 0], A_log, Bm[:, 0], Cm[:, 0], D, state
+
+
+def check_ssd_step(torch):
+    """Phase 3 (decode step): the ssd_step kernel against the plain step
+    (``models.mamba.ssd_step``), y and state, two steps in place from a
+    random state, at zamba2's and Nemotron-H's layouts and the other
+    (P, Ns) the wrappers take, B in SSD_STEP_BATCHES, bf16 and fp32 inputs;
+    the state must be the tensor given, in its own storage. An unsupported
+    head size and a state not contiguous must raise. Returns (max abs
+    error, checks)."""
+    from repro_torch.kernels.ssd import SHAPES
+    from repro_torch.kernels.ssd_step import ssd_step
+    from repro_torch.models.mamba import ssd_step as plain
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    H, P, Ns = SSD_LAYOUT
+    layouts = [(H, P, Ns, 1)]
+    H, P, G = SSD_GROUPED_LAYOUT
+    layouts += [(H, P, ns, G) for ns in SSD_GROUPED_NS]
+    layouts += [(3, p, ns, 1) for p, ns in SHAPES if (p, ns) != SSD_LAYOUT[1:]]
+    err, n = 0.0, 0
+    for dname in ("bfloat16", "float32"):
+        for H, P, Ns, G in layouts:
+            for B in SSD_STEP_BATCHES:
+                x, dtv, A_log, Bm, Cm, D, state = _ssd_step_inputs(torch, g, B, H, P, Ns, G)
+                x, Bm, Cm = (t.to(getattr(torch, dname)) for t in (x, Bm, Cm))
+                ptr, want = state.data_ptr(), state.clone()
+                for step in range(2):
+                    yr, want = plain(x, dtv, A_log, Bm, Cm, D, want)
+                    y, st = ssd_step(x, dtv, A_log, Bm, Cm, D, state)
+                    if st is not state or state.data_ptr() != ptr:
+                        raise AssertionError("ssd_step: the state was not updated in place")
+                    label = f"{dname} B={B} H={H} P={P} Ns={Ns} G={G} step {step}"
+                    err = max(err, _scan_close("ssd_step", y, yr, "y " + label),
+                              _scan_close("ssd_step", state, want, "state " + label))
+                n += 1
+    torch.cuda.synchronize()
+    for what, call in (
+            ("an unsupported head size",
+             lambda: ssd_step(x[..., :24], dtv, A_log, Bm, Cm, D, state[:, :, :24])),
+            ("a state not contiguous",
+             lambda: ssd_step(x, dtv, A_log, Bm, Cm, D,
+                              state.transpose(0, 1).contiguous().transpose(0, 1)))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"ssd_step: {what} must raise")
+    log(f"[kernels] ssd_step: {n} checks passed (two steps in place against the plain step, y "
+        f"and state); max abs err {err} (tolerance {SCAN_TOL['ssd_step']})")
+    return err, n
+
+
 def time_scans(torch):
     """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at
     rwkv6-3b's and zamba2's layouts, bf16 inputs drawn as the model draws
@@ -1688,7 +1762,41 @@ def time_scans(torch):
     row["library"] = "none: no single PyTorch call computes the recurrence"
     rows.append(row)
     log("[timing] " + json.dumps(row))
+    rows.append(time_ssd_step(torch, g))
     return rows
+
+
+def time_ssd_step(torch, g):
+    """The decode step's kernel against the plain step at the
+    nemotron-h-47b.plan_miss cell's decode (B SSD_STEP_CELL_B, Nemotron-H's
+    layout at Ns 256, bf16 x/B/C), one Mamba-2 layer. Bound: the bytes, the
+    fp32 state read and written once (2 x 268 MB) with x, dt, B, C, A_log,
+    D read and y written once, over 3.35 TB/s; its 4 P Ns + 3 P operations a
+    head at 67 TFLOP/s take a tenth of that. The kernel must reach
+    SSD_STEP_MIN_SHARE of the bound."""
+    from repro_torch.kernels.ssd_step import ssd_step
+    from repro_torch.models.mamba import ssd_step as plain
+
+    B = SSD_STEP_CELL_B
+    H, P, G = SSD_GROUPED_LAYOUT
+    Ns = max(SSD_GROUPED_NS)
+    x, dtv, A_log, Bm, Cm, D, state = _ssd_step_inputs(torch, g, B, H, P, Ns, G)
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    nbytes = 2 * 4 * B * H * P * Ns + 2 * B * H * P + 4 * B * H + 2 * 2 * B * G * Ns \
+        + 2 * 4 * H + 4 * B * H * P
+    bms, by = bound(nbytes, B * H * (4 * P * Ns + 3 * P), PEAK_FP32_FLOPS)
+    row = _timed(torch, "ssd_step", "nemotron-h-47b",
+                 f"B={B} H={H} P={P} Ns={Ns} G={G} bf16 in, fp32 state in place",
+                 lambda: ssd_step(x, dtv, A_log, Bm, Cm, D, state),
+                 lambda: plain(x, dtv, A_log, Bm, Cm, D, state), None, bms, by)
+    row["library"] = "none: no single PyTorch call computes the step"
+    row["bound_share"] = bms / row["ms"]
+    log("[timing] " + json.dumps(row))
+    if row["bound_share"] < SSD_STEP_MIN_SHARE:
+        raise AssertionError(f"ssd_step: {row['ms']:.4f} ms at the cell's decode, "
+                             f"{row['bound_share']:.1%} of its bound {bms:.4f} ms (needs "
+                             f"{SSD_STEP_MIN_SHARE:.0%})")
+    return row
 
 
 def _model_check_config(full):
@@ -1711,9 +1819,12 @@ def check_model(torch):
     ``_model_check_config``'s depth and cuts, fp32, a prefill of 37 tokens
     (whisper-tiny: over its 1,500 stub frames, drawn from a seed; qwen2-vl:
     also from stub embeds with distinct (3, B, S) M-RoPE positions) then 3
-    decode steps; logits within atol 2e-3."""
+    decode steps; logits within atol 2e-3. The hybrid's decode steps on the
+    card launch the ssd_step kernel once a Mamba-2 layer."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
+
+    step = kernel_table.launchers()["ssd_step"]
 
     for arch in registry.ARCH_NAMES:
         full = registry.get(arch)
@@ -1738,9 +1849,15 @@ def check_model(torch):
             for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
                 lg, c = lm.prefill(cfg, p, cache_len=48, **{k: v.to(dev) for k, v in inp.items()})
                 outs = [lg[:, -1]]
+                stepped = step.launches
                 for t in (5, 11, 17):
                     lg, c = lm.decode_step(cfg, p, c, torch.full((1, 1), t, device=dev))
                     outs.append(lg[:, -1])
+                stepped = step.launches - stepped
+                want = 3 * cfg.num_layers if dev == "cuda" and cfg.family == "hybrid" else 0
+                if stepped != want:
+                    raise AssertionError(f"model {arch} ({how}, {dev}): ssd_step launched "
+                                         f"{stepped} times in 3 decode steps, not {want}")
                 logits[dev] = torch.cat(outs).cpu()
             if not torch.isfinite(logits["cuda"]).all():
                 raise AssertionError(f"model {arch} ({how}): non-finite logits on the card")
@@ -2323,6 +2440,17 @@ def check_shared_block(cfg, launches_by_hd):
         f"{launches_by_hd['flash_attention'][cfg.head_dim]}, decode "
         f"{launches_by_hd['decode_attention'][cfg.head_dim]} launches "
         f"({apps} applications a call)")
+
+
+def check_step_launches(cfg, launches):
+    """Each decode step of the recurrent run's hybrid actor stepped every one
+    of its Mamba-2 layers (``num_layers``) through the ssd_step kernel: a
+    positive multiple of that."""
+    got = launches["ssd_step"]
+    if got <= 0 or got % cfg.num_layers:
+        raise AssertionError(f"recurrent: ssd_step launched {got} times; need a positive "
+                             f"multiple of {cfg.num_layers}")
+    log(f"[recurrent] ssd_step: {got} launches ({cfg.num_layers} Mamba-2 layers a step)")
 
 
 class ChunkDecayProbe:
@@ -3970,6 +4098,7 @@ def main() -> int:
     scan_err, scan_checks = part("check_scans", check_scans)
     err.update(scan_err)
     checks.update(scan_checks)
+    err["ssd_step"], checks["ssd_step"] = part("check_ssd_step", check_ssd_step)
     timing = [row for name, fn in (("time_kernels", time_kernels), ("time_topk", time_topk),
                                    ("time_paged", time_paged), ("time_scans", time_scans))
               for row in part(name, fn)]
@@ -3993,6 +4122,7 @@ def main() -> int:
     runs["recurrent"].update(init_s=rec_init_s, params=rec_params,
                              max_chunk_abs_la=probe.result())
     check_shared_block(rec_engines["actor"].cfg, runs["recurrent"]["launches_by_hd"])
+    check_step_launches(rec_engines["actor"].cfg, runs["recurrent"]["launches"])
     log(f"[recurrent] largest |la| of a chunk of {MODEL_CHUNK}: {probe.result()}")
     check_outputs(torch, rec_engines)
     del rec_engines  # phase 8 needs their memory
@@ -4111,6 +4241,9 @@ def main() -> int:
                  "rwkv6-3b", "recurrent"),
         "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:91",
                 "zamba2-2.7b", "recurrent"),
+        "ssd_step": ("src/repro_torch/kernels/csrc/ssd_step.cu",
+                     "none: plain jnp, src/repro/models/mamba.py:130", "nemotron-h-47b",
+                     "recurrent"),
     }
     kernels = []
     for name, (src, replaces, arch, run) in sources.items():

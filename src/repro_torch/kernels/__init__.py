@@ -2,7 +2,7 @@
 
 Each wrapper counts its kernel's launches in ``<wrapper>.launches`` (and,
 for the attention kernels, in ``launches_by_*`` breakdowns); ``launchers``
-is the table of the six by name and ``reset_counts`` sets their counters
+is the table of the seven by name and ``reset_counts`` sets their counters
 to 0. ``counts`` copies them and ``add_counts`` adds a difference of two
 copies: a CUDA graph replays launches that no wrapper counts, so the
 engine adds, at each replay, what the wrappers counted while it captured."""
@@ -10,7 +10,7 @@ engine adds, at each replay, what the wrappers counted while it captured."""
 import collections
 
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "topk_cosine",
-           "wkv6", "ssd")
+           "wkv6", "ssd", "ssd_step")
 
 
 def launchers() -> dict:
@@ -21,9 +21,10 @@ def launchers() -> dict:
     from repro_torch.kernels.rwkv6 import wkv6
     from repro_torch.kernels.similarity import topk_cosine
     from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd_step import ssd_step
 
     return dict(zip(KERNELS, (flash_attention, decode_attention, paged_decode_attention,
-                              topk_cosine, wkv6, ssd)))
+                              topk_cosine, wkv6, ssd, ssd_step)))
 
 
 def reset_counts(kernels: dict = None) -> dict:

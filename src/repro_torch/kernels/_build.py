@@ -56,6 +56,10 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
         "ssd_fwd",
         [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P],
     ),
+    "ssd_step": (
+        "ssd_step_fwd",
+        [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -25,6 +25,7 @@ from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.kernels.similarity import topk_cosine
 from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.ssd_step import ssd_step
 
 
 def _plain(t: torch.Tensor) -> bool:
@@ -117,6 +118,20 @@ def ssd_op(x, dt, A_log, B_, C_, D, *, chunk: int = 128):
         return ref.ssd_chunked_ref(x, dt, A_log, B_, C_, D, chunk=chunk)
     _refuse_grad("ssd", x, dt, A_log, B_, C_, D)
     return ssd(x, dt, A_log, B_, C_, D)
+
+
+def ssd_step_op(x, dt, A_log, B_, C_, D, state):
+    """One Mamba-2 decode step, model layout: x (B, H, P), dt (B, H), A_log
+    and D (H,), B_/C_ (B, Ns) or (B, G, Ns), state (B, H, P, Ns) float32 ->
+    (y (B, H, P) float32, state). On the CPU, ``models.mamba.ssd_step``,
+    which returns a new state; the kernel updates ``state`` in place and
+    returns it."""
+    if _plain(x):
+        from repro_torch.models.mamba import ssd_step as plain  # the models import ops
+
+        return plain(x, dt, A_log, B_, C_, D, state)
+    _refuse_grad("ssd_step", x, dt, A_log, B_, C_, D, state)
+    return ssd_step(x, dt, A_log, B_, C_, D, state)
 
 
 def batch_topk(queries: torch.Tensor, bank, *, k: int = 1):

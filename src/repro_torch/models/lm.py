@@ -936,7 +936,9 @@ def decode_step(cfg, params: Params, cache: Cache, tokens: torch.Tensor,
     lm.py:601-604): its K/V goes to slot ``min(length, M - 1)`` (the
     reference's clamp, attention.py:256) and every row attends over the
     slots up to it. The recurrent families step their state with plain
-    PyTorch (``wkv6_step``, ``ssd_step``), as the reference does; audio
+    PyTorch (``wkv6_step``), as the reference does, or, for Mamba-2, through
+    ``ssd_step_op`` (in place on the card, where the state's copy into its
+    cache slot is then a copy onto itself, which ``copy_`` skips); audio
     adds the learned position of ``length`` and attends over the cached
     cross K/V. Returns (logits (B, 1, V), cache) — the cache tensors are
     updated in place and returned with ``length + 1``. Without a mesh the

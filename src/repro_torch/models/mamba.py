@@ -16,7 +16,9 @@ CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor.
 Training (``use_kernels=False``) calls the chunked form itself,
 ``ref.ssd_chunked_ref``, the twin of the reference's model function
 ``ssd_chunked`` that the reference trains through, with autograd. A decode
-step is plain PyTorch (``ssd_step``), as in the reference.
+step runs through ``kernels.ops.ssd_step_op``: on a CUDA tensor a kernel
+that updates the state in place, on a CPU tensor the plain ``ssd_step``
+(the reference's), which returns a new state.
 
 Under a mesh (``ctx`` and the layer's weight ``spec``; ``models/parallel.py``)
 the concatenated ``in_proj`` (z, x, B, C, dt) is column-split over tp at no
@@ -241,7 +243,8 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
 def mamba_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
                conv_prev: torch.Tensor, *, ctx=None, spec=None):
     """Decode step. x: (B, D); conv_prev: (B, K-1, CH) whole. Returns (y (B,
-    D), state, new conv carry); under a mesh ``state`` is the rank's heads'."""
+    D), state, new conv carry); under a mesh ``state`` is the rank's heads'.
+    On the card the returned state is ``state``, updated in place."""
     B, D = x.shape
     s = cfg.ssm
     d_in, heads, _ = mamba_dims(cfg)
@@ -253,13 +256,13 @@ def mamba_step(cfg, p: Params, x: torch.Tensor, state: torch.Tensor,
     conv_out = F.silu(conv_out + conv_b).to(x.dtype)
     if tp is not None:
         xin, Bc, Cc, dt, A_log, Dh = tp.scan_inputs(cfg, p, conv_out, dt_raw)
-        y, state = ssd_step(xin.reshape(B, tp.h1 - tp.h0, s.head_dim), dt, A_log, Bc, Cc, Dh,
-                            state)
+        y, state = kops.ssd_step_op(xin.reshape(B, tp.h1 - tp.h0, s.head_dim), dt, A_log, Bc,
+                                    Cc, Dh, state)
         return tp.out(p, y.reshape(B, -1), z, x.dtype), state, window[:, 1:]
     xin = conv_out[..., :d_in]
     Bc, Cc = _scan_bc(cfg, conv_out)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, H)
-    y, state = ssd_step(xin.reshape(B, heads, s.head_dim), dt, p["A_log"], Bc, Cc, p["D"],
-                        state)
+    y, state = kops.ssd_step_op(xin.reshape(B, heads, s.head_dim), dt, p["A_log"], Bc, Cc,
+                                p["D"], state)
     y = _gated_norm(cfg, p, y.reshape(B, d_in), z)
     return y @ p["out_proj"], state, window[:, 1:]
