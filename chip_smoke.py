@@ -1936,7 +1936,7 @@ def serve(torch, engines, name, env, n, make_agent, expect, path_kernels, census
     uniq = {id(e): e for e in engines.values()}.values()
     before = {id(e): dataclasses.replace(e.stats) for e in uniq}
 
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     t0 = time.perf_counter()
     recs = [agent.run_task(t) for t in tasks]
     torch.cuda.synchronize()
@@ -2161,8 +2161,7 @@ def serve_prefix(torch, engines):
     from repro_torch.serving.kv_cache import KVPrefixCache, plan_cache_point, pool_for_config
     from repro_torch.serving.router import TwoTierRouter
 
-    kernels = kernel_table.launchers()
-    kernel_table.reset_counts(kernels)
+    kernels = kernel_table.reset_counts()
     t_phase = time.perf_counter()
     olmo, nemo = engines["small_planner"], engines["large_planner"]
     kv = KVPrefixCache(pool_for_config(olmo.cfg, num_pages=64, page_size=32, device="cuda"),
@@ -2347,7 +2346,7 @@ def serve_dcache(torch, engines):
     mem = InMemoryExporter()
     tracer = Tracer(exporters=[mem, JsonlExporter(os.path.join(out_dir, "trace.jsonl"))])
     waves = dcache_waves(tasks)
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     t0 = time.perf_counter()
     with use_tracer(tracer):
         repaired, mem_before, mem_after = drive_dcache(router, cache, waves, probe=allocated)
@@ -2578,8 +2577,7 @@ def serve_prefix_families(torch, fam):
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import KVPrefixCache, pool_for_config
 
-    kernels = kernel_table.launchers()
-    kernel_table.reset_counts(kernels)
+    kernels = kernel_table.reset_counts()
     t0 = time.perf_counter()
     out = {}
     for i, role in enumerate(("small_planner", "actor")):  # granite, qwen2-vl
@@ -2670,7 +2668,7 @@ def check_whisper(torch):
     for dname in ("float32", "bfloat16"):
         cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
         p_gpu = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(52), "cuda")
-        kernel_table.reset_counts(kernels)
+        kernel_table.reset_counts()
         t0 = time.perf_counter()
         lg, c = lm.prefill(cfg, p_gpu, prompt.cuda(), cache_len=64, frames=frames.cuda())
         torch.cuda.synchronize()
@@ -2871,8 +2869,7 @@ def check_grad_refusals(torch):
     input that requires grad (none has a backward)."""
     from repro_torch.kernels import ops
 
-    kernels = kernel_table.launchers()
-    kernel_table.reset_counts(kernels)
+    kernels = kernel_table.reset_counts()
     f32 = dict(device="cuda", dtype=torch.float32)
     bf = dict(device="cuda", dtype=torch.bfloat16)
 
@@ -2927,7 +2924,7 @@ def serve_trained(torch, cfg, params):
     eng = Engine(cfg, params, max_len=SERVED_PROMPT + SERVED_NEW + 8, device="cuda")
     prompt = np.random.RandomState(71).randint(16, min(cfg.vocab_size, 4096),
                                                (1, SERVED_PROMPT)).astype(np.int32)
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     logits, cache = eng.prefill(prompt)
     flash_n = kernels["flash_attention"].launches
     steps = []
@@ -3059,7 +3056,7 @@ def sim_on_card(torch):
                              initializer=torch.set_num_threads, initargs=(1,)) as pool:
         on_cpu = {tag: pool.submit(run_sim, cfg, device="cpu", index_backend="device")
                   for tag, cfg in cells + [("soak", soak)] if cfg.normalized().fuzzy}
-        kernel_table.reset_counts(kernels)
+        kernel_table.reset_counts()
         hash_checks = _sim_card_cells(cells, soak, on_cpu, kernels["topk_cosine"], out)
         launches = {n: fn.launches for n, fn in kernels.items()}
     if set(n for n, v in launches.items() if v) != {"topk_cosine"}:
@@ -3280,7 +3277,7 @@ def multi_nccl(rank, world):
     split = {"build": time.perf_counter() - t0}
     got = {}
     for name, eng in engines.items():
-        kernel_table.reset_counts(kernels)
+        kernel_table.reset_counts()
         mc.reset_counters()
         toks, logits = _greedy(torch, eng, batch, MULTI_NEW)
         gen = eng.generate(batch, MULTI_NEW)
@@ -3325,7 +3322,7 @@ def multi_nccl(rank, world):
         kv = KVPrefixCache(pool_for_config(cfg, num_pages=MULTI_PREFIX_PAGES,
                                            page_size=MULTI_PREFIX_PAGE, device="cuda", **kw))
         eng = Engine(cfg, params, max_len=max_len, device="cuda", kv_prefix=kv, **kw)
-        kernel_table.reset_counts(kernels)
+        kernel_table.reset_counts()
         toks, logits = _greedy(torch, eng, prefix_prompts, MULTI_NEW,
                                prefix_len=MULTI_PREFIX_LEN)
         torch.cuda.synchronize()
@@ -3486,7 +3483,7 @@ def multi_rank(rank, world, ref_dir):
     torch.cuda.empty_cache()
     t = lap("serve.build", t)
     seen, kerr, undo = _head_probe(torch, ops)
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     try:
         _, logits = _greedy(torch, eng, ref["prompt"], MULTI_NEW, forced=ref["tokens"])
         launches = {n: kernels[n].launches for n in ("flash_attention", "decode_attention")}
@@ -3528,7 +3525,7 @@ def multi_rank(rank, world, ref_dir):
                  device="cuda", max_len=MULTI_PROMPT_LEN + MULTI_NEW + 8, kv_prefix=kv)
     torch.cuda.empty_cache()
     seen, kerr, undo = _head_probe(torch, ops)
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     try:
         _, logits = _greedy(torch, eng, ref["prefix_prompts"], MULTI_NEW,
                             forced=ref["prefix_tokens"], prefix_len=MULTI_PREFIX_LEN)
@@ -3541,7 +3538,7 @@ def multi_rank(rank, world, ref_dir):
     heads = {n: dict((f"{q}/{k}", c) for (q, k), c in s.items()) for n, s in seen.items()}
     kerr = {n: float(e) for n, e in kerr.items()}
     # the paged kernel over the rank's pool, at its local heads
-    kernel_table.reset_counts(kernels)
+    kernel_table.reset_counts()
     paged = paged_over_pool(torch, kv, dataclasses.replace(cfg, num_heads=local[0]), ["tpl"],
                             seed=17)
     paged_launches = kernels["paged_decode_attention"].launches
@@ -4004,8 +4001,7 @@ def examples_on_card(torch):
              "distributed_cache_demo": _start_example("distributed_cache_demo"),
              "train_small": _start_example("train_small", "--steps", str(EXAMPLE_TRAIN_STEPS))}
     try:
-        kernels = kernel_table.launchers()
-        kernel_table.reset_counts(kernels)
+        kernels = kernel_table.reset_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             serve_agent.main(["--full", "--n", str(EXAMPLE_SERVE_N)])
@@ -4075,7 +4071,7 @@ def main() -> int:
 
     # phase 2: the build
     t0 = time.perf_counter()
-    names = sorted(_build.SIGNATURES)
+    names = list(kernel_table.KERNELS)
     _build.build(names)
     log(f"[build] {names} built in {time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
     for n, text in _build.build_logs.items():

@@ -1,37 +1,40 @@
 """Hand-written Hopper kernels, their plain PyTorch versions and wrappers.
 
-Each wrapper counts its kernel's launches in ``<wrapper>.launches`` (and,
-for the attention kernels, in ``launches_by_*`` breakdowns); ``launchers``
-is the table of the seven by name and ``reset_counts`` sets their counters
-to 0. ``counts`` copies them and ``add_counts`` adds a difference of two
-copies: a CUDA graph replays launches that no wrapper counts, so the
-engine adds, at each replay, what the wrappers counted while it captured."""
+Each launcher module declares its kernel's C entry point (``SYMBOL``,
+``ARGTYPES``) beside the call that passes the arguments. Each wrapper
+counts its kernel's launches in ``<wrapper>.launches`` (and, for the
+attention kernels, in ``launches_by_*`` breakdowns); ``launchers`` is the
+table of the seven by name and ``reset_counts`` sets their counters to 0.
+``counts`` copies them and ``add_counts`` adds a difference of two copies:
+a CUDA graph replays launches that no wrapper counts, so the engine adds,
+at each replay, what the wrappers counted while it captured."""
 
 import collections
+import importlib
 
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "topk_cosine",
-           "wkv6", "ssd", "ssd_step")
+# each kernel (its csrc/<name>.cu and its wrapper's name) -> its launcher module
+_LAUNCHER_MODULES = {
+    "flash_attention": "flash_attention",
+    "decode_attention": "decode_attention",
+    "paged_decode_attention": "paged_attention",
+    "topk_cosine": "similarity",
+    "wkv6": "rwkv6",
+    "ssd": "ssd",
+    "ssd_step": "ssd_step",
+}
+KERNELS = tuple(_LAUNCHER_MODULES)
 
 
 def launchers() -> dict:
     """Each kernel's wrapper by name, in ``KERNELS``' order."""
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.rwkv6 import wkv6
-    from repro_torch.kernels.similarity import topk_cosine
-    from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.ssd_step import ssd_step
-
-    return dict(zip(KERNELS, (flash_attention, decode_attention, paged_decode_attention,
-                              topk_cosine, wkv6, ssd, ssd_step)))
+    return {name: getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+            for name, mod in _LAUNCHER_MODULES.items()}
 
 
-def reset_counts(kernels: dict = None) -> dict:
-    """Every launch counter of ``kernels`` (default: all of ``launchers()``)
-    to 0, the totals and the ``launches_by_*`` breakdowns. Returns
-    ``kernels``."""
-    kernels = launchers() if kernels is None else kernels
+def reset_counts() -> dict:
+    """Every launch counter of ``launchers()`` to 0, the totals and the
+    ``launches_by_*`` breakdowns. Returns ``launchers()``."""
+    kernels = launchers()
     for fn in kernels.values():
         fn.launches = 0
         for name in _BREAKDOWNS:

@@ -1,6 +1,8 @@
 """Build and load the hand-written CUDA kernels (no PyTorch headers).
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled with
+Each ``csrc/<name>.cu`` exposes a plain C entry point, whose symbol and
+ctypes argument types its launcher module declares and hands to ``entry``
+(the one way a kernel is built and loaded). It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
 repository root at first use, and loaded with ``ctypes``. The file name
 carries a hash of the source, of every shared header ``csrc/*.cuh`` and of
@@ -18,7 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,41 +28,6 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_int64
-# C signature of each kernel's entry point: (symbol, argtypes)
-SIGNATURES: Dict[str, Tuple[str, List]] = {
-    "flash_attention": (
-        "flash_attention_fwd",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
-    ),
-    "decode_attention": (
-        "decode_attention_fwd",
-        [_P] * 6 + [_L] + [_I] * 6 + [_L] * 10 + [_P],
-    ),
-    "paged_decode_attention": (
-        "paged_decode_attention_fwd",
-        [_P] * 7 + [_L] + [_I] * 8 + [_L] * 10 + [_P],
-    ),
-    "topk_cosine": (
-        "topk_cosine_fwd",
-        [_P] * 7 + [_I] * 7 + [_P],
-    ),
-    "wkv6": (
-        "wkv6_fwd",
-        [_P] * 7 + [_I] * 5 + [_L] * 12 + [_P],
-    ),
-    "ssd": (
-        "ssd_fwd",
-        [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P],
-    ),
-    "ssd_step": (
-        "ssd_step_fwd",
-        [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P],
-    ),
-}
 
 _lock = threading.Lock()
 _loaded: Dict[str, Any] = {}  # name -> ctypes function
@@ -112,13 +79,13 @@ def build(names: Iterable[str]) -> Dict[str, pathlib.Path]:
     return out
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``, building it at first use."""
+def entry(name: str, symbol: str, argtypes: List):
+    """The C entry point ``symbol`` of kernel ``name`` with the ctypes
+    ``argtypes`` its launcher passes, building it at first use."""
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
             path = build([name])[name]
-            symbol, argtypes = SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -13,6 +13,7 @@ which a second kernel of the same call combines in chunk order.
 from __future__ import annotations
 
 import collections
+from ctypes import c_int, c_int64, c_void_p
 
 import torch
 
@@ -29,6 +30,11 @@ def split_scratch(B: int, Hq: int, Hkv: int, M: int, hd: int, device) -> torch.T
     n_chunks = -(-M // CHUNK)
     return torch.empty(B * Hkv * n_chunks * (Hq // Hkv) * (hd + 2), dtype=torch.float32,
                        device=device)
+
+
+# csrc/decode_attention.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "decode_attention_fwd"
+ARGTYPES = [c_void_p] * 6 + [c_int64] + [c_int] * 6 + [c_int64] * 10 + [c_void_p]
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -65,7 +71,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     if B == 0:
         return o
     scratch = split_scratch(B, Hq, Hkv, M, hd, dev)
-    fn = _build.entry("decode_attention")
+    fn = _build.entry("decode_attention", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

@@ -11,6 +11,7 @@ are 16-byte aligned (``check_aligned16``); fp32 runs exact CUDA-core FMAs.
 from __future__ import annotations
 
 import collections
+from ctypes import c_int, c_int64, c_void_p
 
 import torch
 
@@ -31,6 +32,11 @@ def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
                                     if n > 1):
             raise ValueError(f"{name}: a {tuple(t.shape)} tensor with strides {t.stride()} "
                              "is not 16-byte aligned (data pointer and row strides)")
+
+
+# csrc/flash_attention.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "flash_attention_fwd"
+ARGTYPES = [c_void_p] * 4 + [c_int] * 7 + [c_int64] * 12 + [c_void_p]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -58,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
     if S == 0 or B == 0:
         return o
-    fn = _build.entry("flash_attention")
+    fn = _build.entry("flash_attention", SYMBOL, ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

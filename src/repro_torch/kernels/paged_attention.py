@@ -13,6 +13,7 @@ the cache gathered in table order. Its plain version is
 from __future__ import annotations
 
 import collections
+from ctypes import c_int, c_int64, c_void_p
 
 import torch
 
@@ -22,6 +23,12 @@ from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
 from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (the mask value: NEG in csrc/common.cuh)
 
 HEAD_DIMS = (32, 64, 128)
+
+
+# csrc/paged_decode_attention.cu's entry point and the ctypes of the call below's
+# arguments, in order
+SYMBOL = "paged_decode_attention_fwd"
+ARGTYPES = [c_void_p] * 7 + [c_int64] + [c_int] * 8 + [c_int64] * 10 + [c_void_p]
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -64,7 +71,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if B == 0:
         return o
     scratch = split_scratch(B, Hq, Hkv, table.shape[1] * ps, hd, dev)
-    fn = _build.entry("paged_decode_attention")
+    fn = _build.entry("paged_decode_attention", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

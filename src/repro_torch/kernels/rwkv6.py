@@ -11,6 +11,8 @@ are 16-byte aligned (``check_aligned16``); the model's are.
 
 from __future__ import annotations
 
+from ctypes import c_int, c_int64, c_void_p
+
 import torch
 
 from repro_torch.kernels import _build
@@ -21,6 +23,11 @@ HEAD_SIZES = (16, 32, 64)
 
 def _strides3(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+# csrc/wkv6.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "wkv6_fwd"
+ARGTYPES = [c_void_p] * 7 + [c_int] * 5 + [c_int64] * 12 + [c_void_p]
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
@@ -52,7 +59,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w_log: torch.Tensor,
     state = torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
     if B == 0 or S == 0 or H == 0:
         return y, state
-    fn = _build.entry("wkv6")
+    fn = _build.entry("wkv6", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

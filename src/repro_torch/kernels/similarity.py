@@ -34,6 +34,7 @@ Why the design differs from the TPU kernel's:
 from __future__ import annotations
 
 import functools
+from ctypes import c_int, c_int64, c_void_p
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -153,6 +154,11 @@ def _sms(device: torch.device) -> int:
     return sms
 
 
+# csrc/topk_cosine.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "topk_cosine_fwd"
+ARGTYPES = [c_void_p] * 7 + [c_int] * 7 + [c_void_p]
+
+
 def topk_cosine(queries: torch.Tensor, bank: torch.Tensor, k: int, *,
                 n_split: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """queries (Q, D), bank (N, D): float32 on one CUDA device, D a multiple
@@ -184,7 +190,7 @@ def topk_cosine(queries: torch.Tensor, bank: torch.Tensor, k: int, *,
     plan = launch_plan(Q, N, D, k, _sms(dev), n_split)
     scores = torch.empty((Q, k), dtype=torch.float32, device=dev)
     rows = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    fn = _build.entry("topk_cosine")
+    fn = _build.entry("topk_cosine", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         ws_s = ws_r = ctr = None

@@ -13,6 +13,8 @@ strides are 16-byte aligned (``check_aligned16``); the model's are.
 
 from __future__ import annotations
 
+from ctypes import c_int, c_int64, c_void_p
+
 import torch
 
 from repro_torch.kernels import _build
@@ -21,6 +23,11 @@ from repro_torch.kernels.flash_attention import DTYPES, check_aligned16
 # (P, Ns): zamba2-2.7b's (64, 64), Nemotron-H's (64, 128) and (64, 256), and
 # the JAX package's sweeps' shapes
 SHAPES = ((32, 16), (32, 32), (32, 64), (64, 16), (64, 32), (64, 64), (64, 128), (64, 256))
+
+
+# csrc/ssd.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "ssd_fwd"
+ARGTYPES = [c_void_p] * 8 + [c_int] * 7 + [c_int64] * 12 + [c_void_p]
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, B_: torch.Tensor,
@@ -59,7 +66,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, B_: torch.Tensor
     state = torch.zeros((Bb, H, P, Ns), dtype=torch.float32, device=dev)
     if Bb == 0 or S == 0 or H == 0:
         return y, state
-    fn = _build.entry("ssd")
+    fn = _build.entry("ssd", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

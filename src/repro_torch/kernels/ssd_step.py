@@ -12,11 +12,18 @@ they are), and returns y in fp32.
 
 from __future__ import annotations
 
+from ctypes import c_int, c_int64, c_void_p
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES
 from repro_torch.kernels.ssd import SHAPES
+
+
+# csrc/ssd_step.cu's entry point and the ctypes of the call below's arguments, in order
+SYMBOL = "ssd_step_fwd"
+ARGTYPES = [c_void_p] * 8 + [c_int] * 6 + [c_int64] * 8 + [c_void_p]
 
 
 def ssd_step(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, B_: torch.Tensor,
@@ -61,7 +68,7 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor, B_: torch.T
     y = torch.empty((Bb, H, P), dtype=torch.float32, device=dev)
     if Bb == 0 or H == 0:
         return y, state
-    fn = _build.entry("ssd_step")
+    fn = _build.entry("ssd_step", SYMBOL, ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(

@@ -106,7 +106,7 @@ def test_tp_layer_collectives_match_hand_count(records):
 
 
 def _no_build(monkeypatch):
-    def refuse(name):
+    def refuse(name, *_):
         raise AssertionError(f"a meta tensor reached the CUDA build of {name}")
 
     monkeypatch.setattr(_build, "entry", refuse)

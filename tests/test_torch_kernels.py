@@ -3,6 +3,10 @@ against ``repro.kernels.ops`` — the Pallas kernels in interpret mode — on
 the shape grids of tests/test_kernels.py. The CUDA kernels themselves are
 checked against the same plain versions on the card by chip_smoke.py."""
 
+import ctypes
+import importlib
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch import kernels as kernel_table  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -211,6 +216,29 @@ def test_build_target_hashes_the_shared_headers(tmp_path, monkeypatch):
     assert _build._target("flash_attention") != after["flash_attention"]
 
 
+# the C types of the kernels' entry points -> the ctypes type a launcher passes
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+           "int64_t": ctypes.c_int64}
+
+
+@pytest.mark.parametrize("name", kernel_table.KERNELS)
+def test_the_launcher_declares_its_kernels_c_entry_point(name):
+    """The symbol and ctypes argument types a launcher hands to
+    ``_build.entry`` are those of the one ``extern "C"`` function of
+    ``csrc/<name>.cu``, argument by argument: a mismatch passes on the CPU
+    and is a wrong result or a memory fault on the card."""
+    launcher = importlib.import_module(kernel_table.launchers()[name].__module__)
+    decls = re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                       (_build.CSRC / f"{name}.cu").read_text())
+    assert len(decls) == 1
+    symbol, params = decls[0]
+    argtypes = [C_TYPES[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert launcher.SYMBOL == symbol
+    assert len(launcher.ARGTYPES) == len(argtypes)
+    for i, (declared, parsed) in enumerate(zip(launcher.ARGTYPES, argtypes)):
+        assert declared is parsed, f"{symbol} argument {i}: {declared} vs {parsed}"
+
+
 def test_check_aligned16_refuses_unaligned_rows():
     """The cp.async copies of the bf16 flash kernel and the decode kernels
     need 16-byte aligned pointers and row strides; the wrappers refuse
@@ -259,7 +287,7 @@ def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     (the dry-run's; shapes only); any other tensor goes to the kernel
     launcher, which refuses a device it cannot launch on (here called on
     meta tensors directly, the one non-CPU device this container has)."""
-    def no_build(name):
+    def no_build(name, *_):
         raise AssertionError(f"CPU tensors must not build {name}")
 
     monkeypatch.setattr(_build, "entry", no_build)

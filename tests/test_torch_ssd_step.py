@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels as kernel_table  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import ssd_step as ssd_step_launcher  # noqa: E402
 from repro_torch.kernels.ssd import SHAPES  # noqa: E402
 from repro_torch.kernels.ssd_step import ssd_step  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -107,7 +108,7 @@ REFUSALS = {
 def test_the_launcher_refuses_what_the_kernel_cannot_take(case, monkeypatch):
     """Before any build: each refusal raises ValueError, and a CPU call the
     kernel would take otherwise raises for want of a card."""
-    monkeypatch.setattr(_build, "entry", lambda name: pytest.fail("built a kernel"))
+    monkeypatch.setattr(_build, "entry", lambda *a: pytest.fail("built a kernel"))
     change, match = REFUSALS[case]
     with pytest.raises(ValueError, match=match):
         ssd_step(**_cpu_call(**change))
@@ -120,8 +121,8 @@ def test_the_kernel_takes_every_shape_of_the_prefill_scan():
     assert kernel_table.KERNELS[-1] == "ssd_step"
     assert kernel_table.launchers()["ssd_step"] is ssd_step
     assert {ns for _, ns in SHAPES} == {16, 32, 64, 128, 256}
-    symbol, argtypes = _build.SIGNATURES["ssd_step"]
-    assert symbol == "ssd_step_fwd" and len(argtypes) == 8 + 6 + 8 + 1
+    assert ssd_step_launcher.SYMBOL == "ssd_step_fwd"
+    assert len(ssd_step_launcher.ARGTYPES) == 8 + 6 + 8 + 1
 
 
 @pytest.mark.parametrize("arch", ["nemotron-h-47b", "zamba2-2.7b"])
