@@ -9,9 +9,9 @@ printing the ok line):
 1. the card: name and power limit (nvidia-smi), torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN so fp32 references stay fp32;
 2. the build: every kernel of the port (flash_attention, decode_attention,
-   paged_decode_attention, topk_cosine, wkv6, ssd, ssd_step) is compiled from
-   ``src/repro_torch/kernels/csrc/`` into ``build/kernels/`` (one nvcc per
-   source, all at once);
+   paged_decode_attention, topk_cosine, wkv6, ssd, ssd_step, causal_conv) is
+   compiled from ``src/repro_torch/kernels/csrc/`` into ``build/kernels/``
+   (one nvcc per source, all at once);
 3. kernels against their plain PyTorch versions on the card: the attention
    kernels at the three full-width head layouts of the deployment
    (16/16, 16/2, 48/8; hd 128) and zamba2's shared block (32/32, hd 80) in
@@ -26,7 +26,12 @@ printing the ok line):
    kernel (ssd_step, the state updated in place) against the plain step at
    zamba2's and Nemotron-H's layouts and every (P, Ns) the scan takes, and
    timed at the nemotron-h-47b cell's decode (B 16), where it must reach
-   ``SSD_STEP_MIN_SHARE`` of its byte bound; the paged decode kernel at the
+   ``SSD_STEP_MIN_SHARE`` of its byte bound; the Mamba-2 prefill's conv
+   kernel (causal_conv) against the plain conv, bit for bit, at
+   Nemotron-H's and zamba2's layouts (the strided column slice of an
+   in_proj output, with and without a carry, bf16 and fp32), and timed at
+   the nemotron-h-47b cell's prefill wave (B 16, S 1,549), where it must
+   reach ``CAUSAL_CONV_MIN_SHARE`` of its byte bound; the paged decode kernel at the
    deployment's layouts and the hd 64 / hd 32 shapes of tests/test_kernels.py, page sizes 8 to
    64, permuted pool rows, each result also bitwise equal to the dense
    decode kernel on the gathered pages and batch-invariant; the top-k
@@ -69,7 +74,8 @@ printing the ok line):
    they are read just after: every kernel of the run's path must have
    risen, and in the recurrent run the attention kernels' hd-80 counts
    must be positive multiples of the shared block's applications, and
-   ssd_step's of zamba2's Mamba-2 layers;
+   ssd_step's of zamba2's Mamba-2 layers (zamba2's prefills launch
+   causal_conv);
 6. the paper's baselines, its other workloads and its second agent, on the
    ``DEFAULT`` engines of phase 5 (``BASELINE_RUNS``): ``full_history`` (16), ``cost_optimal``
    (8), ``cascade`` on 8 AIME tasks at default thresholds on the
@@ -244,6 +250,15 @@ SSD_CELL_TIMED = (16, 1549)
 SSD_STEP_BATCHES = (1, 16)
 SSD_STEP_CELL_B = 16
 SSD_STEP_MIN_SHARE = 0.75
+# the prefill's conv kernel (causal_conv, K = CONV_TAPS), checked at these
+# layouts (batch, steps, in_proj width, first conv column, channels: xc is
+# the model's strided column slice of the in_proj output) and timed at
+# Nemotron-H-47B's, the nemotron-h-47b.plan_miss cell's prefill wave, where
+# it must reach CAUSAL_CONV_MIN_SHARE of its bound
+CONV_LAYOUTS = {"nemotron-h-47b": (16, 1549, 37120, 16384, 20480),
+                "zamba2-2.7b": (2, 300, 10448, 5120, 5248)}
+CONV_TAPS = 4
+CAUSAL_CONV_MIN_SHARE = 0.75
 MODEL_CHUNK = 128  # both configs' ssm.chunk_size, the plain versions' chunk
 # scan kernel vs plain: |err| <= atol * max(1, max|plain|) + rtol * |plain|,
 # elementwise, with tests/test_kernels.py's atol and rtol (wkv6 2e-4 / 1e-3,
@@ -334,7 +349,8 @@ SPEC_RUNS = (
 RECURRENT_ROLES = {"small_planner": "rwkv6-3b", "keyword_extractor": "rwkv6-3b",
                    "actor": "zamba2-2.7b"}
 RECURRENT_EXPECT = (2, 0.875, 0.2987)
-RECURRENT_KERNELS = ("wkv6", "ssd", "ssd_step", "flash_attention", "decode_attention")
+RECURRENT_KERNELS = ("wkv6", "ssd", "ssd_step", "causal_conv", "flash_attention",
+                     "decode_attention")
 # phase 8's two runs, exact `apc` on the apc_qasper run's 8 QASPER tasks (2
 # hits; 8 FinanceBench tasks give none, so the small planner would never
 # serve): `families` puts the moe, dense-qk-norm and vlm archs in these roles
@@ -1696,6 +1712,61 @@ def check_ssd_step(torch):
     return err, n
 
 
+def _conv_inputs(torch, g, B, S, width, col, CH, dtype):
+    """xc the columns [col, col + CH) of an in_proj output (B, S, width)
+    drawn N(0, 1) in ``dtype``; w 0.25 + 0.1 N(0, 1) (CONV_TAPS, CH) and b
+    0.1 N(0, 1) (CH,) in fp32."""
+    xc = torch.randn((B, S, width), generator=g, device="cuda").to(dtype)[..., col:col + CH]
+    w = 0.25 + 0.1 * torch.randn((CONV_TAPS, CH), generator=g, device="cuda")
+    return xc, w, 0.1 * torch.randn((CH,), generator=g, device="cuda")
+
+
+def check_causal_conv(torch):
+    """Phase 3 (prefill conv): the causal_conv kernel against the plain conv
+    (``ref.causal_conv_ref``) at each layout of CONV_LAYOUTS, with and
+    without a carry drawn N(0, 1), in bf16 and fp32: y and the new carry
+    bit for bit, one launch a call. Three taps and channels not a multiple
+    of 8 must raise. Returns (max abs error, checks)."""
+    from repro_torch.kernels.causal_conv import causal_conv
+    from repro_torch.kernels.ref import causal_conv_ref
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    err, n = 0.0, 0
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for arch, (B, S, width, col, CH) in CONV_LAYOUTS.items():
+            xc, w, b = _conv_inputs(torch, g, B, S, width, col, CH, dt)
+            for carry in (False, True):
+                prev = (torch.randn((B, CONV_TAPS - 1, CH), generator=g, device="cuda").to(dt)
+                        if carry else None)
+                label = f"{arch} {dname} B={B} S={S} CH={CH}" + (" carry" if carry else "")
+                launches = causal_conv.launches
+                y, c = causal_conv(xc, w, b, prev)
+                if causal_conv.launches != launches + 1:
+                    raise AssertionError(f"causal_conv: {label}: "
+                                         f"{causal_conv.launches - launches} launches")
+                want, want_c = causal_conv_ref(xc, w, b, prev)
+                err = max(err, (y.float() - want.float()).abs().max().item(),
+                          (c.float() - want_c.float()).abs().max().item())
+                if not (torch.equal(y, want) and torch.equal(c, want_c)):
+                    raise AssertionError(f"causal_conv: {label}: not the plain conv bit for "
+                                         f"bit (max abs err {err})")
+                n += 1
+            del xc, y, want
+    xc, w, b = torch.zeros((1, 4, 16), device="cuda"), w[:, :16], b[:16]
+    for what, args in (("three taps", (xc, w[:3], b)),
+                       ("channels not a multiple of 8", (xc[..., :12], w[:, :12], b[:12]))):
+        try:
+            causal_conv(*args)
+        except ValueError:
+            continue
+        raise AssertionError(f"causal_conv: {what} must raise")
+    torch.cuda.synchronize()
+    log(f"[kernels] causal_conv: {n} checks passed (y and carry bit for bit against the plain "
+        f"conv); max abs err {err}")
+    return err, n
+
+
 def time_scans(torch):
     """Phase 3b (scans): kernel and plain (chunked, chunk 128) version at
     rwkv6-3b's and zamba2's layouts, bf16 inputs drawn as the model draws
@@ -1763,6 +1834,7 @@ def time_scans(torch):
     rows.append(row)
     log("[timing] " + json.dumps(row))
     rows.append(time_ssd_step(torch, g))
+    rows.append(time_causal_conv(torch, g))
     return rows
 
 
@@ -1796,6 +1868,37 @@ def time_ssd_step(torch, g):
         raise AssertionError(f"ssd_step: {row['ms']:.4f} ms at the cell's decode, "
                              f"{row['bound_share']:.1%} of its bound {bms:.4f} ms (needs "
                              f"{SSD_STEP_MIN_SHARE:.0%})")
+    return row
+
+
+def time_causal_conv(torch, g):
+    """The prefill conv's kernel against the plain conv at the
+    nemotron-h-47b.plan_miss cell's prefill wave (CONV_LAYOUTS'
+    Nemotron-H-47B: B 16, S 1,549, CH 20,480 of a 37,120-wide bf16 in_proj
+    output), one Mamba-2 layer. Bound: the bytes, xc read and y written
+    once in bf16 (2 x 1.0 GB), the taps and bias read and the carry
+    written, over 3.35 TB/s; its ~12 fp32 operations a value (4 products,
+    4 sums, exp, 1 + e, the division) at 67 TFLOP/s take a seventh of that.
+    The kernel must reach CAUSAL_CONV_MIN_SHARE of the bound."""
+    from repro_torch.kernels.causal_conv import causal_conv
+    from repro_torch.kernels.ref import causal_conv_ref
+
+    B, S, width, col, CH = CONV_LAYOUTS["nemotron-h-47b"]
+    K = CONV_TAPS
+    xc, w, b = _conv_inputs(torch, g, B, S, width, col, CH, torch.bfloat16)
+    nbytes = 2 * 2 * B * S * CH + 4 * (K + 1) * CH + 2 * B * (K - 1) * CH
+    bms, by = bound(nbytes, 12 * B * S * CH, PEAK_FP32_FLOPS)
+    row = _timed(torch, "causal_conv", "nemotron-h-47b",
+                 f"B={B} S={S} CH={CH} of a {width}-wide bf16 in_proj output, no carry",
+                 lambda: causal_conv(xc, w, b), lambda: causal_conv_ref(xc, w, b), None,
+                 bms, by)
+    row["library"] = "none: no single PyTorch call computes the conv, its bias and SiLU"
+    row["bound_share"] = bms / row["ms"]
+    log("[timing] " + json.dumps(row))
+    if row["bound_share"] < CAUSAL_CONV_MIN_SHARE:
+        raise AssertionError(f"causal_conv: {row['ms']:.4f} ms at the cell's prefill, "
+                             f"{row['bound_share']:.1%} of its bound {bms:.4f} ms (needs "
+                             f"{CAUSAL_CONV_MIN_SHARE:.0%})")
     return row
 
 
@@ -4095,6 +4198,7 @@ def main() -> int:
     err.update(scan_err)
     checks.update(scan_checks)
     err["ssd_step"], checks["ssd_step"] = part("check_ssd_step", check_ssd_step)
+    err["causal_conv"], checks["causal_conv"] = part("check_causal_conv", check_causal_conv)
     timing = [row for name, fn in (("time_kernels", time_kernels), ("time_topk", time_topk),
                                    ("time_paged", time_paged), ("time_scans", time_scans))
               for row in part(name, fn)]
@@ -4240,6 +4344,9 @@ def main() -> int:
         "ssd_step": ("src/repro_torch/kernels/csrc/ssd_step.cu",
                      "none: plain jnp, src/repro/models/mamba.py:130", "nemotron-h-47b",
                      "recurrent"),
+        "causal_conv": ("src/repro_torch/kernels/csrc/causal_conv.cu",
+                        "none: plain jnp, src/repro/models/mamba.py:52", "nemotron-h-47b",
+                        "recurrent"),
     }
     kernels = []
     for name, (src, replaces, arch, run) in sources.items():

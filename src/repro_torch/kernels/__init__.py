@@ -4,7 +4,7 @@ Each launcher module declares its kernel's C entry point (``SYMBOL``,
 ``ARGTYPES``) beside the call that passes the arguments. Each wrapper
 counts its kernel's launches in ``<wrapper>.launches`` (and, for the
 attention kernels, in ``launches_by_*`` breakdowns); ``launchers`` is the
-table of the seven by name and ``reset_counts`` sets their counters to 0.
+table of the eight by name and ``reset_counts`` sets their counters to 0.
 ``counts`` copies them and ``add_counts`` adds a difference of two copies:
 a CUDA graph replays launches that no wrapper counts, so the engine adds,
 at each replay, what the wrappers counted while it captured."""
@@ -21,6 +21,7 @@ _LAUNCHER_MODULES = {
     "wkv6": "rwkv6",
     "ssd": "ssd",
     "ssd_step": "ssd_step",
+    "causal_conv": "causal_conv",
 }
 KERNELS = tuple(_LAUNCHER_MODULES)
 

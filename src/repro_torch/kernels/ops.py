@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.causal_conv import causal_conv
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -132,6 +133,17 @@ def ssd_step_op(x, dt, A_log, B_, C_, D, state):
         return plain(x, dt, A_log, B_, C_, D, state)
     _refuse_grad("ssd_step", x, dt, A_log, B_, C_, D, state)
     return ssd_step(x, dt, A_log, B_, C_, D, state)
+
+
+def causal_conv_op(xc, w, b, prev=None):
+    """A Mamba-2 prefill's depthwise causal conv, its bias and SiLU: xc (B,
+    S, CH), w (K, CH), b (CH,), prev (B, K-1, CH) carry or None (zeros) ->
+    (y (B, S, CH) in xc's dtype, carry (B, K-1, CH)). On the CPU, the plain
+    ``ref.causal_conv_ref``; the kernel takes K = 4 and CH a multiple of 8."""
+    if _plain(xc):
+        return ref.causal_conv_ref(xc, w, b, prev)
+    _refuse_grad("causal_conv", xc, w, b, prev)
+    return causal_conv(xc, w, b, prev)
 
 
 def batch_topk(queries: torch.Tensor, bank, *, k: int = 1):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -153,6 +154,23 @@ def topk_cosine_ref(queries: torch.Tensor, bank: torch.Tensor, k: int):
     out_s[:, :kk] = top
     out_i[:, :kk] = torch.where(top <= NEG_INF / 2, -1, order).to(torch.int32)
     return out_s, out_i
+
+
+def causal_conv_ref(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, prev=None):
+    """The Mamba-2 mixer's depthwise causal conv, its bias and SiLU (the
+    twin of ``repro.models.mamba._causal_conv``). xc: (B, S, CH); w: (K,
+    CH); prev: (B, K-1, CH) carry or None (zeros). Returns (y (B, S, CH) in
+    xc's dtype, new carry (B, K-1, CH))."""
+    B, S, CH = xc.shape
+    K = w.shape[0]
+    if prev is None:
+        prev = xc.new_zeros((B, K - 1, CH))
+    full = torch.cat([prev.to(xc.dtype), xc], dim=1)  # (B, S+K-1, CH)
+    y = torch.zeros((B, S, CH), dtype=torch.float32, device=xc.device)
+    for i in range(K):
+        y = y + full[:, i:i + S].float() * w[i]
+    y = y + b
+    return F.silu(y).to(xc.dtype), full[:, -(K - 1):]
 
 
 def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:

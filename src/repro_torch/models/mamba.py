@@ -11,11 +11,14 @@ then y * silu(z), an RMSNorm over each group's d_in / n_groups channels
 (all of d_in with one group; Nemotron-H's ``norm_before_gate=False``) at
 ``cfg.norm_eps`` (the reference's 1e-6 where unset), and ``out_proj``.
 
-A prefill runs the scan through ``kernels.ops.ssd_op``: the hand-written
-CUDA kernel on a CUDA tensor, the chunked plain version on a CPU tensor.
-Training (``use_kernels=False``) calls the chunked form itself,
-``ref.ssd_chunked_ref``, the twin of the reference's model function
-``ssd_chunked`` that the reference trains through, with autograd. A decode
+A prefill runs the conv (with its bias and SiLU) through
+``kernels.ops.causal_conv_op`` and the scan through ``kernels.ops.ssd_op``:
+the hand-written CUDA kernels on a CUDA tensor, the plain conv
+``ref.causal_conv_ref`` and the chunked plain scan on a CPU tensor.
+Training (``use_kernels=False``) calls the plain conv (``_causal_conv``,
+the reference's name) and the chunked form itself, ``ref.ssd_chunked_ref``,
+the twin of the reference's model function ``ssd_chunked`` that the
+reference trains through, with autograd. A decode
 step runs through ``kernels.ops.ssd_step_op``: on a CUDA tensor a kernel
 that updates the state in place, on a CPU tensor the plain ``ssd_step``
 (the reference's), which returns a new state.
@@ -76,21 +79,8 @@ def mamba_init(cfg, generator, device) -> Params:
     }
 
 
-def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 prev: Optional[torch.Tensor] = None):
-    """Depthwise causal conv. xc: (B, S, CH); w: (K, CH); prev: (B, K-1, CH)
-    carry or None (zeros). Returns (y (B, S, CH) in xc's dtype, new carry
-    (B, K-1, CH))."""
-    B, S, CH = xc.shape
-    K = w.shape[0]
-    if prev is None:
-        prev = xc.new_zeros((B, K - 1, CH))
-    full = torch.cat([prev.to(xc.dtype), xc], dim=1)  # (B, S+K-1, CH)
-    y = torch.zeros((B, S, CH), dtype=torch.float32, device=xc.device)
-    for i in range(K):
-        y = y + full[:, i:i + S].float() * w[i]
-    y = y + b
-    return F.silu(y).to(xc.dtype), full[:, -(K - 1):]
+# the reference's name for the plain conv (training's, and the op's on the CPU)
+_causal_conv = ref.causal_conv_ref
 
 
 def ssd_chunked(x, dt, A_log, B_, C_, D, state0, chunk: int = 128):
@@ -213,24 +203,26 @@ class _TP:
 def mamba_forward(cfg, p: Params, x: torch.Tensor,
                   conv_prev: Optional[torch.Tensor] = None, *, use_kernels: bool = True,
                   ctx=None, spec=None):
-    """x: (B, S, D). The scan starts from a zero state, on the ssd kernel
-    (``use_kernels``) or the chunked form. Returns (y, state (B, H, P, Ns)
+    """x: (B, S, D). The conv runs on the causal_conv kernel and the scan,
+    from a zero state, on the ssd kernel (``use_kernels``), or the plain conv
+    and the chunked form. Returns (y, state (B, H, P, Ns)
     fp32, conv carry (B, K-1, CH)); under a mesh the state is the rank's
     heads', the conv carry whole."""
     B, S, D = x.shape
     s = cfg.ssm
     d_in, heads, _ = mamba_dims(cfg)
+    conv = kops.causal_conv_op if use_kernels else _causal_conv
     scan = kops.ssd_op if use_kernels else ref.ssd_chunked_ref
     if _tp(ctx, spec):
         tp = _TP(cfg, p, spec, x, ctx)
         z, conv_in, dt_raw = _split_proj(cfg, tp.proj)
-        conv_out, conv_carry = _causal_conv(conv_in, tp.conv_w, tp.conv_b, conv_prev)
+        conv_out, conv_carry = conv(conv_in, tp.conv_w, tp.conv_b, conv_prev)
         xin, Bc, Cc, dt, A_log, Dh = tp.scan_inputs(cfg, p, conv_out, dt_raw)
         y, state = scan(xin.reshape(B, S, tp.h1 - tp.h0, s.head_dim), dt, A_log, Bc, Cc, Dh,
                         chunk=s.chunk_size)
         return tp.out(p, y.reshape(B, S, -1), z, x.dtype), state, conv_carry
     z, conv_in, dt_raw = _split_proj(cfg, x @ p["in_proj"])
-    conv_out, conv_carry = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_prev)
+    conv_out, conv_carry = conv(conv_in, p["conv_w"], p["conv_b"], conv_prev)
     xin = conv_out[..., :d_in]
     Bc, Cc = _scan_bc(cfg, conv_out)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)

@@ -26,6 +26,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.sampler import sample_token  # noqa: E402
+from torch_card import card  # noqa: E402,F401
 
 DENSE = ["olmo-1b", "qwen2.5-3b", "nemotron-4-15b", "qwen3-4b"]
 
@@ -168,15 +169,6 @@ def test_add_counts_undoes_and_repeats_a_difference():
 # cell's batch, its longest prompt and its tokens a call
 CELLS = {"nemotron-4-15b": (16, 1549), "olmo-1b": (512, 245)}
 MAX_NEW = 32
-
-
-@pytest.fixture
-def card():
-    """The card's device, or a skip where there is none (decided when the
-    test runs, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (run the card tests on the GPU machine)")
-    return "cuda:0"
 
 
 def _card_model(arch, device, layers=2, seed=0):

@@ -27,6 +27,7 @@ from repro_torch.models import mamba as mam  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.obs import InMemoryExporter, Tracer, use_tracer  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from torch_card import card  # noqa: E402,F401
 
 ARCH = "nemotron-h-47b"
 # every kind of layer, attention twice, Mamba-2 first and last
@@ -284,15 +285,6 @@ def test_the_cpu_engine_decodes_eagerly_and_traces_the_mixers():
 
 
 # -- on the card ---------------------------------------------------------------
-
-
-@pytest.fixture
-def card():
-    """The card's device, or a skip where there is none (decided when the
-    test runs, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (run the card tests on the GPU machine)")
-    return "cuda:0"
 
 
 @pytest.mark.card
